@@ -1,0 +1,1 @@
+"""HEAR 2021 serving API of the port (conv.py for AudioNTT2022)."""
