@@ -13,8 +13,9 @@ Phases, each of which exits non-zero on failure:
   4. serving: AudioNTT2022 at full width (64 mels, d = 3072, fp32,
      fused_conv=True) with seeded random weights answers a timestamp request
      and a scene request for 16 seeded 10-s clips through the HEAR API; the
-     kernels' launch counters are zeroed just before and read just after, and
-     a small request is held against the same model on the CPU.
+     kernels' launch counters are zeroed just before each request and read
+     just after it, and a small request is held against the same model on
+     the CPU.
 The `kernels` JSON line lists every ported kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -24,7 +25,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 
@@ -43,29 +43,8 @@ EMB_RTOL = 1e-3      # embeddings / max|embedding|: fp32 through four layers, ca
 
 CHUNK = 512          # the HEAR pipeline's BATCH_SIZE: one kernel launch's batch
 WINDOW = 15200       # 0.95 s at 16 kHz: one timestamp window
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device milliseconds per call, CUDA events around `iters` calls
-    after 3 warm-up calls."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+N_CLIPS = 16         # clips per serving request
+CLIP = 160000        # 10 s at 16 kHz: one scene clip
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -85,56 +64,90 @@ def check(name: str, err: float, tol: float, why: str) -> None:
         raise SystemExit(f"{name}: error {err} above {tol}")
 
 
+def launch_counts() -> dict[str, int]:
+    """Every kernel instantiation's launch counter."""
+    from ssl_audio_tpu_torch.ops.fused_conv import fused_conv1_fwd_cuda
+    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+
+    return {"log_mel_folded": log_mel_cuda.launches["folded"],
+            "log_mel_unfolded": log_mel_cuda.launches["unfolded"],
+            "fused_conv1_fwd": fused_conv1_fwd_cuda.launches}
+
+
+def zero_launch_counts() -> None:
+    from ssl_audio_tpu_torch.ops.fused_conv import fused_conv1_fwd_cuda
+    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+
+    for key in log_mel_cuda.launches:
+        log_mel_cuda.launches[key] = 0
+    fused_conv1_fwd_cuda.launches = 0
+
+
+def mel_row(wav: torch.Tensor, spec, fold, label: str) -> dict:
+    """log_mel_cuda against log_mel_spectrogram_plain on `wav`, with kernel,
+    plain and library (torch.stft) times and the bound."""
+    from ssl_audio_tpu_torch.ops.mel import TORCH_FLOAT32_EPS, log_mel_spectrogram_plain
+    from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms
+
+    out = log_mel_cuda(wav, spec, fold=fold)
+    ref = log_mel_spectrogram_plain(wav, spec, fold=fold)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    B, L = wav.shape
+    check(f"log_mel[{label}] ({B} x {L})", err, MEL_ATOL,
+          "fp32 DFT sums in another order")
+    ops = kernel_operands(spec, fold)
+    nbytes = 4 * (wav.numel() + out.numel() + ops.basis_c.size
+                  + ops.basis_s.size + ops.fb.size)
+    bound, by = bound_ms(B * spec.num_frames(L) * ops.flops_per_frame(), nbytes)
+    window = torch.hann_window(spec.win_length, periodic=True, device=wav.device)
+    fb_full = torch.from_numpy(spec.filterbank).to(wav.device)
+
+    def library():
+        st = torch.stft(wav, spec.n_fft, spec.hop_length, spec.win_length,
+                        window, center=True, pad_mode="reflect",
+                        return_complex=True)
+        power = st.real ** 2 + st.imag ** 2
+        return torch.log(torch.einsum("bft,fm->bmt", power, fb_full)
+                         + TORCH_FLOAT32_EPS)
+
+    row = {"max_abs_err": err, "library_max_abs_err": max_err(library(), ref),
+           "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold=fold)),
+           "plain_ms": cuda_ms(lambda: log_mel_spectrogram_plain(wav, spec, fold=fold)),
+           "bound_ms": bound, "bound_by": by, "library_ms": cuda_ms(library),
+           "shape": f"{B} x {L} samples -> {tuple(out.shape)}"}
+    print(f"  log_mel[{label}]: " + json.dumps(row))
+    return row
+
+
 def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     from ssl_audio_tpu_torch.ops import no_tf32
     from ssl_audio_tpu_torch.ops.fused_conv import (
         fused_conv1_bn_relu_pool_eval, fused_conv1_fwd_cuda,
         fused_conv1_fwd_plain)
-    from ssl_audio_tpu_torch.ops.mel import (
-        TORCH_FLOAT32_EPS, MelSpec, log_mel_spectrogram_plain)
-    from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
-    from ssl_audio_tpu_torch.tools.serving import seeded_clips
+    from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_plain
+    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms, seeded_clips
 
     print("phase 3: kernels against their plain versions on the card")
+    hear_spec = MelSpec(win_length=400)
+    # the timestamp path's input: one chunk of CHUNK windows
     wav = seeded_clips(gen, CHUNK, WINDOW).to(dev)
-    mel_rows = {}
-    for label, spec, fold in (("folded", MelSpec(win_length=400), None),
-                              ("unfolded", MelSpec(win_length=400), False),
-                              ("train_spec_folded", MelSpec(win_length=1024), None),
-                              ("train_spec_unfolded", MelSpec(win_length=1024), False)):
-        out = log_mel_cuda(wav, spec, fold=fold)
-        ref = log_mel_spectrogram_plain(wav, spec, fold=fold)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        check(f"log_mel[{label}] (512 x 15200)", err, MEL_ATOL,
+    mel_rows = {"folded": mel_row(wav, hear_spec, None, "folded"),
+                "unfolded": mel_row(wav, hear_spec, False, "unfolded")}
+    # the scene path's input: the request's 16 whole 10-s clips (T = 1001,
+    # a partial last frame tile, reflect indexing over a 160k-sample row)
+    scene_wav = seeded_clips(gen, N_CLIPS, CLIP).to(dev)
+    mel_rows["scene_shape"] = mel_row(scene_wav, hear_spec, None, "folded, scene")
+    train_err = 0.0
+    for label, fold in (("train_spec_folded", None), ("train_spec_unfolded", False)):
+        spec = MelSpec(win_length=1024)
+        err = max_err(log_mel_cuda(wav, spec, fold=fold),
+                      log_mel_spectrogram_plain(wav, spec, fold=fold))
+        check(f"log_mel[{label}] ({CHUNK} x {WINDOW})", err, MEL_ATOL,
               "fp32 DFT sums in another order")
-        if not label.startswith("train"):
-            ops = kernel_operands(spec, fold)
-            frames = CHUNK * spec.num_frames(WINDOW)
-            nbytes = 4 * (wav.numel() + out.numel() + ops.basis_c.size
-                          + ops.basis_s.size + ops.fb.size)
-            bound, by = bound_ms(frames * ops.flops_per_frame(), nbytes)
-            window = torch.hann_window(spec.win_length, periodic=True, device=dev)
-            fb_full = torch.from_numpy(spec.filterbank).to(dev)
-
-            def library(spec=spec, window=window, fb_full=fb_full):
-                st = torch.stft(wav, spec.n_fft, spec.hop_length, spec.win_length,
-                                window, center=True, pad_mode="reflect",
-                                return_complex=True)
-                power = st.real ** 2 + st.imag ** 2
-                return torch.log(torch.einsum("bft,fm->bmt", power, fb_full)
-                                 + TORCH_FLOAT32_EPS)
-
-            lib_err = max_err(library(), ref)
-            mel_rows[label] = {
-                "max_abs_err": err, "library_max_abs_err": lib_err,
-                "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold=fold)),
-                "plain_ms": cuda_ms(lambda: log_mel_spectrogram_plain(wav, spec, fold=fold)),
-                "bound_ms": bound, "bound_by": by,
-                "library_ms": cuda_ms(library)}
-            print(f"  log_mel[{label}]: " + json.dumps(mel_rows[label]))
-        else:
-            mel_rows["max_train_spec_err"] = max(mel_rows.get("max_train_spec_err", 0.0), err)
+        train_err = max(train_err, err)
 
     # fused conv forward at one chunk of timestamp windows: (512, 64, 96),
     # inputs quantised to 0.5 so windows tie, mixed-sign gamma, one exact 0
@@ -162,7 +175,7 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
 
     ev_p = plain_eval()
     torch.cuda.synchronize()
-    check("fused_conv1_fwd sel (512 x 64 x 96)", max_err(sel, sel_p), CONV_ATOL,
+    check(f"fused_conv1_fwd sel ({B} x {H} x {W})", max_err(sel, sel_p), CONV_ATOL,
           "cuDNN fp32 conv algorithm rounding")
     for name, a, b in (("s1", s1, s1_p), ("s2", s2, s2_p)):
         check(f"fused_conv1_fwd {name} / max|{name}|",
@@ -186,6 +199,7 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     bound, by = bound_ms(conv_flops, conv_bytes)
     conv_row = {
         "max_abs_err": max(conv_err, max_err(sel, sel_p)),
+        "shape": f"{(B, H, W)} -> {tuple(ev.shape)}, eval epilogue fused",
         "library_max_abs_err": lib_conv_err,
         "ms": cuda_ms(lambda: fused_conv1_bn_relu_pool_eval(
             x[..., None], kernel_hwio, bias, gamma, beta, mean, var)),
@@ -199,47 +213,54 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
         {"name": "log_mel", "route": "cuda",
          "source": "ssl_audio_tpu_torch/csrc/log_mel.cu",
          "replaces": "ssl_audio_tpu/ops/mel_pallas.py:185",
-         **{k: mel_rows["folded"][k] for k in
-            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **mel_rows["folded"],
          "max_abs_err": max(mel_rows["folded"]["max_abs_err"],
                             mel_rows["unfolded"]["max_abs_err"],
-                            mel_rows["max_train_spec_err"]),
-         "shape": "512 x 15200 samples -> (512, 64, 96), HEAR spec",
+                            mel_rows["scene_shape"]["max_abs_err"], train_err),
+         "train_spec_max_abs_err": train_err,
+         "scene_shape": mel_rows["scene_shape"],
          "unfolded": {"replaces": "ssl_audio_tpu/ops/mel_pallas.py:139",
                       **mel_rows["unfolded"]}},
         {"name": "fused_conv1_fwd", "route": "cuda",
          "source": "ssl_audio_tpu_torch/csrc/fused_conv_fwd.cu",
-         "replaces": "ssl_audio_tpu/ops/fused_conv.py:186",
-         **{k: conv_row[k] for k in conv_row},
-         "shape": "(512, 64, 96) -> (512, 32, 48, 64), eval epilogue fused"},
+         "replaces": "ssl_audio_tpu/ops/fused_conv.py:186", **conv_row},
     ]
 
 
 def phase_serving(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
     from ssl_audio_tpu_torch.hear import conv as hear_conv
-    from ssl_audio_tpu_torch.ops.fused_conv import fused_conv1_fwd_cuda
-    from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
+    from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands
     from ssl_audio_tpu_torch.tools.serving import seeded_clips, seeded_serving_model
 
     print("phase 4: HEAR serving, AudioNTT2022 (64 mels, d=3072, fp32, fused_conv=True)")
     model = seeded_serving_model(gen, dev)
-    n_clips, seconds = 16, 10.0
-    audio = seeded_clips(gen, n_clips, int(seconds * 16000))
+    audio = seeded_clips(gen, N_CLIPS, CLIP)
 
-    counters = (log_mel_cuda, fused_conv1_fwd_cuda)
-    for fn in counters:
-        fn.launches = 0
-    ts_emb, ts = hear_conv.get_timestamp_embeddings(audio, model)
-    ts_launches = {fn.__name__: fn.launches for fn in counters}
-    scene = hear_conv.get_scene_embeddings(audio, model)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    print(f"  main-path launches: timestamp request {ts_launches}, "
-          f"after the scene request {launches}")
-    if not all(ts_launches.values()):
-        raise SystemExit(f"a kernel of the serving path was not launched: {ts_launches}")
+    # the kernels each request's path runs: the log-mel instantiation of the
+    # serving spec, and the fused block 1 where the log-mel's H and W are
+    # even (the 96-frame timestamp windows; not the 1001-frame scene clips)
+    mel = "log_mel_folded" if kernel_operands(model.mel).fold else "log_mel_unfolded"
+    block1 = ("fused_conv1_fwd",)
+    path_kernels = {
+        "timestamp": (mel,) + block1,
+        "scene": (mel,) + (block1 if model.mel.num_frames(CLIP) % 2 == 0 else ())}
+    requests = {
+        "timestamp": lambda: hear_conv.get_timestamp_embeddings(audio, model),
+        "scene": lambda: hear_conv.get_scene_embeddings(audio, model)}
+    launches, outputs = {}, {}
+    for path, request in requests.items():
+        zero_launch_counts()
+        outputs[path] = request()
+        torch.cuda.synchronize()
+        launches[path] = launch_counts()
+        print(f"  {path} request launches: {launches[path]}")
+        missing = [k for k in path_kernels[path] if launches[path][k] <= 0]
+        if missing:
+            raise SystemExit(f"{path} request: {missing} not launched")
+    ts_emb, ts = outputs["timestamp"]
+    scene = outputs["scene"]
     n_frames = ts.shape[1]
-    if ts_emb.shape != (n_clips, n_frames, 3072) or scene.shape != (n_clips, 3072):
+    if ts_emb.shape != (N_CLIPS, n_frames, 3072) or scene.shape != (N_CLIPS, 3072):
         raise SystemExit(f"bad shapes {tuple(ts_emb.shape)} {tuple(scene.shape)}")
     if not (torch.isfinite(ts_emb).all() and torch.isfinite(scene).all()):
         raise SystemExit("non-finite embeddings")
@@ -255,17 +276,14 @@ def phase_serving(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
-    ts_ms = wall_ms(lambda: hear_conv.get_timestamp_embeddings(audio, model))
-    sc_ms = wall_ms(lambda: hear_conv.get_scene_embeddings(audio, model))
+    ts_ms = wall_ms(requests["timestamp"])
+    sc_ms = wall_ms(requests["scene"])
     serving = {
-        "clips": n_clips, "clip_seconds": seconds, "windows": n_clips * n_frames,
+        "clips": N_CLIPS, "clip_seconds": CLIP / 16000, "windows": N_CLIPS * n_frames,
         "timestamp_ms_per_request": ts_ms,
-        "timestamp_clips_per_s": n_clips / ts_ms * 1e3,
-        "scene_ms_per_request": sc_ms, "scene_clips_per_s": n_clips / sc_ms * 1e3,
+        "timestamp_clips_per_s": N_CLIPS / ts_ms * 1e3,
+        "scene_ms_per_request": sc_ms, "scene_clips_per_s": N_CLIPS / sc_ms * 1e3,
         "launches": launches, "card": smi,
-        # the log-mel launches all took the folded instantiation when the
-        # serving spec folds (the HEAR window does)
-        "mel_folds": kernel_operands(model.mel).fold,
     }
     print("  serving: " + json.dumps(serving))
 
@@ -290,6 +308,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from ssl_audio_tpu_torch.ops import _build
+    from ssl_audio_tpu_torch.tools.serving import smi_line
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
@@ -310,13 +329,14 @@ def main() -> int:
 
     kernels = phase_kernels(gen, dev)
     serving = phase_serving(gen, dev, smi)
-    for k in kernels:
-        k["launches"] = serving["launches"][
-            "log_mel_cuda" if k["name"] == "log_mel" else "fused_conv1_fwd_cuda"]
-        if k["launches"] <= 0:
-            raise SystemExit(f"{k['name']} was not launched on the serving path")
-        if "unfolded" in k:
-            k["unfolded"]["launches"] = 0 if serving["mel_folds"] else k["launches"]
+    # launches on the main path, per request path and in all; the top-level
+    # log_mel entry is the folded instantiation, the serving spec's
+    entries = [(k, "log_mel_folded" if k["name"] == "log_mel" else k["name"])
+               for k in kernels]
+    entries += [(k["unfolded"], "log_mel_unfolded") for k in kernels if "unfolded" in k]
+    for entry, counter in entries:
+        entry["launches_by_path"] = {p: c[counter] for p, c in serving["launches"].items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,8 +22,9 @@
 // The monotone BN affine and ReLU commute with the sign-aware extreme, so
 // the (B, H, W, C) conv activation never exists, in memory or in registers.
 //
-// Thread map: thread = (channel c, row group g).  A warp holds 32
-// consecutive channels of one window cell, so each store is one contiguous
+// C = 64 channels (AudioNTT's base width), a compile-time constant.
+// Thread map: thread = (channel c, row group g), 4 row groups.  A warp holds
+// 32 consecutive channels of one window cell, so each store is one contiguous
 // 128-byte segment of the channels-last output, every thread keeps its own
 // channel's 9 weights and running sums in registers, and all lanes of a warp
 // read the same input value from shared memory (a broadcast).  Along a row
@@ -36,7 +37,9 @@
 
 namespace {
 
+constexpr int C = 64;                // output channels
 constexpr int THREADS = 256;
+constexpr int GROUPS = THREADS / C;  // row groups of a block
 constexpr int R = 8;                 // window rows per block
 constexpr int CW = 16;               // window columns per block
 constexpr int TROWS = 2 * R + 2;     // staged input rows (with the zero pad)
@@ -50,8 +53,7 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int H, int W,
                        const float* __restrict__ gamma,   // (C,)
                        const float* __restrict__ stats,   // EVAL: (3, C) mean, rsqrt(var+eps), beta
                        float* __restrict__ out,           // (B, H/2, W/2, C)
-                       float* __restrict__ partials,      // !EVAL: (2, n_blocks, C)
-                       int C) {
+                       float* __restrict__ partials) {    // !EVAL: (2, n_blocks, C)
   __shared__ float xs[TROWS * TCOLS];
   __shared__ float red[2 * THREADS];
 
@@ -59,7 +61,7 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int H, int W,
   const int b = blockIdx.z;
   const int i0 = blockIdx.y * R, j0 = blockIdx.x * CW;
   const int tid = threadIdx.x;
-  const int c = tid % C, g = tid / C, groups = THREADS / C;
+  const int c = tid % C, g = tid / C;
 
   // zero-padded input tile: rows 2*i0-1 .. 2*i0+2R, cols 2*j0-1 .. 2*j0+2CW
   const float* xb = x + static_cast<size_t>(b) * H * W;
@@ -83,7 +85,7 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int H, int W,
   __syncthreads();
 
   float s1 = 0.f, s2 = 0.f;
-  for (int il = g; il < R && i0 + il < h2; il += groups) {
+  for (int il = g; il < R && i0 + il < h2; il += GROUPS) {
     const float* row = xs + 2 * il * TCOLS;
     float p[4][4];
 #pragma unroll
@@ -131,7 +133,8 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int H, int W,
     __syncthreads();
     if (g == 0) {
       float t1 = 0.f, t2 = 0.f;
-      for (int k = 0; k < groups; ++k) {
+#pragma unroll
+      for (int k = 0; k < GROUPS; ++k) {
         t1 += red[k * C + c];
         t2 += red[THREADS + k * C + c];
       }
@@ -146,7 +149,7 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int H, int W,
 
 // One block per (channel, statistic): strided sums then a fixed-order tree.
 __global__ void __launch_bounds__(THREADS)
-reduce_partials_kernel(const float* __restrict__ partials, int n_blocks, int C,
+reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
                        float* __restrict__ sums) {   // (2, C): s1, s2
   __shared__ float buf[THREADS];
   const int c = blockIdx.x, which = blockIdx.y;
@@ -173,15 +176,16 @@ int fused_conv1_fwd_blocks(int B, int H, int W) {
   return ((W / 2 + CW - 1) / CW) * ((H / 2 + R - 1) / R) * B;
 }
 
-// eval != 0: stats = (3, C) running mean, rsqrt(running var + eps), beta;
-// out = the eval block's pooled activation; partials and sums unused.
+// c_out must equal C.  eval != 0: stats = (3, C) running mean,
+// rsqrt(running var + eps), beta; out = the eval block's pooled activation;
+// partials and sums unused.
 // eval == 0: stats unused; out = sel; partials (2, n_blocks, C) scratch;
 // sums (2, C) = s1, s2.
 int fused_conv1_fwd_launch(const void* x, int B, int H, int W, const void* wk,
                            const void* bias, const void* gamma,
                            const void* stats, void* out, void* partials,
-                           void* sums, int C, int eval, void* stream) {
-  if (H % 2 || W % 2 || C % 32 || THREADS % C) return cudaErrorInvalidValue;
+                           void* sums, int c_out, int eval, void* stream) {
+  if (H % 2 || W % 2 || c_out != C) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const dim3 grid((W / 2 + CW - 1) / CW, (H / 2 + R - 1) / R, B);
   auto xp = static_cast<const float*>(x);
@@ -193,16 +197,16 @@ int fused_conv1_fwd_launch(const void* x, int B, int H, int W, const void* wk,
   auto pp = static_cast<float*>(partials);
   if (eval) {
     fused_conv1_fwd_kernel<true><<<grid, THREADS, 0, s>>>(
-        xp, H, W, wp, bp, gp, sp, op, nullptr, C);
+        xp, H, W, wp, bp, gp, sp, op, nullptr);
     return cudaGetLastError();
   }
   fused_conv1_fwd_kernel<false><<<grid, THREADS, 0, s>>>(
-      xp, H, W, wp, bp, gp, nullptr, op, pp, C);
+      xp, H, W, wp, bp, gp, nullptr, op, pp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_blocks = static_cast<int>(grid.x * grid.y * grid.z);
   reduce_partials_kernel<<<dim3(C, 2), THREADS, 0, s>>>(
-      pp, n_blocks, C, static_cast<float*>(sums));
+      pp, n_blocks, static_cast<float*>(sums));
   return cudaGetLastError();
 }
 

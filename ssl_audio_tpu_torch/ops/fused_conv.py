@@ -30,6 +30,7 @@ _SIGNATURES = {
     "fused_conv1_fwd_blocks": [_I, _I, _I],
 }
 MAX_GRID_Z = 65535
+C_OUT = 64                     # the kernel's channel count, a compile-time constant
 
 
 def fused_conv1_fwd_plain(x: torch.Tensor, wk: torch.Tensor,
@@ -56,9 +57,9 @@ def fused_conv1_fwd_cuda(x: torch.Tensor, wk: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"fused_conv1_fwd_cuda needs a CUDA tensor, got {dev}")
     B, H, W = x.shape
     C = wk.shape[-1]
-    if H % 2 or W % 2 or C % 32 or 256 % C or not 0 < B <= MAX_GRID_Z:
+    if H % 2 or W % 2 or C != C_OUT or not 0 < B <= MAX_GRID_Z:
         raise ValueError(f"unsupported shape: x {tuple(x.shape)}, C={C} "
-                         "(H, W even; C in 32, 64, 128, 256; 0 < B <= 65535)")
+                         f"(H, W even; C = {C_OUT}; 0 < B <= {MAX_GRID_Z})")
     _build.require(x, "x", (B, H, W), dev)
     _build.require(wk, "wk", (9, C), dev)
     _build.require(bias, "bias", (C,), dev)

@@ -123,8 +123,9 @@ def log_mel_cuda(wav: torch.Tensor, spec: MelSpec,
             spec.hop_length, ops.n_lo, basis_c.shape[0], basis_c.shape[1], spec.n_mels,
             TORCH_FLOAT32_EPS, int(ops.fold), _build.stream_ptr(dev))
     _build.check(code, "log_mel_launch")
-    log_mel_cuda.launches += 1
+    log_mel_cuda.launches["folded" if ops.fold else "unfolded"] += 1
     return out
 
 
-log_mel_cuda.launches = 0
+# launches of each instantiation of the kernel
+log_mel_cuda.launches = {"folded": 0, "unfolded": 0}

@@ -13,23 +13,10 @@ SM shows the kernel's dependence on occupancy.
 from __future__ import annotations
 
 import json
-import subprocess
 
 import torch
 
-
-def cuda_ms(fn, iters: int = 30) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+from ssl_audio_tpu_torch.tools.serving import cuda_ms, smi_line
 
 
 def main() -> int:
@@ -38,9 +25,7 @@ def main() -> int:
     from ssl_audio_tpu_torch.ops.mel import MelSpec
     from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = smi_line()
     gen = torch.Generator().manual_seed(0)
     wav = (0.3 * torch.randn(512, 15200, generator=gen)).to("cuda")
     for win in (200, 300, 400, 600, 800, 1024):
@@ -50,7 +35,7 @@ def main() -> int:
             print(json.dumps({
                 "win_length": win, "fold": ops.fold, "K": ops.basis_c.shape[0],
                 "smem_bytes": ops.smem_bytes(),
-                "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold=fold)),
+                "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold=fold), iters=30),
                 "card": smi}))
     return 0
 

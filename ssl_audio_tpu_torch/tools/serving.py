@@ -1,5 +1,5 @@
-"""Seeded HEAR serving setup of the port, and a device-time profile of its
-requests on the card.
+"""Seeded HEAR serving setup of the port, the card's timing helpers, and a
+device-time profile of its requests on the card.
 
     python3 -m ssl_audio_tpu_torch.tools.serving [--seed 0] [--clips 16]
 
@@ -20,6 +20,30 @@ import time
 import torch
 
 SAMPLE_RATE = 16000
+
+
+def smi_line() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call, CUDA events around `iters` calls
+    after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def seeded_clips(gen: torch.Generator, n: int, samples: int) -> torch.Tensor:
@@ -86,9 +110,7 @@ def main() -> int:
         raise SystemExit("no CUDA device: the profile is a device measurement")
     from ssl_audio_tpu_torch.hear import conv as hear_conv
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = smi_line()
     gen = torch.Generator().manual_seed(args.seed)
     model = seeded_serving_model(gen)
     audio = seeded_clips(gen, args.clips, 10 * SAMPLE_RATE)

@@ -17,7 +17,7 @@ from ssl_audio_tpu_torch.ops.fused_conv import (
     fused_conv1_fwd_plain,
 )
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_plain
-from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -50,11 +50,12 @@ def _wav(rng, shape):
 def test_log_mel_kernel_matches_plain(dev, rng, win, fold, length):
     spec = MelSpec(win_length=win)
     wav = _wav(rng, (64, length)).to(dev)
-    before = log_mel_cuda.launches
+    before = dict(log_mel_cuda.launches)
     out = log_mel_cuda(wav, spec, fold=fold)
     ref = log_mel_spectrogram_plain(wav, spec, fold=fold)
     torch.cuda.synchronize()
-    assert log_mel_cuda.launches == before + 1
+    took = "folded" if kernel_operands(spec, fold).fold else "unfolded"
+    assert log_mel_cuda.launches == {**before, took: before[took] + 1}
     torch.testing.assert_close(out, ref, atol=MEL_ATOL, rtol=0)
 
 
@@ -97,11 +98,11 @@ def test_hear_api_card_matches_cpu(dev, rng):
     cpu = conv.load_model("", "audiontt", fused_conv=True, device="cpu")
     cpu.model.load_state_dict(card.model.state_dict())
     audio = _wav(rng, (2, 24000))
-    launches = (log_mel_cuda.launches, fused_conv1_fwd_cuda.launches)
+    launches = (log_mel_cuda.launches["folded"], fused_conv1_fwd_cuda.launches)
     for fn in (lambda m: conv.get_timestamp_embeddings(audio, m)[0],
                lambda m: conv.get_scene_embeddings(audio, m)):
         a, b = fn(card), fn(cpu)
         assert a.shape == b.shape and a.device.type == "cpu"
         assert float((a - b).abs().max()) <= EMB_RTOL * float(b.abs().max())
-    assert log_mel_cuda.launches > launches[0]
+    assert log_mel_cuda.launches["folded"] > launches[0]
     assert fused_conv1_fwd_cuda.launches > launches[1]

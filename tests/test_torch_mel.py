@@ -161,7 +161,7 @@ def test_kernel_operands_pad_columns(rng):
 def test_cpu_tensor_takes_plain_path(rng):
     from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
 
-    before = log_mel_cuda.launches
+    before = dict(log_mel_cuda.launches)
     wav = torch.from_numpy(_wav(rng, (1, 4000)))
     spec = tmel.MelSpec(**HEAR)
     torch.testing.assert_close(tmel.log_mel_spectrogram(wav, spec),
