@@ -8,14 +8,22 @@ Phases, each of which exits non-zero on failure:
   2. builds every CUDA kernel from csrc/ with nvcc (one process per source,
      all at once) and prints the build seconds and ptxas register reports;
   3. holds each kernel against its plain PyTorch version on the card at the
-     serving path's shapes, with the tolerances below, and times kernel,
-     plain version and the PyTorch library yardstick with CUDA events;
+     serving and training paths' shapes, with the tolerances below, and times
+     kernel, plain version and the PyTorch library yardstick with CUDA events;
   4. serving: AudioNTT2022 at full width (64 mels, d = 3072, fp32,
      fused_conv=True) with seeded random weights answers a timestamp request
      and a scene request for 16 seeded 10-s clips through the HEAR API; the
      kernels' launch counters are zeroed just before each request and read
      just after it, and a small request is held against the same model on
-     the CPU.
+     the CPU;
+  5. training: the default pretraining configuration at full width
+     (AudioNTT2022, projector 3072 -> 8192 -> 256, batch 128, crop_frames 96,
+     fp32, LARS) with seeded weights takes Barlow Twins steps on 128 seeded
+     10-s clips, raw wav in; the launch counters are zeroed just before one
+     step and read just after it; a small step is held against the same
+     step on the CPU from the same weights and draws; the dx kernel is
+     reached through the autograd Function once the input asks for a
+     gradient.
 The `kernels` JSON line lists every ported kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -40,11 +48,23 @@ MEL_ATOL = 1e-4      # log-mel: fp32 FMA sums of 200-1023 terms in another order
 CONV_ATOL = 1e-4     # pooled conv values O(1-10): cuDNN's fp32 algorithm rounds otherwise
 STATS_RTOL = 1e-4    # s1, s2: 3.1e6-term fp32 sums in another order
 EMB_RTOL = 1e-3      # embeddings / max|embedding|: fp32 through four layers, card vs CPU
+SUMS_RTOL = 1e-4     # backward sums / their largest value: 7.9e5-term fp32 sums in another order
+SX_RTOL = 1e-5       # Sx / n: mathematically 0, float noise of 7.9e5 terms of size O(1)
+GRAD_ATOL = 2e-3     # dW, dgamma, dbeta (values O(10-1000)) from those sums: absolute
+DB_ATOL = 1e-2       # db is mathematically 0 (-(r g Sx T2)/n): float noise on both sides
+DY_ATOL = 1e-4       # dy values O(1); its T1/n, T2/n terms come from the sums above
+STEP_LOSS_RTOL = 1e-3   # one train step, card vs CPU: fp32 through the whole network
+STEP_GRAD_RTOL = 2e-2   # its gradients / their largest value: the Barlow Twins gradient at
+                        # batch 16 is badly conditioned (BatchNorm over 16 samples, pool and
+                        # ReLU decisions next to ties); two fp32 runs differ by up to ~1e-2
 
 CHUNK = 512          # the HEAR pipeline's BATCH_SIZE: one kernel launch's batch
 WINDOW = 15200       # 0.95 s at 16 kHz: one timestamp window
 N_CLIPS = 16         # clips per serving request
 CLIP = 160000        # 10 s at 16 kHz: one scene clip
+TRAIN_BATCH = 128    # config.py batch_size
+TRAIN_FRAMES = 96    # config.py crop_frames
+TRAIN_STEPS = 12     # timed steps after the warm-up steps
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -65,22 +85,15 @@ def check(name: str, err: float, tol: float, why: str) -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    """Every kernel instantiation's launch counter."""
-    from ssl_audio_tpu_torch.ops.fused_conv import fused_conv1_fwd_cuda
-    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+    from ssl_audio_tpu_torch.tools.train_profile import launch_counts as counts
 
-    return {"log_mel_folded": log_mel_cuda.launches["folded"],
-            "log_mel_unfolded": log_mel_cuda.launches["unfolded"],
-            "fused_conv1_fwd": fused_conv1_fwd_cuda.launches}
+    return counts()
 
 
 def zero_launch_counts() -> None:
-    from ssl_audio_tpu_torch.ops.fused_conv import fused_conv1_fwd_cuda
-    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+    from ssl_audio_tpu_torch.tools.train_profile import zero_launch_counts as zero
 
-    for key in log_mel_cuda.launches:
-        log_mel_cuda.launches[key] = 0
-    fused_conv1_fwd_cuda.launches = 0
+    zero()
 
 
 def mel_row(wav: torch.Tensor, spec, fold, label: str) -> dict:
@@ -121,6 +134,189 @@ def mel_row(wav: torch.Tensor, spec, fold, label: str) -> dict:
     return row
 
 
+def cropped_mel_row(wav: torch.Tensor, starts: torch.Tensor, spec, fold, label: str) -> dict:
+    """log_mel_cuda with per-clip crop starts against
+    log_mel_spectrogram_cropped_plain at the training step's input, with the
+    library yardstick torch.stft of the gathered segments."""
+    from ssl_audio_tpu_torch.ops.mel import (
+        TORCH_FLOAT32_EPS, log_mel_spectrogram_cropped_plain)
+    from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms
+
+    T = TRAIN_FRAMES
+    out = log_mel_cuda(wav, spec, fold, starts, T)
+    ref = log_mel_spectrogram_cropped_plain(wav, spec, fold, starts, T)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    B, L = wav.shape
+    check(f"log_mel[{label}] ({B} x {L}, {T} frames from per-clip starts)", err,
+          MEL_ATOL, "fp32 DFT sums in another order")
+    ops = kernel_operands(spec, fold)
+    # bytes the function needs: each clip's cropped segment, not the whole clip
+    seg = (T - 1) * spec.hop_length + spec.n_fft
+    nbytes = 4 * (B * seg + out.numel() + ops.basis_c.size + ops.basis_s.size
+                  + ops.fb.size + B)
+    bound, by = bound_ms(B * T * ops.flops_per_frame(), nbytes)
+    window = torch.hann_window(spec.win_length, periodic=True, device=wav.device)
+    fb_full = torch.from_numpy(spec.filterbank).to(wav.device)
+    pad = spec.n_fft // 2
+    offs = torch.arange(seg, device=wav.device)
+
+    def library():
+        x = torch.nn.functional.pad(wav[:, None], (pad, pad), mode="reflect")[:, 0]
+        segs = torch.gather(x, 1, starts.long()[:, None] * spec.hop_length + offs)
+        st = torch.stft(segs, spec.n_fft, spec.hop_length, spec.win_length, window,
+                        center=False, return_complex=True)
+        power = st.real ** 2 + st.imag ** 2
+        return torch.log(torch.einsum("bft,fm->bmt", power, fb_full) + TORCH_FLOAT32_EPS)
+
+    row = {"max_abs_err": err, "library_max_abs_err": max_err(library(), ref),
+           "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold, starts, T)),
+           "plain_ms": cuda_ms(lambda: log_mel_spectrogram_cropped_plain(
+               wav, spec, fold, starts, T)),
+           "bound_ms": bound, "bound_by": by, "library_ms": cuda_ms(library),
+           "shape": f"{B} x {L} samples, per-clip starts -> {tuple(out.shape)}"}
+    print(f"  log_mel[{label}]: " + json.dumps(row))
+    return row
+
+
+def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], dict]:
+    """fused_conv1_bwd_cuda and fused_conv1_dx_cuda against their plain
+    versions at one view of the training step, (128, 64, 96): inputs
+    quantised to 0.5 so windows tie, a quarter of the gammas negative, one
+    exactly 0.  -> (their rows of the kernels line, the forward kernel's
+    times at the same shape)."""
+    from ssl_audio_tpu_torch.ops import fused_conv as fc
+    from ssl_audio_tpu_torch.ops import no_tf32
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms
+
+    B, H, W, C = TRAIN_BATCH, 64, TRAIN_FRAMES, 64
+    x = (torch.round(torch.randn(B, H, W, generator=gen) * 2) / 2).to(dev)
+    wk = (0.3 * torch.randn(9, C, generator=gen)).to(dev)
+    bias = (0.1 * torch.randn(C, generator=gen)).to(dev)
+    gamma = 1.0 + 0.3 * torch.randn(C, generator=gen)
+    gamma[: C // 4] *= -1.0
+    gamma[C // 2] = 0.0
+    gamma = gamma.to(dev)
+    beta = (0.2 * torch.randn(C, generator=gen)).to(dev)
+    kernel_hwio = wk.reshape(3, 3, 1, C)
+    with torch.no_grad():
+        pooled, mean, var = fc.fused_conv1_bn_relu_pool(x[..., None], kernel_hwio, bias,
+                                                        gamma, beta)
+    r = torch.rsqrt(var + 1e-5)
+    dp = torch.randn(B, H // 2, W // 2, C, generator=gen).to(dev)
+    args = (x, wk, bias, gamma, mean, r, pooled, dp)
+    n = float(x.numel())
+
+    sums = fc.fused_conv1_bwd_cuda(*args)
+    again = fc.fused_conv1_bwd_cuda(*args)
+    sums_p = fc.fused_conv1_bwd_plain(*args)
+    dy = fc.fused_conv1_dx_cuda(*args, sums[0], sums[1], n)
+    dy_p = fc.fused_conv1_dx_plain(*args, sums[0], sums[1], n)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(sums, again)):
+        raise SystemExit("fused_conv1_bwd: two launches gave different bits")
+    print("  fused_conv1_bwd: two launches give the same bits")
+    bwd_err = 0.0
+    for name, a, b in zip(("T1", "T2", "Sx", "A1", "A2", "Gram"), sums, sums_p):
+        if name == "Sx":
+            check("fused_conv1_bwd Sx / n", max(float(a.abs().max()), float(b.abs().max())) / n,
+                  SX_RTOL, "mathematically 0: float noise of 7.9e5 terms")
+            continue
+        rel = max_err(a, b) / float(b.abs().max())
+        bwd_err = max(bwd_err, rel)
+        check(f"fused_conv1_bwd {name} / max|{name}|", rel, SUMS_RTOL,
+              "7.9e5-term fp32 sums in another order")
+    grads = fc.param_grads_from_sums(wk, bias, gamma, mean, r, n, *sums)
+    grads_p = fc.param_grads_from_sums(wk, bias, gamma, mean, r, n, *sums_p)
+    for name, a, b in zip(("dW", "db", "dgamma", "dbeta"), grads, grads_p):
+        if name == "db":
+            check("fused_conv1_bwd db (absolute)",
+                  max(float(a.abs().max()), float(b.abs().max())), DB_ATOL,
+                  "mathematically 0: float noise on both sides")
+        else:
+            check(f"fused_conv1_bwd {name} (absolute, max|{name}| "
+                  f"{float(b.abs().max()):.3g})", max_err(a, b), GRAD_ATOL,
+                  "assembled from the sums above")
+    dy_err = max_err(dy, dy_p)
+    check(f"fused_conv1_dx dy ({B} x {H} x {W} x {C})", dy_err, DY_ATOL,
+          "fp32, the T1/n and T2/n terms from sums in another order")
+
+    # library yardstick: autograd through cuDNN's four calls, forward and backward
+    w4 = wk.t().reshape(C, 1, 3, 3)
+    dp_nchw = dp.permute(0, 3, 1, 2)
+
+    def library(need_dx: bool):
+        ts = [t.detach().clone().requires_grad_() for t in (w4, bias, gamma, beta)]
+        xin = x[:, None].detach().clone().requires_grad_(need_dx)
+        with no_tf32():
+            y = torch.nn.functional.conv2d(xin, ts[0], ts[1], padding=1)
+            z = torch.nn.functional.batch_norm(y, None, None, ts[2], ts[3], training=True,
+                                               eps=1e-5)
+            out = torch.nn.functional.max_pool2d(torch.relu(z), 2)
+            out.backward(dp_nchw)
+
+    def ours(need_dx: bool):
+        ts = [t.detach().clone().requires_grad_() for t in (kernel_hwio, bias, gamma, beta)]
+        xin = x[..., None].detach().clone().requires_grad_(need_dx)
+        out, _, _ = fc.fused_conv1_bn_relu_pool(xin, *ts)
+        out.backward(dp)
+
+    cells = B * (H // 2) * (W // 2) * C
+    # per window cell and channel: 4 corners x (9 conv + 9 A1 FMA + ~6); + the tap Gram
+    bwd_bound, bwd_by = bound_ms(168 * cells + 180 * B * H * W,
+                                 4 * (x.numel() + 2 * pooled.numel() + 22 * C + 90))
+    dx_bound, dx_by = bound_ms(96 * cells,
+                               4 * (x.numel() + 2 * pooled.numel() + dy.numel() + 16 * C))
+    bwd_row = {
+        "max_abs_err": bwd_err, "error_is": "largest sum error / that sum's largest value",
+        "shape": f"x {(B, H, W)}, dpooled {tuple(dp.shape)} -> T1, T2, Sx, A1, A2, Gram",
+        "ms": cuda_ms(lambda: fc.fused_conv1_bwd_cuda(*args)),
+        "plain_ms": cuda_ms(lambda: fc.fused_conv1_bwd_plain(*args), iters=5),
+        "bound_ms": bwd_bound, "bound_by": bwd_by,
+        "library_ms": cuda_ms(lambda: library(False)),
+        "library_is": "autograd through cuDNN conv2d + batch_norm(training) + relu + "
+                      "max_pool2d, forward and backward",
+        "function_fwd_bwd_ms": cuda_ms(lambda: ours(False)),
+    }
+    print("  fused_conv1_bwd: " + json.dumps(bwd_row))
+    dx_row = {
+        "max_abs_err": dy_err,
+        "shape": f"x {(B, H, W)}, dpooled {tuple(dp.shape)} -> dy {tuple(dy.shape)}",
+        "ms": cuda_ms(lambda: fc.fused_conv1_dx_cuda(*args, sums[0], sums[1], n)),
+        "plain_ms": cuda_ms(lambda: fc.fused_conv1_dx_plain(*args, sums[0], sums[1], n),
+                            iters=5),
+        "bound_ms": dx_bound, "bound_by": dx_by,
+        "library_ms": cuda_ms(lambda: library(True)),
+        "library_is": "the same autograd yardstick with the input's gradient",
+        "function_fwd_bwd_ms": cuda_ms(lambda: ours(True)),
+    }
+    print("  fused_conv1_dx: " + json.dumps(dx_row))
+    # the Function reaches the dx kernel only when the input asks for a gradient
+    zero_launch_counts()
+    ours(False)
+    without = launch_counts()
+    zero_launch_counts()
+    ours(True)
+    with_dx = launch_counts()
+    print(f"  Function launches without / with x.requires_grad_(): {without} / {with_dx}")
+    if (without["fused_conv1_fwd"], without["fused_conv1_bwd"], without["fused_conv1_dx"]) \
+            != (1, 1, 0) or with_dx["fused_conv1_dx"] != 1:
+        raise SystemExit("the Function did not launch its kernels as expected")
+    # the forward kernel in its statistics mode at this shape, as the step runs it
+    fwd_bound, fwd_by = bound_ms(19 * 4 * cells, 4 * (x.numel() + pooled.numel() + 20 * C))
+    fwd_row = {"shape": f"{(B, H, W)} -> sel {tuple(pooled.shape)}, s1, s2",
+               "ms": cuda_ms(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
+               "plain_ms": cuda_ms(lambda: fc.fused_conv1_fwd_plain(x, wk, bias, gamma)),
+               "bound_ms": fwd_bound, "bound_by": fwd_by}
+    print("  fused_conv1_fwd[train shape, stats mode]: " + json.dumps(fwd_row))
+    src = "ssl_audio_tpu_torch/csrc/fused_conv_bwd.cu"
+    return [{"name": "fused_conv1_bwd", "route": "cuda", "source": src,
+             "replaces": "ssl_audio_tpu/ops/fused_conv.py:257", **bwd_row},
+            {"name": "fused_conv1_dx", "route": "cuda", "source": src,
+             "replaces": "ssl_audio_tpu/ops/fused_conv.py:344", **dx_row}], fwd_row
+
+
 def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     from ssl_audio_tpu_torch.ops import no_tf32
     from ssl_audio_tpu_torch.ops.fused_conv import (
@@ -148,6 +344,18 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
         check(f"log_mel[{label}] ({CHUNK} x {WINDOW})", err, MEL_ATOL,
               "fp32 DFT sums in another order")
         train_err = max(train_err, err)
+    # the training step's input: 128 whole 10-s clips, 96 frames from per-clip
+    # starts (first, last valid and random ones), both instantiations
+    train_spec = MelSpec(win_length=1024)
+    train_wav = seeded_clips(gen, TRAIN_BATCH, CLIP).to(dev)
+    last = train_spec.num_frames(CLIP) - TRAIN_FRAMES
+    starts = torch.randint(0, last + 1, (TRAIN_BATCH,), generator=gen, dtype=torch.int32)
+    starts[0], starts[1] = 0, last
+    starts = starts.to(dev)
+    mel_rows["cropped"] = cropped_mel_row(train_wav, starts, train_spec, None,
+                                          "folded, cropped")
+    mel_rows["cropped_unfolded"] = cropped_mel_row(train_wav, starts, train_spec, False,
+                                                   "unfolded, cropped")
 
     # fused conv forward at one chunk of timestamp windows: (512, 64, 96),
     # inputs quantised to 0.5 so windows tie, mixed-sign gamma, one exact 0
@@ -209,21 +417,24 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
         "stats_mode_plain_ms": cuda_ms(lambda: fused_conv1_fwd_plain(x, wk, bias, gamma)),
     }
     print("  fused_conv1_fwd[eval]: " + json.dumps(conv_row))
+    bwd_rows, fwd_train_row = backward_rows(gen, dev)
     return [
         {"name": "log_mel", "route": "cuda",
          "source": "ssl_audio_tpu_torch/csrc/log_mel.cu",
          "replaces": "ssl_audio_tpu/ops/mel_pallas.py:185",
          **mel_rows["folded"],
-         "max_abs_err": max(mel_rows["folded"]["max_abs_err"],
-                            mel_rows["unfolded"]["max_abs_err"],
-                            mel_rows["scene_shape"]["max_abs_err"], train_err),
+         "max_abs_err": max(train_err, *(r["max_abs_err"] for r in mel_rows.values())),
          "train_spec_max_abs_err": train_err,
          "scene_shape": mel_rows["scene_shape"],
+         "cropped": mel_rows["cropped"],
          "unfolded": {"replaces": "ssl_audio_tpu/ops/mel_pallas.py:139",
-                      **mel_rows["unfolded"]}},
+                      **mel_rows["unfolded"],
+                      "cropped": mel_rows["cropped_unfolded"]}},
         {"name": "fused_conv1_fwd", "route": "cuda",
          "source": "ssl_audio_tpu_torch/csrc/fused_conv_fwd.cu",
-         "replaces": "ssl_audio_tpu/ops/fused_conv.py:186", **conv_row},
+         "replaces": "ssl_audio_tpu/ops/fused_conv.py:186", **conv_row,
+         "train_shape": fwd_train_row},
+        *bwd_rows,
     ]
 
 
@@ -300,6 +511,81 @@ def phase_serving(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
     return serving
 
 
+def phase_training(seed: int, dev: torch.device, smi: str) -> dict:
+    from ssl_audio_tpu_torch.tools.serving import seeded_clips
+    from ssl_audio_tpu_torch.tools.train_profile import seeded_training, step_wall_ms
+    from ssl_audio_tpu_torch.train.steps import draw_step
+
+    print("phase 5: Barlow Twins training, AudioNTT2022 (64 mels, d=3072, projector "
+          "3072-8192-256, batch 128, crop 96, fp32, LARS), raw 10-s clips in")
+    cfg, state, step, gen = seeded_training(seed, dev)
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).to(dev)
+    before = {k: v.clone() for k, v in state.modules.state_dict().items()}
+
+    zero_launch_counts()
+    first_loss = float(step(state, wavs, gen=gen)["loss"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"  one step's launches: {launches}; loss {first_loss:.4f}")
+    want = {"log_mel_folded": 1, "log_mel_unfolded": 0, "fused_conv1_fwd": 2,
+            "fused_conv1_bwd": 2, "fused_conv1_dx": 0}
+    if launches != want:
+        raise SystemExit(f"one training step launched {launches}, expected {want}")
+
+    losses = [first_loss, float(step(state, wavs, gen=gen)["loss"])]     # second warm-up
+    pending = []
+    times = step_wall_ms(lambda: pending.append(step(state, wavs, gen=gen)["loss"]),
+                         TRAIN_STEPS)
+    losses += [float(v) for v in pending]
+    if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
+        raise SystemExit(f"non-finite loss among {losses}")
+    after = state.modules.state_dict()
+    frozen = [k for k, v in after.items()
+              if torch.equal(v, before[k])
+              # a conv bias before a batch norm has a zero gradient
+              and k not in ("encoder.features.0.bias", "encoder.features.4.bias")]
+    if frozen:
+        raise SystemExit(f"did not move in {len(losses)} steps: {frozen}")
+    print(f"  {len(losses)} steps, losses {losses[0]:.2f} -> {losses[-1]:.2f}, all finite; "
+          f"every parameter and running statistic moved")
+    median = statistics.median(times)
+    training = {"batch": TRAIN_BATCH, "clip_seconds": CLIP / 16000, "steps_timed": TRAIN_STEPS,
+                "ms_per_step_median": median, "ms_per_step_min": min(times),
+                "ms_per_step_max": max(times), "clips_per_s": TRAIN_BATCH / median * 1e3,
+                "first_loss": losses[0], "last_loss": losses[-1], "launches": launches,
+                "card": smi}
+    print("  training: " + json.dumps(training))
+
+    # one small step on the card against the same step on the CPU (plain
+    # versions): same seeded weights, same wavs, the same draws
+    small = dict(batch_size=16, mixup_n_memory=2048)
+    wav_small = seeded_clips(torch.Generator().manual_seed(seed + 7), 16, 2 * 16000)
+    runs = {}
+    for where in ("cpu", dev):
+        cfg_s, state_s, step_s, _ = seeded_training(seed, where, **small)
+        draws = draw_step(torch.Generator().manual_seed(seed + 9), cfg_s,
+                          tuple(wav_small.shape), 2048, wav=True)
+        loss = float(step_s(state_s, wav_small.to(where), draws=draws.to(where))["loss"])
+        grads = {k: p.grad.detach().cpu() for k, p in state_s.modules.named_parameters()}
+        runs[str(where)] = (loss, grads)
+    (loss_c, grads_c), (loss_d, grads_d) = runs["cpu"], runs[str(dev)]
+    check(f"train step loss, card {loss_d!r} vs CPU {loss_c!r}, relative",
+          abs(loss_d - loss_c) / abs(loss_c), STEP_LOSS_RTOL,
+          "fp32 through the whole network")
+    worst, worst_name = 0.0, ""
+    for k, g in grads_c.items():
+        if k in ("encoder.features.0.bias", "encoder.features.4.bias"):
+            continue                                   # zero gradient: float noise
+        rel = max_err(grads_d[k], g) / float(g.abs().max())
+        if rel > worst:
+            worst, worst_name = rel, k
+    check(f"train step gradients, card vs CPU, / max|grad| (worst: {worst_name})", worst,
+          STEP_GRAD_RTOL, "badly conditioned at batch 16; two fp32 runs differ by ~1e-2")
+    training["cpu_check"] = {"loss_rel_err": abs(loss_d - loss_c) / abs(loss_c),
+                             "grad_rel_err": worst, "worst_grad": worst_name}
+    return training
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -329,13 +615,16 @@ def main() -> int:
 
     kernels = phase_kernels(gen, dev)
     serving = phase_serving(gen, dev, smi)
-    # launches on the main path, per request path and in all; the top-level
-    # log_mel entry is the folded instantiation, the serving spec's
+    training = phase_training(args.seed, dev, smi)
+    # launches on the main paths, per path (timestamp request, scene request,
+    # one train step) and in all; the top-level log_mel entry is the folded
+    # instantiation, which both specs take
+    by_path = {**serving["launches"], "train": training["launches"]}
     entries = [(k, "log_mel_folded" if k["name"] == "log_mel" else k["name"])
                for k in kernels]
     entries += [(k["unfolded"], "log_mel_unfolded") for k in kernels if "unfolded" in k]
     for entry, counter in entries:
-        entry["launches_by_path"] = {p: c[counter] for p, c in serving["launches"].items()}
+        entry["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -33,17 +33,11 @@
 // Bound on the H100: bytes.  The pooled output (B, H/2, W/2, C) fp32 is 16x
 // the input for C = 64; at 36 FMA per output value the work is ~9 FLOP per
 // byte written, under the card's fp32 ridge of ~20 FLOP/byte.
-#include <cuda_runtime.h>
+#include "fused_conv_common.cuh"
 
 namespace {
 
-constexpr int C = 64;                // output channels
-constexpr int THREADS = 256;
-constexpr int GROUPS = THREADS / C;  // row groups of a block
-constexpr int R = 8;                 // window rows per block
-constexpr int CW = 16;               // window columns per block
-constexpr int TROWS = 2 * R + 2;     // staged input rows (with the zero pad)
-constexpr int TCOLS = 2 * CW + 2;    // staged input columns
+using namespace fused_conv;   // C, the tile constants, staging and the conv recompute
 
 template <bool EVAL>
 __global__ void __launch_bounds__(THREADS)
@@ -63,13 +57,8 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int H, int W,
   const int tid = threadIdx.x;
   const int c = tid % C, g = tid / C;
 
-  // zero-padded input tile: rows 2*i0-1 .. 2*i0+2R, cols 2*j0-1 .. 2*j0+2CW
   const float* xb = x + static_cast<size_t>(b) * H * W;
-  for (int idx = tid; idx < TROWS * TCOLS; idx += THREADS) {
-    const int r = 2 * i0 - 1 + idx / TCOLS, col = 2 * j0 - 1 + idx % TCOLS;
-    xs[idx] = (r >= 0 && r < H && col >= 0 && col < W)
-        ? xb[static_cast<size_t>(r) * W + col] : 0.f;
-  }
+  stage_tile(xb, H, W, i0, j0, xs);
   float w[9];
 #pragma unroll
   for (int s = 0; s < 9; ++s) w[s] = wk[s * C + c];
@@ -88,34 +77,13 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int H, int W,
   for (int il = g; il < R && i0 + il < h2; il += GROUPS) {
     const float* row = xs + 2 * il * TCOLS;
     float p[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      p[a][2] = row[a * TCOLS + 0];
-      p[a][3] = row[a * TCOLS + 1];
-    }
+    patch_begin(row, p);
     float* o = out + ((static_cast<size_t>(b) * h2 + i0 + il) * w2 + j0) * C + c;
     for (int jl = 0; jl < CW && j0 + jl < w2; ++jl) {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        p[a][0] = p[a][2];
-        p[a][1] = p[a][3];
-        p[a][2] = row[a * TCOLS + 2 * jl + 2];
-        p[a][3] = row[a * TCOLS + 2 * jl + 3];
-      }
+      patch_slide(row, jl, p);
       float v[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int pi = q / 2, pj = q % 2;   // corner order (0,0) (0,1) (1,0) (1,1)
-        float acc = 0.f;
-#pragma unroll
-        for (int dh = 0; dh < 3; ++dh)
-#pragma unroll
-          for (int dw = 0; dw < 3; ++dw)
-            acc = fmaf(w[dh * 3 + dw], p[pi + dh][pj + dw], acc);
-        v[q] = acc + bc;
-      }
-      const float sel = pos ? fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]))
-                            : fminf(fminf(v[0], v[1]), fminf(v[2], v[3]));
+      conv_corners(p, w, bc, v);
+      const float sel = window_extreme(v, pos);
       if (EVAL) {
         o[static_cast<size_t>(jl) * C] =
             fmaxf(gc * (sel - a_mean) * a_scale + a_beta, 0.f);

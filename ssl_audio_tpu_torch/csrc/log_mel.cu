@@ -8,7 +8,12 @@
 // tensor and sublane rotates were Mosaic constraints and are not carried over.
 //
 // (B, L) wav -> (B, n_mels, T) log-mel, torch.stft(center=True) reflect
-// centring included.  One block per (clip, tile of TILE_T frames):
+// centring included.  With per-clip crop starts (the training frontend,
+// log_mel_spectrogram_cropped there) output frame t of clip b is frame
+// starts[b] + t of the clip's T_full frames: the block reads its clip's start
+// itself and the reflect index is still taken on the whole clip, so the pad,
+// the hop-block gather and the static framing of the JAX path have no
+// counterpart.  One block per (clip, tile of TILE_T frames):
 //   1. it builds its frames' DFT operands in shared memory straight from the
 //      raw wav (reflect index computed per sample); the (B, T, n_fft) frame
 //      tensor never exists in device memory;
@@ -54,7 +59,8 @@ __device__ __forceinline__ float padded_sample(const float* __restrict__ w,
 
 template <bool FOLD>
 __global__ void __launch_bounds__(THREADS, 2)
-log_mel_kernel(const float* __restrict__ wav, int L, int T,
+log_mel_kernel(const float* __restrict__ wav, int L, int T, int T_full,
+               const int* __restrict__ starts,      // (B,) first frame per clip, or null
                const float* __restrict__ basis_c,   // (K, n_pad)
                const float* __restrict__ basis_s,   // (K, n_pad)
                const float* __restrict__ fb,        // (n_pad, n_mels)
@@ -73,12 +79,15 @@ log_mel_kernel(const float* __restrict__ wav, int L, int T,
   const int tid = threadIdx.x;
   const float* w = wav + static_cast<size_t>(b) * L;
   const int pad = n_fft / 2;
+  const int start = starts ? starts[b] : 0;
 
   for (int idx = tid; idx < K * TILE_T; idx += THREADS) {
     const int k = idx / TILE_T, t = idx % TILE_T;
     float av = 0.f, bv = 0.f;
     if (t0 + t < T) {
-      const int s = (t0 + t) * hop;
+      // a start outside [0, T_full - T] is clamped frame by frame, so no
+      // sample index leaves the clip's reflect range
+      const int s = min(max(start + t0 + t, 0), T_full - 1) * hop;
       const int n = n_lo + k;
       const float f = padded_sample(w, L, pad, s + n);
       if (FOLD) {
@@ -186,7 +195,8 @@ size_t smem_bytes(bool fold, int K) {
 }
 
 template <bool FOLD>
-int launch(const float* wav, int B, int L, int T, const float* basis_c,
+int launch(const float* wav, int B, int L, int T, int T_full, const int* starts,
+           const float* basis_c,
            const float* basis_s, const float* fb, const int* band, float* out,
            int n_fft,
            int hop, int n_lo, int K, int n_pad, int n_mels, float eps,
@@ -198,8 +208,8 @@ int launch(const float* wav, int B, int L, int T, const float* basis_c,
   if (err != cudaSuccess) return err;
   const dim3 grid((T + TILE_T - 1) / TILE_T, B);
   log_mel_kernel<FOLD><<<grid, THREADS, smem, stream>>>(
-      wav, L, T, basis_c, basis_s, fb, band, out, n_fft, hop, n_lo, K, n_pad,
-      n_mels, eps);
+      wav, L, T, T_full, starts, basis_c, basis_s, fb, band, out, n_fft, hop,
+      n_lo, K, n_pad, n_mels, eps);
   return cudaGetLastError();
 }
 
@@ -207,7 +217,10 @@ int launch(const float* wav, int B, int L, int T, const float* basis_c,
 
 extern "C" {
 
-int log_mel_launch(const void* wav, int B, int L, int T, const void* basis_c,
+// T: frames written per clip; T_full: frames of a whole clip; starts: (B,)
+// int32 first frames on the device, or null for 0 (then T = T_full).
+int log_mel_launch(const void* wav, int B, int L, int T, int T_full,
+                   const void* starts, const void* basis_c,
                    const void* basis_s, const void* fb, const void* band,
                    void* out, int n_fft,
                    int hop, int n_lo, int K, int n_pad, int n_mels, float eps,
@@ -220,10 +233,11 @@ int log_mel_launch(const void* wav, int B, int L, int T, const void* basis_c,
   auto f = static_cast<const float*>(fb);
   auto bd = static_cast<const int*>(band);
   auto o = static_cast<float*>(out);
-  return fold ? launch<true>(w, B, L, T, c, sn, f, bd, o, n_fft, hop, n_lo, K,
-                             n_pad, n_mels, eps, s)
-              : launch<false>(w, B, L, T, c, sn, f, bd, o, n_fft, hop, n_lo, K,
-                              n_pad, n_mels, eps, s);
+  auto st = static_cast<const int*>(starts);
+  return fold ? launch<true>(w, B, L, T, T_full, st, c, sn, f, bd, o, n_fft, hop,
+                             n_lo, K, n_pad, n_mels, eps, s)
+              : launch<false>(w, B, L, T, T_full, st, c, sn, f, bd, o, n_fft, hop,
+                              n_lo, K, n_pad, n_mels, eps, s);
 }
 
 }  // extern "C"

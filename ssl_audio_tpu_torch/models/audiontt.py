@@ -1,5 +1,5 @@
-"""AudioNTT2022 encoder, eval mode (port of ssl_audio_tpu/models/audiontt.py;
-the BYOL-A v2 CNN of the reference model.py:130-210).
+"""AudioNTT2022 encoder (port of ssl_audio_tpu/models/audiontt.py; the
+BYOL-A v2 CNN of the reference model.py:130-210).
 
 Parameter names are the reference's torch layout (`features.{0,1,4,5}`,
 `fc.{0,3}`), so a reference `.pth` loads with strict=True:
@@ -10,13 +10,27 @@ Parameter names are the reference's torch layout (`features.{0,1,4,5}`,
   stack conv features with FC features                  -> (B, T/4, 3072)
   mean + max pooling over time                          -> (B, 3072)
 
-Block 1 goes through the fused Conv-BN-ReLU-Pool kernel
-(ops/fused_conv.py) when fused_conv=True and the input's H and W are even,
-the rule of the JAX module; otherwise (the 10-s scene clips, T = 1001) it is
-the plain Conv2d + BatchNorm + ReLU + MaxPool2d composition.  Block 2 is
-always plain, as in JAX.  Convolutions run with TF32 off: the HEAR
-embeddings are an fp32 contract, and cuDNN would otherwise take fp32
-convolutions through TF32.  Training mode belongs to the training slice.
+Block 1 goes through the fused Conv-BN-ReLU-Pool kernels (ops/fused_conv.py)
+when fused_conv=True and the input's H and W are even, the rule of the JAX
+module: the forward-only kernel with running statistics in eval mode, the
+autograd Function with its hand-written backward in train mode.  Otherwise
+(the 10-s scene clips, T = 1001) it is the plain Conv2d + BatchNorm + ReLU +
+MaxPool2d composition.
+
+Block 2 runs no hand-written kernel, as in JAX.  In train mode with
+pool_reorder=True it is the pool-reordered composition of the JAX module:
+cuDNN conv, fp32 batch statistics over the full conv output, a sign-aware
+2x2 pool of y, then the BN affine and ReLU on the pooled tensor, which
+autograd differentiates (max_pool2d routes a tie to the first window
+element on the CPU and on the card, as select-and-scatter does).
+
+Every train-mode BatchNorm has flax's semantics (models/batchnorm.py): the
+running variance takes the biased batch variance.  Convolutions run with
+TF32 off: the embeddings are an fp32 contract, and cuDNN would otherwise
+take fp32 convolutions through TF32.  The flag is read when a convolution
+runs, so whoever calls backward() on this module's output does so under
+ops.no_tf32() as well (train/steps.py does).  Dropout draws from torch's global
+generator unless the caller hands frames()/forward() the keep mask.
 """
 from __future__ import annotations
 
@@ -25,31 +39,46 @@ import math
 import torch
 from torch import nn
 
+from ssl_audio_tpu_torch.models.batchnorm import (
+    BatchNorm2d,
+    at_least_fp32,
+    update_running_stats_,
+)
 from ssl_audio_tpu_torch.ops import no_tf32
-from ssl_audio_tpu_torch.ops.fused_conv import fused_conv1_bn_relu_pool_eval
+from ssl_audio_tpu_torch.ops.fused_conv import (
+    fused_conv1_bn_relu_pool,
+    fused_conv1_bn_relu_pool_eval,
+)
+
+DROPOUT_RATE = 0.3
 
 
 def mean_max_pooling(frames: torch.Tensor) -> torch.Tensor:
-    """(B, T, D) -> (B, D): max over time + mean over time."""
-    return frames.max(dim=1).values + frames.mean(dim=1)
+    """(B, T, D) -> (B, D): max over time + mean over time.  amax, not
+    max(dim): where frames tie (a feature constant over time), amax shares
+    the gradient evenly among them, as jnp.max does; max(dim) would hand it
+    to one frame."""
+    return frames.amax(dim=1) + frames.mean(dim=1)
 
 
 class AudioNTT2022(nn.Module):
     """Pooled encoder: (B, 1, F, T) -> (B, d)."""
 
     def __init__(self, n_mels: int = 64, d: int = 3072, base_d: int = 64,
-                 mlp_hidden_d: int = 2048, fused_conv: bool = False):
+                 mlp_hidden_d: int = 2048, fused_conv: bool = False,
+                 pool_reorder: bool = False):
         super().__init__()
         self.n_mels, self.d, self.base_d = n_mels, d, base_d
         self.fused_conv = fused_conv
+        self.pool_reorder = pool_reorder          # train mode only, as in JAX
         self.features = nn.Sequential(
-            nn.Conv2d(1, base_d, 3, padding=1), nn.BatchNorm2d(base_d),
+            nn.Conv2d(1, base_d, 3, padding=1), BatchNorm2d(base_d),
             nn.ReLU(), nn.MaxPool2d(2, 2),
-            nn.Conv2d(base_d, base_d, 3, padding=1), nn.BatchNorm2d(base_d),
+            nn.Conv2d(base_d, base_d, 3, padding=1), BatchNorm2d(base_d),
             nn.ReLU(), nn.MaxPool2d(2, 2))
         conv_d = base_d * (n_mels // 4)
         self.fc = nn.Sequential(
-            nn.Linear(conv_d, mlp_hidden_d), nn.ReLU(), nn.Dropout(0.3),
+            nn.Linear(conv_d, mlp_hidden_d), nn.ReLU(), nn.Dropout(DROPOUT_RATE),
             nn.Linear(mlp_hidden_d, d - conv_d), nn.ReLU())
 
     @property
@@ -59,33 +88,63 @@ class AudioNTT2022(nn.Module):
     def _block1(self, x: torch.Tensor) -> torch.Tensor:
         conv, bn = self.features[0], self.features[1]
         if self.fused_conv and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
-            pooled = fused_conv1_bn_relu_pool_eval(
-                x.permute(0, 2, 3, 1), conv.weight.permute(2, 3, 1, 0),
-                conv.bias, bn.weight, bn.bias, bn.running_mean,
-                bn.running_var, bn.eps)
+            args = (x.permute(0, 2, 3, 1), conv.weight.permute(2, 3, 1, 0),
+                    conv.bias, bn.weight, bn.bias)
+            if self.training:
+                pooled, mean, var = fused_conv1_bn_relu_pool(*args, bn.eps)
+                update_running_stats_(bn, mean, var)
+            else:
+                pooled = fused_conv1_bn_relu_pool_eval(
+                    *args, bn.running_mean, bn.running_var, bn.eps)
             return pooled.permute(0, 3, 1, 2)        # NCHW view, channels-last memory
         return self.features[:4](x)
 
-    def frames(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 1, F, T) -> frame embeddings (B, T/4, d)."""
-        if self.training:
-            raise NotImplementedError(
-                "AudioNTT2022 training mode is not ported yet; call .eval()")
+    def _block2(self, h: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.pool_reorder):
+            return self.features[4:](h)
+        conv, bn = self.features[4], self.features[5]
+        y = conv(h)
+        y32 = at_least_fp32(y)
+        mean = y32.mean(dim=(0, 2, 3))
+        var = (y32 * y32).mean(dim=(0, 2, 3)) - mean * mean
+        update_running_stats_(bn, mean, var)
+        # per-window extreme of y: max where gamma > 0, min otherwise
+        # (gamma == 0 included, the fused block's convention)
+        shape = (1, -1, 1, 1)
+        s = torch.where(bn.weight > 0, 1.0, -1.0).to(y.dtype).view(shape)
+        ps = s * torch.nn.functional.max_pool2d(y * s, 2)
+        r = torch.rsqrt(var + bn.eps)
+        z = bn.weight.view(shape) * (at_least_fp32(ps) - mean.view(shape)) * r.view(shape) \
+            + bn.bias.view(shape)
+        return torch.relu(z).to(h.dtype)
+
+    def frames(self, x: torch.Tensor,
+               dropout_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """(B, 1, F, T) -> frame embeddings (B, T/4, d).  dropout_mask: in
+        train mode, the keep mask (B, T/4, mlp_hidden_d) of the FC's
+        dropout, 1 = keep (kept values are scaled by 1 / 0.7); None draws it
+        from torch's global generator."""
         with no_tf32():
-            h = self._block1(x)
-            h = self.features[4:](h)
+            h = self._block2(self._block1(x))
         B, C, Fp, Tp = h.shape
         h = h.permute(0, 3, 2, 1).reshape(B, Tp, Fp * C)   # (B, T', F'*C)
-        return torch.cat([h, self.fc(h)], dim=-1)
+        if self.training and dropout_mask is not None:
+            y = self.fc[1](self.fc[0](h))
+            y = y * (dropout_mask.to(y.dtype) / (1.0 - DROPOUT_RATE))
+            y = self.fc[4](self.fc[3](y))
+        else:
+            y = self.fc(h)
+        return torch.cat([h, y], dim=-1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mean_max_pooling(self.frames(x))
+    def forward(self, x: torch.Tensor,
+                dropout_mask: torch.Tensor | None = None) -> torch.Tensor:
+        return mean_max_pooling(self.frames(x, dropout_mask))
 
 
-def init_weights_(model: AudioNTT2022, generator: torch.Generator) -> AudioNTT2022:
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX module's initialisers, drawn from `generator`: lecun-normal
     (truncated at 2 std) conv and dense kernels, zero biases, BN scale 1,
-    shift 0, running mean 0 and running var 1.  The draws differ from
+    shift 0, running mean 0 and running var 1 (the heads' too).  The draws differ from
     jax.random's; tests hand both packages the same weights instead."""
     with torch.no_grad():
         for m in model.modules():
@@ -95,7 +154,8 @@ def init_weights_(model: AudioNTT2022, generator: torch.Generator) -> AudioNTT20
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
-                nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.BatchNorm2d):
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
                 m.reset_parameters()
     return model

@@ -1,0 +1,53 @@
+"""BatchNorm with flax's training semantics, under torch's parameter names.
+
+flax.linen.BatchNorm (momentum 0.9 = torch's 0.1) normalises with the biased
+batch variance, computed as mean(x^2) - mean(x)^2 in fp32 and clamped at 0,
+and folds that same biased variance into the running average.  torch's
+BatchNorm folds the unbiased one (n / (n - 1) larger).  These subclasses
+take over the training-mode forward and leave everything else to torch:
+eval mode, the parameter and buffer names (weight, bias, running_mean,
+running_var, num_batches_tracked), so reference state dicts load with
+strict=True.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class _BiasedVarianceMixin:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        x32 = at_least_fp32(x)
+        mean = x32.mean(dim=dims)
+        var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
+        update_running_stats_(self, mean, var)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x32 - mean.view(shape)) * scale.view(shape)
+                + self.bias.view(shape)).to(x.dtype)
+
+
+def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
+    """Half-precision activations take their statistics in fp32."""
+    return x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+
+
+def update_running_stats_(bn: nn.modules.batchnorm._BatchNorm,
+                          mean: torch.Tensor, var: torch.Tensor) -> None:
+    """Fold a batch mean and *biased* batch variance into bn's running
+    buffers, in place: new = (1 - momentum) * old + momentum * batch."""
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean.detach().to(bn.running_mean.dtype), bn.momentum)
+        bn.running_var.lerp_(var.detach().to(bn.running_var.dtype), bn.momentum)
+        bn.num_batches_tracked += 1
+
+
+class BatchNorm1d(_BiasedVarianceMixin, nn.BatchNorm1d):
+    """(B, C) or (B, C, L); statistics over every axis but 1."""
+
+
+class BatchNorm2d(_BiasedVarianceMixin, nn.BatchNorm2d):
+    """(B, C, H, W); statistics over (B, H, W)."""

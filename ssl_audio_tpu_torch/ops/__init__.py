@@ -1,6 +1,6 @@
 """Ops of the port: the log-mel frontend (mel.py, kernel in mel_kernel.py),
-the fused first conv block (fused_conv.py) and the kernel builder
-(_build.py)."""
+the fused first conv block, forward and backward (fused_conv.py), and the
+nvcc build and ctypes binding of the kernels (_build.py)."""
 from __future__ import annotations
 
 import torch

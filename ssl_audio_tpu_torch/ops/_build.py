@@ -3,7 +3,7 @@ plain C interface, loaded with ctypes.
 
 Each source under ssl_audio_tpu_torch/csrc/ becomes build/kernels/
 <name>-<hash>.so at the repository root, built on first use and keyed by a
-hash of the sources and flags, so an edited source rebuilds and an unchanged
+hash of the source, the shared headers (*.cuh) and the flags, so an edited source rebuilds and an unchanged
 one loads from disk.  Nothing here runs at import: the CPU tests import
 every module on a machine without nvcc or a card.
 
@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("log_mel.cu", "fused_conv_fwd.cu")
+SOURCES = ("log_mel.cu", "fused_conv_fwd.cu", "fused_conv_bwd.cu")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # source -> nvcc output (ptxas register/spill report)
@@ -49,6 +49,8 @@ def nvcc_path() -> str:
 def _target(source: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):    # shared device code
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 

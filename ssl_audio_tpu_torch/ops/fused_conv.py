@@ -1,5 +1,5 @@
-"""Fused Conv3x3(Cin=1) + BatchNorm + ReLU + MaxPool2x2 block, forward
-(port of ssl_audio_tpu/ops/fused_conv.py, AudioNTT block 1).
+"""Fused Conv3x3(Cin=1) + BatchNorm + ReLU + MaxPool2x2 block, forward and
+backward (port of ssl_audio_tpu/ops/fused_conv.py, AudioNTT block 1).
 
 The CUDA kernel (csrc/fused_conv_fwd.cu) replaces the Pallas forward
 _fwd_kernel/_fwd_call: for x (B, H, W) with H and W even it computes the
@@ -11,8 +11,21 @@ relu(bn(extreme)), so the (B, H, W, C) activation is never stored.  The
 eval block fuses the running-statistics epilogue into the same kernel.
 It is bound by the bytes of the pooled output on the H100 (see the source).
 
-The plain version beside it (conv2d + per-channel sums + a sign-aware 2x2
-max pool) is the CPU path and the kernel's oracle.
+The training block fused_conv1_bn_relu_pool is a torch.autograd.Function
+around that forward in its statistics mode.  Its backward is two more CUDA
+kernels (csrc/fused_conv_bwd.cu), the ports of the Pallas _bwd_kernel and
+_dx_kernel: fused_conv1_bwd_cuda recomputes the conv corners, routes the
+cotangent to the first extreme of each window and reduces the per-channel
+and per-tap sums the parameter gradients are assembled from (in tap space;
+the TPU's X16 slots have no counterpart); fused_conv1_dx_cuda writes the
+conv output's cotangent dy and runs only when the block's input itself
+needs a gradient, which the encoder's first layer never does.
+
+Each kernel has a plain version beside it with the kernel's own signature
+(conv2d, unfold and einsum): the CPU path and the kernel's oracle.  A
+wrapper takes it only for a CPU tensor; for a CUDA tensor it launches the
+kernel or raises.  The block is single-device: it takes no process group
+yet, so under data parallelism its batch statistics would be per rank.
 """
 from __future__ import annotations
 
@@ -29,6 +42,15 @@ _SIGNATURES = {
                                _I, _I, _P],
     "fused_conv1_fwd_blocks": [_I, _I, _I],
 }
+_BWD_SIGNATURES = {
+    "fused_conv1_bwd_blocks": [_I, _I, _I],
+    "fused_conv1_gram_blocks": [_I, _I, _I],
+    "fused_conv1_bwd_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _I, _P],
+    "fused_conv1_dx_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                              ctypes.c_float, _P, _I, _P],
+}
+N_CHAN_SUMS = 12               # rows of the backward's per-channel sums: T1, T2, Sx, A1[0..8]
 MAX_GRID_Z = 65535
 C_OUT = 64                     # the kernel's channel count, a compile-time constant
 
@@ -111,3 +133,204 @@ def fused_conv1_bn_relu_pool_eval(x, kernel, bias, gamma, beta, mean, var,
                                     gamma.float().contiguous(), stats)
     sel, _, _ = fused_conv1_fwd_plain(x2, wk, bias, gamma)
     return torch.relu(gamma * (sel - mean) * r + beta)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _routed_dz(x, wk, bias, gamma, mean, r, pooled, dpooled):
+    """The shared prologue of the two backward functions in plain PyTorch
+    (the Pallas _corners_dz): (xhat, dz, xcols), xhat and dz (B, C, H, W)
+    at full resolution, dz nonzero only at the first corner, in the order
+    (0,0) (0,1) (1,0) (1,1), that holds its window's extreme (max where
+    gamma > 0, else min) and only where the forward's output is positive;
+    xcols (B, 9, H*W) the zero-padded input seen by each tap."""
+    B, H, W = x.shape
+    C = wk.shape[1]
+    h2, w2 = H // 2, W // 2
+    with no_tf32():
+        y = F.conv2d(x[:, None], wk.t().reshape(C, 1, 3, 3), bias, padding=1)
+    xhat = (y - mean[:, None, None]) * r[:, None, None]
+    sign = torch.where(gamma > 0, 1.0, -1.0).to(y.dtype)[:, None, None]
+    yw = (y * sign).reshape(B, C, h2, 2, w2, 2).permute(0, 1, 2, 4, 3, 5) \
+        .reshape(B, C, h2, w2, 4)
+    eq = yw == yw.max(dim=-1, keepdim=True).values
+    first = eq & (eq.cumsum(-1) == 1)
+    dzp = (dpooled * (pooled > 0)).permute(0, 3, 1, 2)          # (B, C, h2, w2)
+    dz = (dzp[..., None] * first).reshape(B, C, h2, w2, 2, 2) \
+        .permute(0, 1, 2, 4, 3, 5).reshape(B, C, H, W)
+    xcols = F.unfold(x[:, None], 3, padding=1)                  # (B, 9, H*W)
+    return xhat, dz, xcols
+
+
+def fused_conv1_bwd_plain(x, wk, bias, gamma, mean, r, pooled, dpooled):
+    """Plain PyTorch version of fused_conv1_bwd_cuda, same signature and
+    results: (t1, t2, sx (C,), a1 (9, C), a2 (9,), gram (9, 9))."""
+    xhat, dz, xcols = _routed_dz(x, wk, bias, gamma, mean, r, pooled, dpooled)
+    t1 = dz.sum(dim=(0, 2, 3))
+    t2 = (dz * xhat).sum(dim=(0, 2, 3))
+    sx = xhat.sum(dim=(0, 2, 3))
+    a1 = torch.einsum("bcp,bsp->sc", dz.flatten(2), xcols)
+    a2 = xcols.sum(dim=(0, 2))
+    gram = torch.einsum("bsp,btp->st", xcols, xcols)
+    return t1, t2, sx, a1, a2, gram
+
+
+def fused_conv1_dx_plain(x, wk, bias, gamma, mean, r, pooled, dpooled, t1, t2,
+                         n: float):
+    """Plain PyTorch version of fused_conv1_dx_cuda: dy (B, H, W, C), the
+    conv output's cotangent r g (dz - T1/n - xhat T2/n)."""
+    xhat, dz, _ = _routed_dz(x, wk, bias, gamma, mean, r, pooled, dpooled)
+    rg, t1n, t2n = ((v / d)[:, None, None] for v, d in ((r * gamma, 1.0), (t1, n), (t2, n)))
+    dy = rg * (dz - t1n - xhat * t2n)
+    return dy.permute(0, 2, 3, 1).contiguous()
+
+
+def _require_bwd_args(x, wk, bias, gamma, mean, r, pooled, dpooled):
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused conv backward kernels need CUDA tensors, got {dev}")
+    B, H, W = x.shape
+    C = wk.shape[-1]
+    if H % 2 or W % 2 or C != C_OUT or not 0 < B <= MAX_GRID_Z:
+        raise ValueError(f"unsupported shape: x {tuple(x.shape)}, C={C} "
+                         f"(H, W even; C = {C_OUT}; 0 < B <= {MAX_GRID_Z})")
+    _build.require(x, "x", (B, H, W), dev)
+    _build.require(wk, "wk", (9, C), dev)
+    for name, t in (("bias", bias), ("gamma", gamma), ("mean", mean), ("r", r)):
+        _build.require(t, name, (C,), dev)
+    for name, t in (("pooled", pooled), ("dpooled", dpooled)):
+        _build.require(t, name, (B, H // 2, W // 2, C), dev)
+    return dev, B, H, W, C
+
+
+def fused_conv1_bwd_cuda(x, wk, bias, gamma, mean, r, pooled, dpooled):
+    """Launch the backward reduction kernels.  x (B, H, W), wk (9, C), mean
+    and r = rsqrt(var + eps) the forward's batch statistics, pooled the
+    forward's output (B, H/2, W/2, C) and dpooled its cotangent ->
+    (t1, t2, sx (C,), a1 (9, C), a2 (9,), gram (9, 9)):
+      t1 = sum dz, t2 = sum dz xhat, sx = sum xhat,
+      a1[s, c] = sum dz[c] xpad[. + tap s], a2[s] = sum xpad[. + tap s],
+      gram[s', s] = sum xpad[. + s'] xpad[. + s],
+    every sum over all B*H*W conv output positions, reduced inside the
+    kernels in a fixed order."""
+    dev, B, H, W, C = _require_bwd_args(x, wk, bias, gamma, mean, r, pooled, dpooled)
+    lib = _build.load("fused_conv_bwd.cu", _BWD_SIGNATURES)
+    stats = torch.stack([mean, r]).contiguous()
+    partials = torch.empty(lib.fused_conv1_bwd_blocks(B, H, W), N_CHAN_SUMS, C, device=dev)
+    gram_partials = torch.empty(lib.fused_conv1_gram_blocks(B, H, W), 90, device=dev)
+    chan = torch.empty(N_CHAN_SUMS, C, device=dev)
+    taps = torch.empty(10, 9, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.fused_conv1_bwd_launch(
+            x.data_ptr(), B, H, W, wk.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
+            stats.data_ptr(), pooled.data_ptr(), dpooled.data_ptr(),
+            partials.data_ptr(), gram_partials.data_ptr(), chan.data_ptr(),
+            taps.data_ptr(), C, _build.stream_ptr(dev))
+    _build.check(code, "fused_conv1_bwd_launch")
+    fused_conv1_bwd_cuda.launches += 1
+    return chan[0], chan[1], chan[2], chan[3:], taps[9], taps[:9]
+
+
+fused_conv1_bwd_cuda.launches = 0
+
+
+def fused_conv1_dx_cuda(x, wk, bias, gamma, mean, r, pooled, dpooled, t1, t2,
+                        n: float):
+    """Launch the dy kernel: the conv output's cotangent (B, H, W, C) from
+    the same prologue as fused_conv1_bwd_cuda and its reduced t1, t2;
+    n = the number of positions the batch statistics were taken over."""
+    dev, B, H, W, C = _require_bwd_args(x, wk, bias, gamma, mean, r, pooled, dpooled)
+    _build.require(t1, "t1", (C,), dev)
+    _build.require(t2, "t2", (C,), dev)
+    lib = _build.load("fused_conv_bwd.cu", _BWD_SIGNATURES)
+    stats = torch.stack([mean, r]).contiguous()
+    sums = torch.stack([t1, t2]).contiguous()
+    dy = torch.empty(B, H, W, C, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.fused_conv1_dx_launch(
+            x.data_ptr(), B, H, W, wk.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
+            stats.data_ptr(), pooled.data_ptr(), dpooled.data_ptr(),
+            sums.data_ptr(), float(n), dy.data_ptr(), C, _build.stream_ptr(dev))
+    _build.check(code, "fused_conv1_dx_launch")
+    fused_conv1_dx_cuda.launches += 1
+    return dy
+
+
+fused_conv1_dx_cuda.launches = 0
+
+
+def fused_conv1_bwd(*args):
+    """The kernel for CUDA tensors, the plain version on the CPU."""
+    if args[0].is_cuda:
+        return fused_conv1_bwd_cuda(*args)
+    return fused_conv1_bwd_plain(*args)
+
+
+def fused_conv1_dx(*args):
+    if args[0].is_cuda:
+        return fused_conv1_dx_cuda(*args)
+    return fused_conv1_dx_plain(*args)
+
+
+def param_grads_from_sums(wk, bias, gamma, mean, r, n: float, t1, t2, sx, a1, a2, gram):
+    """(dwk (9, C), db, dgamma, dbeta) from the backward's reduced sums: the
+    (C, 9)-sized algebra the JAX package also does outside its kernel.
+    A3[s, c] = sum xhat[c] xpad[. + s] is rebuilt from the tap Gram, since
+    xhat = r (sum_s' w[s'] xpad[. + s'] + bias - mean)."""
+    a3 = r * (gram @ wk + a2[:, None] * (bias - mean))
+    rg = r * gamma
+    dwk = rg * (a1 - a2[:, None] * (t1 / n) - a3 * (t2 / n))
+    db = -(rg * sx * t2) / n                 # mathematically 0: sx is float noise
+    return dwk, db, t2, t1
+
+
+class _FusedConv1BnReluPool(torch.autograd.Function):
+    """Training block 1 (the JAX custom_vjp fused_conv1_bn_relu_pool).
+    Saves the input and the pooled output only: the conv activation is
+    recomputed in the backward kernels and never stored."""
+
+    @staticmethod
+    def forward(ctx, x2, wk, bias, gamma, beta, eps):
+        B, H, W = x2.shape
+        sel, s1, s2 = fused_conv1_fwd(x2, wk, bias, gamma)
+        n = B * H * W
+        mean = s1 / n
+        var = s2 / n - mean * mean
+        r = torch.rsqrt(var + eps)
+        pooled = torch.relu(gamma * (sel - mean) * r + beta)
+        ctx.save_for_backward(x2, wk, bias, gamma, mean, r, pooled)
+        ctx.mark_non_differentiable(mean, var)
+        return pooled, mean, var
+
+    @staticmethod
+    def backward(ctx, dpooled, _dmean, _dvar):
+        x2, wk, bias, gamma, mean, r, pooled = ctx.saved_tensors
+        n = float(x2.numel())
+        args = (x2, wk, bias, gamma, mean, r, pooled, dpooled.contiguous())
+        t1, t2, sx, a1, a2, gram = sums = fused_conv1_bwd(*args)
+        dwk, db, dgamma, dbeta = param_grads_from_sums(wk, bias, gamma, mean, r, n, *sums)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dy = fused_conv1_dx(*args, t1, t2, n)
+            # dx[h, w] = sum_{s, c} dy[c, h - (dh - 1), w - (dw - 1)] wk[s, c]
+            H, W = x2.shape[1:]
+            taps = F.pad(dy @ wk.t(), (0, 0, 1, 1, 1, 1))       # (B, H+2, W+2, 9)
+            dx = sum(taps[:, 2 - dh: 2 - dh + H, 2 - dw: 2 - dw + W, dh * 3 + dw]
+                     for dh in range(3) for dw in range(3))
+        return dx, dwk, db, dgamma, dbeta, None
+
+
+def fused_conv1_bn_relu_pool(x, kernel, bias, gamma, beta, eps: float = 1e-5):
+    """Training-mode block: x (B, H, W, 1) with H, W even, kernel (3, 3, 1, C)
+    -> (pooled (B, H/2, W/2, C), mean (C,), var (C,)), the JAX function's
+    layouts.  mean and var are the batch statistics (biased variance) over
+    the full conv output; they carry no gradient, and the caller folds them
+    into its running averages.  Differentiable in x, kernel, bias, gamma and
+    beta through the hand-written backward."""
+    C = kernel.shape[-1]
+    return _FusedConv1BnReluPool.apply(
+        x[..., 0].float().contiguous(), kernel.reshape(9, C).float().contiguous(),
+        bias.float().contiguous(), gamma.float().contiguous(),
+        beta.float().contiguous(), eps)

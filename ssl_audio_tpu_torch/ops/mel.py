@@ -158,30 +158,52 @@ def _table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
 
 
-def log_mel_spectrogram_plain(wav: torch.Tensor, spec: MelSpec,
-                              fold: bool | None = None) -> torch.Tensor:
-    """(B, L) float32 -> (B, n_mels, T) log-mel in plain PyTorch: the CPU
-    path and the oracle of the CUDA kernel.  fold as in
-    log_mel_spectrogram."""
+def _log_mel_of_frames(x: torch.Tensor, first: torch.Tensor, spec: MelSpec,
+                       fold: bool | None) -> torch.Tensor:
+    """x (B, L + n_fft) reflect-padded clips, first (T,) or (B, T) first
+    padded sample of every frame -> (B, n_mels, T) log-mel."""
     folded = _folded_bases(spec, fold)
-    pad = spec.n_fft // 2
-    x = _reflect_pad(wav, pad)
-    T = spec.num_frames(wav.shape[-1])
-    starts = torch.arange(T, device=wav.device) * spec.hop_length
+    rows = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    first = first.expand(x.shape[0], -1)[:, :, None]             # (B, T, 1)
     if folded is not None:
-        h = spec.n_fft // 2 + 1
-        n = torch.arange(h, device=wav.device)
-        a = x[:, starts[:, None] + n[None, :]]                  # (B, T, h)
-        b = x[:, starts[:, None] + (spec.n_fft - n[None, :]) % spec.n_fft]
+        n = torch.arange(spec.n_fft // 2 + 1, device=x.device)
+        a = x[rows, first + n]                                    # (B, T, h)
+        b = x[rows, first + (spec.n_fft - n) % spec.n_fft]
         re = (a + b) @ _table(folded[0], x)
         im = (a - b) @ _table(folded[1], x)
     else:
-        frames = x[:, starts[:, None] + torch.arange(spec.n_fft, device=wav.device)]
+        frames = x[rows, first + torch.arange(spec.n_fft, device=x.device)]
         C, S = spec.dft_matrices_mel
         re = frames @ _table(C, x)
         im = frames @ _table(S, x)
     mel = (re * re + im * im) @ _table(spec.filterbank_mel, x)
     return torch.log(mel + TORCH_FLOAT32_EPS).transpose(1, 2)
+
+
+def log_mel_spectrogram_plain(wav: torch.Tensor, spec: MelSpec,
+                              fold: bool | None = None) -> torch.Tensor:
+    """(B, L) float32 -> (B, n_mels, T) log-mel in plain PyTorch: the CPU
+    path and the oracle of the CUDA kernel.  fold as in
+    log_mel_spectrogram."""
+    x = _reflect_pad(wav, spec.n_fft // 2)
+    T = spec.num_frames(wav.shape[-1])
+    first = torch.arange(T, device=wav.device) * spec.hop_length
+    return _log_mel_of_frames(x, first[None], spec, fold)
+
+
+def log_mel_spectrogram_cropped_plain(wav: torch.Tensor, spec: MelSpec,
+                                      fold: bool | None, starts: torch.Tensor,
+                                      out_frames: int) -> torch.Tensor:
+    """(B, L) float32 and per-clip first frames starts (B,) -> (B, n_mels,
+    out_frames): output frame t of clip b is frame starts[b] + t of
+    log_mel_spectrogram_plain(wav).  Plain PyTorch, log_mel_cuda's signature
+    with crop starts: the CPU path and that kernel's oracle.  A frame index
+    outside the clip is clamped to it, as in the kernel."""
+    x = _reflect_pad(wav, spec.n_fft // 2)
+    T_full = spec.num_frames(wav.shape[-1])
+    frame = starts.long()[:, None] + torch.arange(out_frames, device=wav.device)
+    first = frame.clamp(0, T_full - 1) * spec.hop_length
+    return _log_mel_of_frames(x, first, spec, fold)
 
 
 def _folded_bases(spec: MelSpec, fold: bool | None):
@@ -215,3 +237,22 @@ def log_mel_spectrogram(wav: torch.Tensor, spec: MelSpec, fast: bool = False,
     else:
         out = log_mel_spectrogram_plain(flat, spec, fold=fold)
     return out.reshape(*lead, *out.shape[1:])
+
+
+def log_mel_spectrogram_cropped(wav: torch.Tensor, spec: MelSpec,
+                                starts: torch.Tensor, out_frames: int,
+                                fast: bool = False) -> torch.Tensor:
+    """(B, L) and per-clip frame starts -> (B, n_mels, out_frames) log-mel of
+    the cropped window only (the JAX function of the same name): frame t of
+    the output equals frame starts[b] + t of log_mel_spectrogram(wav).  A
+    CUDA tensor goes through the kernel, which reads starts on the device; a
+    CPU tensor through the plain version.  `fast` as in
+    log_mel_spectrogram."""
+    del fast
+    wav = wav.float().contiguous()
+    if wav.is_cuda:
+        from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+
+        return log_mel_cuda(wav, spec, None, starts.to(torch.int32).contiguous(),
+                            out_frames)
+    return log_mel_spectrogram_cropped_plain(wav, spec, None, starts, out_frames)

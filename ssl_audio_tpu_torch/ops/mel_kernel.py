@@ -29,8 +29,8 @@ SMEM_LIMIT = 232448            # bytes of shared memory one block may use
 MAX_GRID_Y = 65535             # clips per launch (the grid's y extent)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"log_mel_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _I, ctypes.c_float, _I, _P]}
+_SIGNATURES = {"log_mel_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                                  _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]}
 
 
 @dataclass(frozen=True)
@@ -90,11 +90,17 @@ def _device_tables(spec: MelSpec, fold: bool | None, device: torch.device):
                  for a in (ops.basis_c, ops.basis_s, ops.fb, ops.band))
 
 
-def log_mel_cuda(wav: torch.Tensor, spec: MelSpec,
-                 fold: bool | None = None) -> torch.Tensor:
+def log_mel_cuda(wav: torch.Tensor, spec: MelSpec, fold: bool | None = None,
+                 starts: torch.Tensor | None = None,
+                 out_frames: int | None = None) -> torch.Tensor:
     """(B, L) float32 CUDA tensor -> (B, n_mels, T) log-mel through the CUDA
     kernel.  fold: None = the folded instantiation whenever the window
-    admits it, False = the unfolded one, True = require the fold."""
+    admits it, False = the unfolded one, True = require the fold.
+
+    starts (B,) int32 on the device with out_frames: the cropped log-mel,
+    output frame t of clip b = frame starts[b] + t of the whole clip's
+    log-mel (a frame index outside the clip is clamped to it).  The kernel
+    reads the starts itself; nothing is fetched to the host."""
     ops = kernel_operands(spec, fold)
     dev = wav.device
     if dev.type != "cuda":
@@ -110,7 +116,19 @@ def log_mel_cuda(wav: torch.Tensor, spec: MelSpec,
         raise ValueError(f"{spec} is outside the kernel's limits (n_mels <= "
                          f"{MAX_MELS}, {ops.smem_bytes()} > {SMEM_LIMIT} B "
                          f"of shared memory)")
-    T = spec.num_frames(L)
+    T_full = spec.num_frames(L)
+    if (starts is None) != (out_frames is None):
+        raise ValueError("starts and out_frames come together")
+    if starts is None:
+        T = T_full
+    else:
+        T = int(out_frames)
+        if starts.device != dev or starts.dtype != torch.int32 \
+                or tuple(starts.shape) != (B,) or not starts.is_contiguous():
+            raise ValueError(f"starts: want contiguous int32 ({B},) on {dev}, got "
+                             f"{starts.dtype} {tuple(starts.shape)} on {starts.device}")
+        if not 0 < T <= T_full:
+            raise ValueError(f"out_frames {T} outside 1..{T_full}")
     out = torch.empty(B, spec.n_mels, T, device=dev)
     if B == 0:
         return out
@@ -118,7 +136,9 @@ def log_mel_cuda(wav: torch.Tensor, spec: MelSpec,
     lib = _build.load("log_mel.cu", _SIGNATURES)
     with torch.cuda.device(dev):
         code = lib.log_mel_launch(
-            wav.data_ptr(), B, L, T, basis_c.data_ptr(), basis_s.data_ptr(),
+            wav.data_ptr(), B, L, T, T_full,
+            None if starts is None else starts.data_ptr(),
+            basis_c.data_ptr(), basis_s.data_ptr(),
             fb.data_ptr(), band.data_ptr(), out.data_ptr(), spec.n_fft,
             spec.hop_length, ops.n_lo, basis_c.shape[0], basis_c.shape[1], spec.n_mels,
             TORCH_FLOAT32_EPS, int(ops.fold), _build.stream_ptr(dev))

@@ -92,7 +92,9 @@ def profile(fn) -> dict:
     by_kernel = {}
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0.0)
-        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation (Optimizer.step#...) repeats its kernels' time
+        if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, "is_user_annotation", False):
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + dev_us / 1e3
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])

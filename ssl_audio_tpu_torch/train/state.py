@@ -1,0 +1,79 @@
+"""Train state: everything a step carries (port of
+ssl_audio_tpu/train/state.py).
+
+The JAX package threads parameters, batch statistics, optimizer state and
+the augmentation state through a pure step function as one pytree.  Here
+the modules own their parameters and running statistics, the optimizer its
+momentum, and a step updates all of them in place; TrainState is the one
+handle on them.  The teacher/student step only: the BYOL variant's target
+network is not ported yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ssl_audio_tpu_torch.augment.transforms import AugmentState, init_augment_state
+from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022, init_weights_
+from ssl_audio_tpu_torch.models.heads import BarlowTwinsHead, BarlowTwinsPredictor
+from ssl_audio_tpu_torch.train import optim as optim_lib
+from ssl_audio_tpu_torch.utils import resolve_device
+
+
+@dataclass
+class TrainState:
+    cfg: object
+    step: int
+    modules: nn.ModuleDict            # "encoder", "head", "predictor"
+    optimizer: torch.optim.Optimizer
+    scheduler: Optional[object]       # LR factor schedule of AdamW/Adam/SGD; LARS carries its own
+    aug: AugmentState
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.modules.parameters()).device
+
+
+def build_encoder(cfg) -> tuple[nn.Module, int]:
+    """-> (encoder, feature_dim).  fused_conv / pool_reorder None = on: the
+    fused block computes the same function on the CPU and on the card."""
+    if cfg.model_type != "audiontt":
+        raise NotImplementedError(
+            f"model type {cfg.model_type!r} is not ported yet (audiontt only)")
+    if cfg.squeeze_excitation:
+        raise NotImplementedError("--squeeze_excitation (SE blocks) is not ported yet")
+    if cfg.n_mels != 64:
+        raise ValueError(f"n_mels must be 64 to use the AudioNTT encoder "
+                         f"(n_mels set to {cfg.n_mels})")
+    enc = AudioNTT2022(
+        n_mels=cfg.n_mels,
+        fused_conv=cfg.fused_conv is None or bool(cfg.fused_conv),
+        pool_reorder=cfg.pool_reorder is None or bool(cfg.pool_reorder))
+    return enc, enc.embed_dim
+
+
+def init_train_state(cfg, generator: torch.Generator, niter_per_ep: int = 100,
+                     byol: bool = False, device=None) -> TrainState:
+    """Modules with the JAX package's initialisers drawn from `generator` (a
+    CPU generator, so the same seed gives the same weights on any device),
+    moved to `device`, their optimizer and the augmentation state.
+    device None = the card: without one this raises unless the caller asks
+    for "cpu"."""
+    device = resolve_device(device)
+    if byol:
+        raise NotImplementedError("the BYOL variant (target network) is not ported yet")
+    encoder, feature_dim = build_encoder(cfg)
+    modules = nn.ModuleDict({
+        "encoder": encoder,
+        "head": BarlowTwinsHead(feature_dim, cfg.projector_n_hidden_layers,
+                                cfg.projector_hidden_dim, cfg.projector_out_dim),
+        "predictor": BarlowTwinsPredictor(cfg.projector_out_dim, use=cfg.predictor),
+    })
+    init_weights_(modules, generator)
+    modules.to(device)
+    optimizer, scheduler = optim_lib.make_optimizer(cfg, modules.parameters(), niter_per_ep)
+    return TrainState(cfg=cfg, step=0, modules=modules, optimizer=optimizer,
+                      scheduler=scheduler, aug=init_augment_state(cfg, device=device))

@@ -1,5 +1,6 @@
 """Weights for the port's AudioNTT2022 (port of the AudioNTT parts of
-ssl_audio_tpu/utils/torch_export.py and utils/torch_import.py).
+ssl_audio_tpu/utils/torch_export.py and utils/torch_import.py) and for the
+whole train state (encoder, projector, predictor, LARS momentum).
 
 The port's modules use the reference's torch parameter names, so a
 reference-layout `.pth` loads as it is, and a JAX variable tree converts
@@ -61,3 +62,58 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
             sd = clean
             break
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def _mlp_state_dict_from_jax(params, stats, prefix: str) -> Dict[str, torch.Tensor]:
+    """A flax head ({Dense_i, BatchNorm_i} + batch_stats) -> the port's
+    Sequential of [Linear, BatchNorm1d, ReLU] * n + Linear under `prefix`."""
+    sd: Dict[str, torch.Tensor] = {}
+    n_dense = sum(1 for k in params if k.startswith("Dense_"))
+    for i in range(n_dense):
+        sd[f"{prefix}.{3 * i}.weight"] = _t(np.asarray(params[f"Dense_{i}"]["kernel"]).T)
+        if i < n_dense - 1:
+            bn, st = params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"]
+            base = f"{prefix}.{3 * i + 1}"
+            sd[f"{base}.weight"] = _t(bn["scale"])
+            sd[f"{base}.bias"] = _t(bn["bias"])
+            sd[f"{base}.running_mean"] = _t(st["mean"])
+            sd[f"{base}.running_var"] = _t(st["var"])
+            sd[f"{base}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return sd
+
+
+def train_state_dicts_from_jax(params, batch_stats) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX train state's {"encoder", "head", "predictor"} parameter and
+    batch-statistics trees (numpy arrays) -> {"encoder", "head", "predictor"}
+    state dicts for the port's modules (train/state.py), so that a step can
+    start from the same state in both packages.  An empty predictor tree
+    (cfg.predictor off) gives an empty state dict."""
+    out = {"encoder": audiontt_state_dict_from_jax(
+        {"params": params["encoder"], "batch_stats": batch_stats["encoder"]})}
+    out["head"] = _mlp_state_dict_from_jax(params["head"], batch_stats["head"], "projector")
+    out["predictor"] = _mlp_state_dict_from_jax(
+        params.get("predictor") or {}, batch_stats.get("predictor") or {}, "predictor")
+    return out
+
+
+def lars_state_from_jax(mu) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The LARS momentum tree of the JAX optimizer state (shaped like the
+    parameters) -> per module, momentum tensors under the port's parameter
+    names (running statistics are not parameters and are left out)."""
+    zeros = {"encoder": _zero_stats_like(mu["encoder"]), "head": _zero_stats_like(mu["head"]),
+             "predictor": _zero_stats_like(mu.get("predictor") or {})}
+    sds = train_state_dicts_from_jax(mu, zeros)
+    return {name: {k: v for k, v in sd.items()
+                   if not k.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+            for name, sd in sds.items()}
+
+
+def _zero_stats_like(params):
+    """A batch-statistics tree for a parameter-shaped tree: {mean, var} zeros
+    beside every BatchNorm's {scale, bias}, at any nesting depth."""
+    if not isinstance(params, dict):
+        return {}
+    if set(params) == {"scale", "bias"}:
+        z = np.zeros_like(np.asarray(params["scale"]))
+        return {"mean": z, "var": z}
+    return {k: _zero_stats_like(v) for k, v in params.items() if isinstance(v, dict)}

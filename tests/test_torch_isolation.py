@@ -41,6 +41,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "ssl_audio_tpu_torch.hear.conv" in result["modules"]
     assert "ssl_audio_tpu_torch.ops.mel_kernel" in result["modules"]
+    for name in ("main", "config", "train.loop", "train.steps", "train.state",
+                 "train.optim", "augment.transforms", "objectives.barlow",
+                 "models.heads", "data.pipeline", "tools.train_profile"):
+        assert f"ssl_audio_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 
 

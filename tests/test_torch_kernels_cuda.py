@@ -12,11 +12,20 @@ import pytest
 import torch
 
 from ssl_audio_tpu_torch.ops.fused_conv import (
+    fused_conv1_bn_relu_pool,
     fused_conv1_bn_relu_pool_eval,
+    fused_conv1_bwd_cuda,
+    fused_conv1_bwd_plain,
+    fused_conv1_dx_cuda,
+    fused_conv1_dx_plain,
     fused_conv1_fwd_cuda,
     fused_conv1_fwd_plain,
 )
-from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_plain
+from ssl_audio_tpu_torch.ops.mel import (
+    MelSpec,
+    log_mel_spectrogram_cropped_plain,
+    log_mel_spectrogram_plain,
+)
 from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
 
 pytestmark = pytest.mark.cuda
@@ -26,6 +35,8 @@ MEL_ATOL = 1e-4      # fp32 DFT sums in another order than cuBLAS
 CONV_ATOL = 1e-4     # cuDNN's fp32 conv algorithm rounds otherwise
 STATS_RTOL = 1e-4    # fp32 sums over the batch in another order
 EMB_RTOL = 1e-3      # embeddings / max|embedding|, card vs CPU
+SUMS_RTOL = 1e-4     # backward sums / their largest value: fp32 sums in another order
+DY_ATOL = 1e-4       # dy values O(1): the T1/n, T2/n terms come from those sums
 
 
 @pytest.fixture
@@ -59,6 +70,33 @@ def test_log_mel_kernel_matches_plain(dev, rng, win, fold, length):
     torch.testing.assert_close(out, ref, atol=MEL_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("fold", [None, False])
+@pytest.mark.parametrize("frames", [96, 33])
+def test_log_mel_kernel_with_crop_starts_matches_plain(dev, rng, fold, frames):
+    """Per-clip crop starts at the training spec: first, last valid and
+    mixed starts; 33 frames leave a partial frame tile."""
+    spec = MelSpec(win_length=1024)
+    B, L = 16, 48000
+    wav = _wav(rng, (B, L)).to(dev)
+    last = spec.num_frames(L) - frames
+    starts = torch.from_numpy(rng.integers(0, last + 1, B).astype(np.int32))
+    starts[0], starts[1] = 0, last
+    starts = starts.to(dev)
+    before = dict(log_mel_cuda.launches)
+    out = log_mel_cuda(wav, spec, fold, starts, frames)
+    ref = log_mel_spectrogram_cropped_plain(wav, spec, fold, starts, frames)
+    full = log_mel_spectrogram_plain(wav, spec, fold=fold)
+    torch.cuda.synchronize()
+    took = "folded" if kernel_operands(spec, fold).fold else "unfolded"
+    assert log_mel_cuda.launches == {**before, took: before[took] + 1}
+    assert out.shape == (B, spec.n_mels, frames)
+    torch.testing.assert_close(out, ref, atol=MEL_ATOL, rtol=0)
+    for b in (0, 1, 5):
+        s0 = int(starts[b])
+        torch.testing.assert_close(out[b], full[b, :, s0:s0 + frames],
+                                   atol=MEL_ATOL, rtol=0)
+
+
 def _conv_inputs(rng, B, H, W, C=64):
     x = np.round(rng.standard_normal((B, H, W)) * 2) / 2        # window ties
     wk = 0.3 * rng.standard_normal((9, C))
@@ -87,6 +125,69 @@ def test_fused_conv_kernel_matches_plain(dev, rng, shape):
         assert float((a - p).abs().max()) <= STATS_RTOL * float(p.abs().max())
     ref = torch.relu(g * (sel_p - mean) * torch.rsqrt(var + 1e-5) + be)
     torch.testing.assert_close(out, ref, atol=CONV_ATOL, rtol=0)
+
+
+def _bwd_inputs(rng, dev, shape):
+    x, wk, b, g, be, _, _ = (t.to(dev) for t in _conv_inputs(rng, *shape))
+    pooled, mean, var = fused_conv1_bn_relu_pool(x[..., None], wk.reshape(3, 3, 1, -1),
+                                                 b, g, be)
+    dp = torch.from_numpy(rng.standard_normal(tuple(pooled.shape)).astype(np.float32))
+    return (x, wk, b, g, mean, torch.rsqrt(var + 1e-5), pooled, dp.to(dev)), be
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 96), (3, 18, 38)])
+def test_fused_conv_bwd_and_dx_kernels_match_plain(dev, rng, shape):
+    """Window ties, negative and zero gammas; (3, 18, 38) leaves partial
+    tiles.  Two launches of the reduction give the same bits."""
+    args, _ = _bwd_inputs(rng, dev, shape)
+    before = (fused_conv1_bwd_cuda.launches, fused_conv1_dx_cuda.launches)
+    got = fused_conv1_bwd_cuda(*args)
+    again = fused_conv1_bwd_cuda(*args)
+    ref = fused_conv1_bwd_plain(*args)
+    n = float(args[0].numel())
+    dy = fused_conv1_dx_cuda(*args, got[0], got[1], n)
+    dy_ref = fused_conv1_dx_plain(*args, got[0], got[1], n)
+    torch.cuda.synchronize()
+    assert (fused_conv1_bwd_cuda.launches, fused_conv1_dx_cuda.launches) == \
+        (before[0] + 2, before[1] + 1)
+    for name, a, a2, p in zip(("t1", "t2", "sx", "a1", "a2", "gram"), got, again, ref):
+        assert torch.equal(a, a2), name
+        if name == "sx":         # mathematically 0: float noise against n = B*H*W terms
+            assert float(a.abs().max()) <= 1e-5 * n and float(p.abs().max()) <= 1e-5 * n
+            continue
+        assert float((a - p).abs().max()) <= SUMS_RTOL * float(p.abs().max()), name
+    torch.testing.assert_close(dy, dy_ref, atol=DY_ATOL, rtol=0)
+
+
+def test_fused_block_function_card_matches_cpu(dev, rng):
+    """The autograd Function on the card (three kernels) against the CPU
+    (plain versions): outputs and all five gradients, dx included."""
+    x, wk, b, g, be, _, _ = _conv_inputs(rng, 8, 32, 48)
+    dp = torch.from_numpy(rng.standard_normal((8, 16, 24, 64)).astype(np.float32))
+    results = {}
+    for where in ("cpu", dev):
+        ts = [t.clone().to(where).requires_grad_() for t in
+              (x[..., None], wk.reshape(3, 3, 1, -1), b, g, be)]
+        pooled, mean, var = fused_conv1_bn_relu_pool(*ts)
+        (pooled * dp.to(where)).sum().backward()
+        results[str(where)] = [t.detach().cpu() for t in (pooled, mean, var)] + \
+            [t.grad.cpu() for t in ts]
+    names = ("pooled", "mean", "var", "dx", "dW", "db", "dgamma", "dbeta")
+    for name, a, p in zip(names, results[str(dev)], results["cpu"]):
+        if name == "db":         # mathematically 0 on both sides
+            assert float(a.abs().max()) < 1e-3 and float(p.abs().max()) < 1e-3
+            continue
+        scale = max(1.0, float(p.abs().max()))
+        torch.testing.assert_close(a, p, atol=1e-4 * scale, rtol=1e-4, msg=name)
+
+
+def test_max_pool2d_backward_routes_ties_to_the_first_element_on_the_card(dev):
+    """Block 2's reordered pool relies on it, as on the CPU."""
+    x = torch.zeros(2, 3, 4, 6, device=dev, requires_grad=True)
+    torch.nn.functional.max_pool2d(x, 2).sum().backward()
+    want = torch.zeros(4, 6, device=dev)
+    want[::2, ::2] = 1.0
+    assert torch.equal(x.grad, want.expand_as(x.grad))
 
 
 def test_hear_api_card_matches_cpu(dev, rng):

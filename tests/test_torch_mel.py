@@ -170,3 +170,80 @@ def test_cpu_tensor_takes_plain_path(rng):
     assert log_mel_cuda.launches == before
     with pytest.raises(ValueError):
         log_mel_cuda(wav, spec)              # the kernel wrapper never runs on the CPU
+
+
+# --- the cropped log-mel and the training frontend ---------------------------------
+
+@pytest.mark.parametrize("kw", SPECS)
+@pytest.mark.parametrize("which", ["first", "last", "mixed"])
+def test_cropped_plain_matches_jax_cropped(rng, kw, which):
+    """Crop starts at frame 0, at the last valid frame, and mixed; every
+    output frame also equals the same frame of the whole clip's log-mel."""
+    B, L, frames = 4, 16000, 32
+    wav = _wav(rng, (B, L))
+    spec = tmel.MelSpec(**kw)
+    last = spec.num_frames(L) - frames
+    starts = {"first": np.zeros(B), "last": np.full(B, last),
+              "mixed": np.array([0, last, 17, last // 2])}[which].astype(np.int32)
+    ref = np.asarray(jmel.log_mel_spectrogram_cropped(
+        jnp.asarray(wav), jmel.MelSpec(**kw), jnp.asarray(starts), frames))
+    out = tmel.log_mel_spectrogram_cropped(torch.from_numpy(wav), spec,
+                                           torch.from_numpy(starts), frames)
+    assert out.shape == ref.shape == (B, 64, frames)
+    np.testing.assert_allclose(out.numpy(), ref, atol=LOG_MEL_ATOL, rtol=0)
+    full = tmel.log_mel_spectrogram_plain(torch.from_numpy(wav), spec)
+    for b in range(B):
+        np.testing.assert_allclose(out[b].numpy(),
+                                   full[b, :, starts[b]:starts[b] + frames].numpy(),
+                                   atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fold", [None, False])
+def test_cropped_plain_both_instantiations_and_clamped_starts(rng, fold):
+    wav = torch.from_numpy(_wav(rng, (2, 8000)))
+    spec = tmel.MelSpec()
+    full = tmel.log_mel_spectrogram_plain(wav, spec, fold=fold)
+    out = tmel.log_mel_spectrogram_cropped_plain(wav, spec, fold,
+                                                 torch.tensor([5, 49]), 8)
+    np.testing.assert_allclose(out[0].numpy(), full[0, :, 5:13].numpy(), atol=1e-5)
+    # 51 frames: start 49 runs past the clip; frames past the end repeat the last
+    np.testing.assert_allclose(out[1, :, :2].numpy(), full[1, :, 49:51].numpy(), atol=1e-5)
+    np.testing.assert_allclose(out[1, :, 2:].numpy(),
+                               full[1, :, 50:51].expand(-1, 6).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("length,crop", [(16000, 32), (4000, 32)])
+def test_device_frontend_matches_jax_with_injected_starts(rng, length, crop):
+    """make_device_frontend with the starts JAX drew from its key: a 1-s clip
+    (101 frames) cropped to 32, and a clip of 26 frames, shorter than
+    crop_frames: zero-padded in the log domain, then normalised."""
+    import jax
+
+    from ssl_audio_tpu.config import default_config as jax_config
+    from ssl_audio_tpu.train.steps import make_device_frontend as jax_frontend
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.train.steps import crop_start_bound, make_device_frontend
+
+    kw = dict(dataset="synthetic_wav", crop_frames=crop)
+    stats = (-4.95, 5.855)
+    wav = _wav(rng, (3, length))
+    key = jax.random.key(11)
+    ref = np.asarray(jax_frontend(jax_config(**kw), stats)(key, jnp.asarray(wav)))
+    hi = crop_start_bound(default_config(**kw), length)
+    n_frames = 1 + length // 160
+    assert hi == max(n_frames - crop + 1, 1)          # inclusive upper start
+    starts = torch.from_numpy(np.array(jax.random.randint(key, (3,), 0, hi)))
+    out = make_device_frontend(default_config(**kw), stats)(torch.from_numpy(wav), starts)
+    assert out.shape == ref.shape == (3, 1, 64, crop)
+    np.testing.assert_allclose(out.numpy(), ref, atol=LOG_MEL_ATOL, rtol=0)
+    if n_frames < crop:
+        torch.testing.assert_close(out[..., n_frames:],
+                                   torch.full((3, 1, 64, crop - n_frames), -stats[0] / stats[1]))
+
+
+def test_cuda_wrapper_rejects_cpu_tensors_and_bad_starts():
+    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+
+    with pytest.raises(ValueError):
+        log_mel_cuda(torch.zeros(2, 8000), tmel.MelSpec(), None,
+                     torch.zeros(2, dtype=torch.int32), 8)
