@@ -135,10 +135,11 @@ def _bwd_inputs(rng, dev, shape):
     return (x, wk, b, g, mean, torch.rsqrt(var + 1e-5), pooled, dp.to(dev)), be
 
 
-@pytest.mark.parametrize("shape", [(32, 64, 96), (3, 18, 38)])
+@pytest.mark.parametrize("shape", [(32, 64, 96), (3, 18, 38), (2, 20, 260)])
 def test_fused_conv_bwd_and_dx_kernels_match_plain(dev, rng, shape):
     """Window ties, negative and zero gammas; (3, 18, 38) leaves partial
-    tiles.  Two launches of the reduction give the same bits."""
+    tiles, (2, 20, 260) spans three column tiles of the tap-Gram kernel.
+    Two launches of the reduction give the same bits."""
     args, _ = _bwd_inputs(rng, dev, shape)
     before = (fused_conv1_bwd_cuda.launches, fused_conv1_dx_cuda.launches)
     got = fused_conv1_bwd_cuda(*args)
