@@ -39,7 +39,7 @@ def test_synthetic_log_mel_dataset_with_adamw():
 
 def test_without_a_card_it_fails_and_prints_no_result():
     if torch.cuda.is_available():
-        pytest.skip("this machine has a card: the default device exists")
+        pytest.skip("a CUDA device is present: the default device exists")
     out = run(*SMALL)
     assert out.returncode != 0
     assert "Epoch [" not in out.stdout and "loss" not in out.stdout
