@@ -41,8 +41,9 @@ TOL = 1e-4
 # LARS momentum = the raw gradients (1-D parameters) or the trust-scaled ones:
 # at this batch size the Barlow Twins gradient is badly conditioned (BatchNorm
 # over 4 samples in the projector and in the loss, pool and ReLU decisions
-# next to ties), so the two fp32 implementations drift apart by up to ~1e-2 of
-# a tensor's largest value.  test_fp32_gradient_noise_is_measured_against_fp64
+# next to ties: a decision that flips moves single elements by a few percent),
+# so the two fp32 implementations drift apart by up to ~1e-2 of a tensor's
+# norm, which is what is compared.  test_fp32_gradient_noise_is_measured_against_fp64
 # holds both against an fp64 run of the port on the same inputs: there the JAX
 # step's 1-D gradients were off by 7.5e-3 and the port's fp32 ones by 4.3e-5.
 # The updated parameters, which is what training carries on from, are held to
@@ -89,8 +90,7 @@ def compare_states(state, jstate):
                 assert float(got.abs().max()) < ZERO_GRAD_ATOL
                 assert float(mu[name][k].abs().max()) < ZERO_GRAD_ATOL
                 continue
-            scale = float(mu[name][k].abs().max())
-            assert float((got - mu[name][k]).abs().max()) <= MOMENTUM_TOL * scale, \
+            assert float((got - mu[name][k]).norm()) <= MOMENTUM_TOL * float(mu[name][k].norm()), \
                 f"momentum {name}.{k}"
     np.testing.assert_allclose(state.aug.mixup.bank.numpy(), jstate.aug.mixup.bank,
                                atol=TOL, err_msg="mixup bank")
