@@ -219,6 +219,25 @@ def test_step_draws_from_its_generator_and_moves_everything():
     assert not bool(mon["finite"])
 
 
+def test_backward_runs_with_cudnn_tf32_off():
+    """cuDNN reads its TF32 flag when a kernel runs, so the step keeps
+    loss.backward(), not only the forward, inside ops.no_tf32(): a hook that
+    fires during backward sees the flag off, and it is restored afterwards."""
+    cfg = default_config(**KW, device="cpu")
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), niter_per_ep=2,
+                             device="cpu")
+    seen = []
+    state.modules["encoder"].features[4].weight.register_hook(
+        lambda grad: seen.append(torch.backends.cudnn.allow_tf32))
+    before = torch.backends.cudnn.allow_tf32
+    wav = torch.from_numpy(
+        (0.3 * np.random.default_rng(2).standard_normal((B, L))).astype(np.float32))
+    make_train_step(cfg, frontend=make_device_frontend(cfg, STATS))(
+        state, wav, gen=torch.Generator().manual_seed(1))
+    assert seen == [False]
+    assert torch.backends.cudnn.allow_tf32 == before
+
+
 def test_deferred_flags_raise():
     from ssl_audio_tpu_torch.config import require_supported, unsupported_settings
 
