@@ -18,12 +18,14 @@ Phases, each of which exits non-zero on failure:
      the CPU;
   5. training: the default pretraining configuration at full width
      (AudioNTT2022, projector 3072 -> 8192 -> 256, batch 128, crop_frames 96,
-     fp32, LARS) with seeded weights takes Barlow Twins steps on 128 seeded
-     10-s clips, raw wav in; the launch counters are zeroed just before one
-     step and read just after it; a small step is held against the same
+     fp32, LARS) with seeded weights takes Barlow Twins steps, raw wav in:
+     one epoch through the training entry point's Trainer and DataLoader
+     (--dataset synthetic_wav), the launch counters zeroed just before each
+     of its steps and read just after it, then timed steps on 128 seeded
+     10-s clips resident on the card; a small step is held against the same
      step on the CPU from the same weights and draws; the dx kernel is
      reached through the autograd Function once the input asks for a
-     gradient.
+     gradient (phase 3).
 The `kernels` JSON line lists every ported kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -68,6 +70,7 @@ CLIP = 160000        # 10 s at 16 kHz: one scene clip
 TRAIN_BATCH = 128    # config.py batch_size
 TRAIN_FRAMES = 96    # config.py crop_frames
 TRAIN_STEPS = 12     # timed steps after the warm-up steps
+ENTRY_STEPS = 6      # steps of the epoch that the Trainer runs over its DataLoader
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -88,13 +91,13 @@ def check(name: str, err: float, tol: float, why: str) -> None:
 
 
 def launch_counts() -> dict[str, int]:
-    from ssl_audio_tpu_torch.tools.train_profile import launch_counts as counts
+    from ssl_audio_tpu_torch.ops import launch_counts as counts
 
     return counts()
 
 
 def zero_launch_counts() -> None:
-    from ssl_audio_tpu_torch.tools.train_profile import zero_launch_counts as zero
+    from ssl_audio_tpu_torch.ops import zero_launch_counts as zero
 
     zero()
 
@@ -266,8 +269,11 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
         out.backward(dp)
 
     cells = B * (H // 2) * (W // 2) * C
-    # per window cell and channel: 4 corners x (9 conv + 9 A1 FMA + ~6); + the tap Gram
-    bwd_bound, bwd_by = bound_ms(168 * cells + 180 * B * H * W,
+    # what the function needs per window cell and channel: 4 corners x 9 conv FMA to
+    # find the selected corner, 9 A1 FMA (dz is nonzero at that one corner), ~12 FMA
+    # for the corners' xhat, Sx, T1 and T2: 57 FMA; per input position the 45
+    # unique products of the symmetric 9 x 9 tap Gram and the 9 sums of A2
+    bwd_bound, bwd_by = bound_ms(2 * 57 * cells + (2 * 45 + 9) * B * H * W,
                                  4 * (x.numel() + 2 * pooled.numel() + 22 * C + 90))
     dx_bound, dx_by = bound_ms(96 * cells,
                                4 * (x.numel() + 2 * pooled.numel() + dy.numel() + 16 * C))
@@ -515,27 +521,58 @@ def phase_serving(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
 
 
 def phase_training(seed: int, dev: torch.device, smi: str) -> dict:
+    from ssl_audio_tpu_torch.config import config_from_args
     from ssl_audio_tpu_torch.tools.serving import seeded_clips
     from ssl_audio_tpu_torch.tools.train_profile import seeded_training, step_wall_ms
+    from ssl_audio_tpu_torch.train.loop import Trainer
     from ssl_audio_tpu_torch.train.steps import draw_step
 
     print("phase 5: Barlow Twins training, AudioNTT2022 (64 mels, d=3072, projector "
           "3072-8192-256, batch 128, crop 96, fp32, LARS), raw 10-s clips in")
-    cfg, state, step, gen = seeded_training(seed, dev)
-    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).to(dev)
+    # the entry point's path: main.py's flags, its Trainer, the DataLoader over
+    # SyntheticWav and train_one_epoch; the launch counters are zeroed just
+    # before each of the epoch's steps and read just after it
+    cfg = config_from_args(["--dataset", "synthetic_wav", "--model_type", "audiontt",
+                            "--epochs", "1", "--synthetic_steps_per_epoch", str(ENTRY_STEPS),
+                            "--seed", str(seed)])
+    log_lines = []
+    trainer = Trainer(cfg, log=log_lines.append)
+    if trainer.device.type != "cuda":
+        raise SystemExit(f"the Trainer chose {trainer.device}, not the card")
+    state, step, gen = trainer.state, trainer.train_step, trainer.gen
     before = {k: v.clone() for k, v in state.modules.state_dict().items()}
+    per_step, step_ends = [], []
 
-    zero_launch_counts()
-    first_loss = float(step(state, wavs, gen=gen)["loss"])
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    print(f"  one step's launches: {launches}; loss {first_loss:.4f}")
+    def counted_step(*args, **kwargs):
+        zero_launch_counts()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        per_step.append(launch_counts())
+        step_ends.append(time.perf_counter())
+        return out
+
+    trainer.train_step = counted_step
+    t0 = time.perf_counter()
+    epoch_loss = trainer.train_one_epoch(1)
+    epoch_s = time.perf_counter() - t0
+    trainer.train_step = step
+    for line in log_lines:
+        print(f"  | {line}")
     want = {"log_mel_folded": 1, "log_mel_unfolded": 0, "fused_conv1_fwd": 2,
             "fused_conv1_bwd": 2, "fused_conv1_dx": 0}
-    if launches != want:
-        raise SystemExit(f"one training step launched {launches}, expected {want}")
+    print(f"  Trainer.train_one_epoch: {len(per_step)} steps, each step's launches: {per_step[0]}")
+    if len(per_step) != ENTRY_STEPS or any(c != want for c in per_step):
+        raise SystemExit(f"the epoch's steps launched {per_step}, expected {ENTRY_STEPS} x {want}")
+    if epoch_loss != epoch_loss or abs(epoch_loss) == float("inf"):
+        raise SystemExit(f"the epoch's mean loss is {epoch_loss}")
+    launches = per_step[-1]
+    # from the end of one step to the end of the next: the loader's batch (made
+    # on the host), its upload and the step
+    entry_ms = [(b - a) * 1e3 for a, b in zip(step_ends, step_ends[1:])]
 
-    losses = [first_loss, float(step(state, wavs, gen=gen)["loss"])]     # second warm-up
+    # the step alone, on one batch resident on the card
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).to(dev)
+    losses = [float(step(state, wavs, gen=gen)["loss"]) for _ in range(2)]      # warm-up
     pending = []
     times = step_wall_ms(lambda: pending.append(step(state, wavs, gen=gen)["loss"]),
                          TRAIN_STEPS)
@@ -548,14 +585,19 @@ def phase_training(seed: int, dev: torch.device, smi: str) -> dict:
               # a conv bias before a batch norm has a zero gradient
               and k not in ("encoder.features.0.bias", "encoder.features.4.bias")]
     if frozen:
-        raise SystemExit(f"did not move in {len(losses)} steps: {frozen}")
-    print(f"  {len(losses)} steps, losses {losses[0]:.2f} -> {losses[-1]:.2f}, all finite; "
-          f"every parameter and running statistic moved")
+        raise SystemExit(f"did not move in {ENTRY_STEPS + len(losses)} steps: {frozen}")
+    print(f"  {ENTRY_STEPS} steps through the Trainer (mean loss {epoch_loss:.2f}), then "
+          f"{len(losses)} on a resident batch, losses {losses[0]:.2f} -> {losses[-1]:.2f}, "
+          f"all finite; every parameter and running statistic moved")
     median = statistics.median(times)
     training = {"batch": TRAIN_BATCH, "clip_seconds": CLIP / 16000, "steps_timed": TRAIN_STEPS,
                 "ms_per_step_median": median, "ms_per_step_min": min(times),
                 "ms_per_step_max": max(times), "clips_per_s": TRAIN_BATCH / median * 1e3,
                 "first_loss": losses[0], "last_loss": losses[-1], "launches": launches,
+                "entry_point": {"steps": ENTRY_STEPS, "epoch_s": epoch_s,
+                                "mean_loss": epoch_loss,
+                                "ms_per_step_after_first_median": statistics.median(entry_ms),
+                                "clips_per_s": TRAIN_BATCH / statistics.median(entry_ms) * 1e3},
                 "card": smi}
     print("  training: " + json.dumps(training))
 

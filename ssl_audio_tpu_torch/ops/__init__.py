@@ -1,6 +1,8 @@
 """Ops of the port: the log-mel frontend (mel.py, kernel in mel_kernel.py),
 the fused first conv block, forward and backward (fused_conv.py), and the
-nvcc build and ctypes binding of the kernels (_build.py)."""
+nvcc build and ctypes binding of the kernels (_build.py).  Each kernel
+wrapper counts its launches; launch_counts() reads every counter and
+zero_launch_counts() resets them."""
 from __future__ import annotations
 
 import torch
@@ -14,3 +16,26 @@ def no_tf32():
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel instantiation's launch counter."""
+    from ssl_audio_tpu_torch.ops import fused_conv
+    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+
+    return {"log_mel_folded": log_mel_cuda.launches["folded"],
+            "log_mel_unfolded": log_mel_cuda.launches["unfolded"],
+            "fused_conv1_fwd": fused_conv.fused_conv1_fwd_cuda.launches,
+            "fused_conv1_bwd": fused_conv.fused_conv1_bwd_cuda.launches,
+            "fused_conv1_dx": fused_conv.fused_conv1_dx_cuda.launches}
+
+
+def zero_launch_counts() -> None:
+    from ssl_audio_tpu_torch.ops import fused_conv
+    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+
+    for key in log_mel_cuda.launches:
+        log_mel_cuda.launches[key] = 0
+    for wrapper in (fused_conv.fused_conv1_fwd_cuda, fused_conv.fused_conv1_bwd_cuda,
+                    fused_conv.fused_conv1_dx_cuda):
+        wrapper.launches = 0

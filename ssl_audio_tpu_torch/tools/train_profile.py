@@ -22,6 +22,7 @@ import time
 
 import torch
 
+from ssl_audio_tpu_torch.ops import launch_counts, zero_launch_counts
 from ssl_audio_tpu_torch.tools.serving import SAMPLE_RATE, profile, seeded_clips, smi_line
 
 CLIP_SECONDS = 10
@@ -46,29 +47,6 @@ def seeded_training(seed: int, device, **overrides):
     step = make_train_step(cfg, frontend=make_device_frontend(cfg, (0.0, 1.0)))
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     return cfg, state, step, gen
-
-
-def launch_counts() -> dict[str, int]:
-    """Every kernel instantiation's launch counter."""
-    from ssl_audio_tpu_torch.ops import fused_conv
-    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
-
-    return {"log_mel_folded": log_mel_cuda.launches["folded"],
-            "log_mel_unfolded": log_mel_cuda.launches["unfolded"],
-            "fused_conv1_fwd": fused_conv.fused_conv1_fwd_cuda.launches,
-            "fused_conv1_bwd": fused_conv.fused_conv1_bwd_cuda.launches,
-            "fused_conv1_dx": fused_conv.fused_conv1_dx_cuda.launches}
-
-
-def zero_launch_counts() -> None:
-    from ssl_audio_tpu_torch.ops import fused_conv
-    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
-
-    for key in log_mel_cuda.launches:
-        log_mel_cuda.launches[key] = 0
-    for wrapper in (fused_conv.fused_conv1_fwd_cuda, fused_conv.fused_conv1_bwd_cuda,
-                    fused_conv.fused_conv1_dx_cuda):
-        wrapper.launches = 0
 
 
 def step_wall_ms(run_step, steps: int) -> list[float]:
