@@ -9,7 +9,9 @@ Phases, each of which exits non-zero on failure:
      all at once) and prints the build seconds and ptxas register reports;
   3. holds each kernel against its plain PyTorch version on the card at the
      serving and training paths' shapes, with the tolerances below, and times
-     kernel, plain version and the PyTorch library yardstick with CUDA events;
+     kernel, plain version and the PyTorch library yardstick with CUDA events
+     (the attention kernels at the ViT-B step's shapes: N = 25 with zero and
+     with masked-key biases, and the token-drop teacher's N = 7);
   4. serving: AudioNTT2022 at full width (64 mels, d = 3072, fp32,
      fused_conv=True) with seeded random weights answers a timestamp request
      and a scene request for 16 seeded 10-s clips through the HEAR API; the
@@ -25,7 +27,16 @@ Phases, each of which exits non-zero on failure:
      10-s clips resident on the card; a small step is held against the same
      step on the CPU from the same weights and draws; the dx kernel is
      reached through the autograd Function once the input asks for a
-     gradient (phase 3).
+     gradient (phase 3);
+  6. ViT training: ViT-B at full width (embed 768, depth 12, 12 heads,
+     24 patches + CLS, projector 768 -> 8192 -> 256, batch 128, crop_frames
+     96, AdamW, --fused_attention) with seeded weights, raw wav in: one
+     epoch through the Trainer with the teacher masked by key bias at ratio
+     0.75 (every block's attention through the fused kernels, forward and
+     backward, the counters zeroed around each step), then timed steps on
+     the resident batch unmasked and with token drop, each beside the same
+     step with --no_fused_attention; a small step (vit_tiny, batch 16) is
+     held against the same step on the CPU.
 The `kernels` JSON line lists every ported kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -40,9 +51,10 @@ import time
 
 import torch
 
-# H100 SXM data sheet (dense, no sparsity): fp32 outside the tensor cores
-# and HBM3 bandwidth
+# H100 SXM data sheet (dense, no sparsity): fp32 outside the tensor cores,
+# bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # tolerances, each with its reason
@@ -62,6 +74,20 @@ STEP_GRAD_RTOL = 3e-2   # its gradients, |card - CPU| / |CPU| per tensor (L2): t
                         # single elements by up to ~1e-1 of the tensor's largest value while
                         # the L2 error stays under 1e-2 (tools/grad_sensitivity.py measures
                         # both, on the CPU alone and card against CPU)
+ATTN_SPACING = 2.0 ** -7  # attention kernels vs plain, / max|ref|: bf16 keeps 8 significant bits,
+                          # so a P or dS operand (or a dk, dv output) that rounds the other way
+                          # on one side (fp32 sums in another order, expf) moves by one spacing
+ATTN_REL_L2 = 1e-4        # ... and only a few do: relative L2 (a left-out rounding point: ~2e-3)
+# ViT step (vit_tiny, batch 16), card vs CPU.  With the fp32 einsum attention:
+# its gradients move by <= 9e-5 (relative L2, worst tensor) when the wavs move
+# by 1e-7 of their peak (tools/grad_sensitivity.py, CPU alone).  With the fused
+# attention the bf16 operands turn such a seventh-digit difference into
+# flipped roundings, and the batch-16 Barlow Twins loss amplifies them: the
+# same study reads 0.110-0.134 for the worst tensor (late LayerNorm and v
+# biases) and 0.029-0.032 over all gradients at once; the limits leave 2-3x
+VIT_FP32_GRAD_RTOL = 1e-3
+VIT_FUSED_GRAD_RTOL = 0.3        # worst tensor
+VIT_FUSED_GLOBAL_RTOL = 0.1      # all gradients as one vector
 
 CHUNK = 512          # the HEAR pipeline's BATCH_SIZE: one kernel launch's batch
 WINDOW = 15200       # 0.95 s at 16 kHz: one timestamp window
@@ -71,10 +97,13 @@ TRAIN_BATCH = 128    # config.py batch_size
 TRAIN_FRAMES = 96    # config.py crop_frames
 TRAIN_STEPS = 12     # timed steps after the warm-up steps
 ENTRY_STEPS = 6      # steps of the epoch that the Trainer runs over its DataLoader
+VIT_FLAGS = ["--dataset", "synthetic_wav", "--model_type", "vit_base", "--fused_attention",
+             "--mask", "--mask_ratio", "0.75", "--no_token_drop"]
+VIT_DEPTH, VIT_HEADS, VIT_DIM, VIT_TOKENS = 12, 12, 768, 25
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
@@ -326,6 +355,123 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
              "replaces": "ssl_audio_tpu/ops/fused_conv.py:344", **dx_row}], fwd_row
 
 
+def attention_check(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Hold one output of an attention kernel against its plain version:
+    max abs error within ATTN_SPACING of max|ref|, relative L2 within
+    ATTN_REL_L2.  -> the max abs error."""
+    err = max_err(got, ref)
+    scale = float(ref.abs().max())
+    rel_l2 = float((got.double() - ref.double()).norm() / ref.double().norm())
+    check(f"{name} / max|ref| ({scale:.3g}); relative L2 {rel_l2:.1e}", err / scale,
+          ATTN_SPACING, "one bf16 spacing: an operand rounded the other way")
+    if rel_l2 > ATTN_REL_L2:
+        raise SystemExit(f"{name}: relative L2 {rel_l2} above {ATTN_REL_L2}")
+    return err
+
+
+def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
+    """fused_attention_fwd_cuda and fused_attention_bwd_cuda against their
+    plain versions at the ViT-B step's shapes: qkv (128, 25, 2304) with zero
+    biases and with -1e9 on ~3/4 of the patch keys (key-bias masking at
+    ratio 0.75, CLS visible), and the token-drop teacher's (128, 7, 2304).
+    Times at N = 25 and N = 7; the library yardstick is the raw-qkv split
+    and transpose plus scaled_dot_product_attention on bf16 q, k, v with
+    the additive mask (forward; forward and backward through autograd for
+    the backward row)."""
+    from ssl_audio_tpu_torch.ops import fused_attention as fa
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms
+
+    B, C, H = TRAIN_BATCH, VIT_DIM, VIT_HEADS
+    hd = C // H
+    shapes = {"N=25": (VIT_TOKENS, 0.0), "N=25, masked keys": (VIT_TOKENS, 0.75),
+              "N=7, token drop": (7, 0.0)}
+    inputs, errs = {}, {"fwd": 0.0, "bwd": 0.0}
+    for label, (N, drop) in shapes.items():
+        qkv = torch.randn(B, N, 3 * C, generator=gen)
+        bias = torch.zeros(B, N)
+        if drop:
+            dead = torch.rand(B, N, generator=gen) < drop
+            dead[:, 0] = False
+            bias[dead] = -1e9
+        dout = torch.randn(B, N, C, generator=gen)
+        qkv, bias, dout = inputs[label] = tuple(t.to(dev) for t in (qkv, bias, dout))
+        out = fa.fused_attention_fwd_cuda(qkv, bias, H)
+        dqkv, dbias = fa.fused_attention_bwd_cuda(qkv, bias, dout, H)
+        again = fa.fused_attention_bwd_cuda(qkv, bias, dout, H)
+        out_p = fa.fused_attention_fwd_plain(qkv, bias, H)
+        dqkv_p, dbias_p = fa.fused_attention_bwd_plain(qkv, bias, dout, H)
+        torch.cuda.synchronize()
+        if not (torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])):
+            raise SystemExit("fused_attention_bwd: two launches gave different bits")
+        if not torch.equal(dqkv[..., C:], dqkv[..., C:].bfloat16().float()):
+            raise SystemExit("fused_attention_bwd: dk, dv are not bf16 values")
+        errs["fwd"] = max(errs["fwd"], attention_check(
+            f"fused_attention_fwd out [{label}]", out, out_p))
+        for i, name in enumerate(("dq", "dk", "dv")):
+            errs["bwd"] = max(errs["bwd"], attention_check(
+                f"fused_attention_bwd {name} [{label}]", dqkv[..., i * C:(i + 1) * C],
+                dqkv_p[..., i * C:(i + 1) * C]))
+        errs["bwd"] = max(errs["bwd"], attention_check(
+            f"fused_attention_bwd dbias [{label}]", dbias, dbias_p))
+    print("  fused_attention_bwd: two launches give the same bits; dk, dv are bf16 values")
+
+    def split(x):
+        return [x[..., i * C:(i + 1) * C].reshape(x.shape[0], x.shape[1], H, hd)
+                .transpose(1, 2).bfloat16() for i in range(3)]
+
+    def library_fwd(qkv, bias):
+        q, k, v = split(qkv)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias[:, None, None, :].bfloat16())
+
+    def library_fwd_bwd(qkv, bias, dout):
+        x = qkv.detach().requires_grad_()
+        o = library_fwd(x, bias)
+        o.transpose(1, 2).reshape(dout.shape).float().backward(dout)
+
+    def ours_fwd_bwd(qkv, bias, dout):
+        x = qkv.detach().requires_grad_()
+        fa.fused_attention(x, bias, H).backward(dout)
+
+    rows = {"fwd": {}, "bwd": {}}
+    for label in ("N=25", "N=7, token drop"):
+        qkv, bias, dout = inputs[label]
+        N = qkv.shape[1]
+        lib = library_fwd(qkv, bias).transpose(1, 2).reshape(B, N, C).float()
+        fwd_bound, fwd_by = bound_ms(4 * B * N * N * C, 4 * (4 * B * N * C + B * N),
+                                     PEAK_BF16_FLOPS)
+        bwd_bound, bwd_by = bound_ms(10 * B * N * N * C, 4 * (7 * B * N * C + 2 * B * N),
+                                     PEAK_BF16_FLOPS)
+        rows["fwd"][label] = {
+            "shape": f"qkv {tuple(qkv.shape)}, bias {tuple(bias.shape)} -> ({B}, {N}, {C})",
+            "ms": cuda_ms(lambda: fa.fused_attention_fwd_cuda(qkv, bias, H)),
+            "plain_ms": cuda_ms(lambda: fa.fused_attention_fwd_plain(qkv, bias, H)),
+            "bound_ms": fwd_bound, "bound_by": fwd_by,
+            "library_ms": cuda_ms(lambda: library_fwd(qkv, bias)),
+            "library_max_abs_err": max_err(lib, fa.fused_attention_fwd_plain(qkv, bias, H))}
+        rows["bwd"][label] = {
+            "shape": f"qkv {tuple(qkv.shape)}, dout {tuple(dout.shape)} -> dqkv, dbias",
+            "ms": cuda_ms(lambda: fa.fused_attention_bwd_cuda(qkv, bias, dout, H)),
+            "plain_ms": cuda_ms(lambda: fa.fused_attention_bwd_plain(qkv, bias, dout, H)),
+            "bound_ms": bwd_bound, "bound_by": bwd_by,
+            "library_ms": cuda_ms(lambda: library_fwd_bwd(qkv, bias, dout)),
+            "function_fwd_bwd_ms": cuda_ms(lambda: ours_fwd_bwd(qkv, bias, dout))}
+        for kind in ("fwd", "bwd"):
+            print(f"  fused_attention_{kind}[{label}]: " + json.dumps(rows[kind][label]))
+    src = "ssl_audio_tpu_torch/csrc/fused_attention.cu"
+    return [{"name": "fused_attention_fwd", "route": "cuda", "source": src,
+             "replaces": "ssl_audio_tpu/ops/fused_attention.py:152",
+             "max_abs_err": errs["fwd"], **rows["fwd"]["N=25"],
+             "library_is": "split + transpose of the raw qkv, scaled_dot_product_attention "
+                           "on bf16 q, k, v with the additive mask",
+             "token_drop": rows["fwd"]["N=7, token drop"]},
+            {"name": "fused_attention_bwd", "route": "cuda", "source": src,
+             "replaces": "ssl_audio_tpu/ops/fused_attention.py:187",
+             "max_abs_err": errs["bwd"], **rows["bwd"]["N=25"],
+             "library_is": "the same yardstick forward and backward through autograd",
+             "token_drop": rows["bwd"]["N=7, token drop"]}]
+
+
 def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     from ssl_audio_tpu_torch.ops import no_tf32
     from ssl_audio_tpu_torch.ops.fused_conv import (
@@ -345,14 +491,13 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     # a partial last frame tile, reflect indexing over a 160k-sample row)
     scene_wav = seeded_clips(gen, N_CLIPS, CLIP).to(dev)
     mel_rows["scene_shape"] = mel_row(scene_wav, hear_spec, None, "folded, scene")
-    train_err = 0.0
-    for label, fold in (("train_spec_folded", None), ("train_spec_unfolded", False)):
+    train_err = {}
+    for label, fold in (("folded", None), ("unfolded", False)):
         spec = MelSpec(win_length=1024)
-        err = max_err(log_mel_cuda(wav, spec, fold=fold),
-                      log_mel_spectrogram_plain(wav, spec, fold=fold))
-        check(f"log_mel[{label}] ({CHUNK} x {WINDOW})", err, MEL_ATOL,
+        train_err[label] = max_err(log_mel_cuda(wav, spec, fold=fold),
+                                   log_mel_spectrogram_plain(wav, spec, fold=fold))
+        check(f"log_mel[train_spec_{label}] ({CHUNK} x {WINDOW})", train_err[label], MEL_ATOL,
               "fp32 DFT sums in another order")
-        train_err = max(train_err, err)
     # the training step's input: 128 whole 10-s clips, 96 frames from per-clip
     # starts (first, last valid and random ones), both instantiations
     train_spec = MelSpec(win_length=1024)
@@ -428,22 +573,29 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     print("  fused_conv1_fwd[eval]: " + json.dumps(conv_row))
     bwd_rows, fwd_train_row = backward_rows(gen, dev)
     return [
-        {"name": "log_mel", "route": "cuda",
+        {"name": "log_mel_folded", "route": "cuda",
          "source": "ssl_audio_tpu_torch/csrc/log_mel.cu",
          "replaces": "ssl_audio_tpu/ops/mel_pallas.py:185",
          **mel_rows["folded"],
-         "max_abs_err": max(train_err, *(r["max_abs_err"] for r in mel_rows.values())),
-         "train_spec_max_abs_err": train_err,
+         "max_abs_err": max(train_err["folded"], *(mel_rows[k]["max_abs_err"] for k in (
+             "folded", "scene_shape", "cropped"))),
+         "train_spec_max_abs_err": train_err["folded"],
          "scene_shape": mel_rows["scene_shape"],
-         "cropped": mel_rows["cropped"],
-         "unfolded": {"replaces": "ssl_audio_tpu/ops/mel_pallas.py:139",
-                      **mel_rows["unfolded"],
-                      "cropped": mel_rows["cropped_unfolded"]}},
+         "cropped": mel_rows["cropped"]},
+        {"name": "log_mel_unfolded", "route": "cuda",
+         "source": "ssl_audio_tpu_torch/csrc/log_mel.cu",
+         "replaces": "ssl_audio_tpu/ops/mel_pallas.py:139",
+         **mel_rows["unfolded"],
+         "max_abs_err": max(train_err["unfolded"], *(mel_rows[k]["max_abs_err"] for k in (
+             "unfolded", "cropped_unfolded"))),
+         "train_spec_max_abs_err": train_err["unfolded"],
+         "cropped": mel_rows["cropped_unfolded"]},
         {"name": "fused_conv1_fwd", "route": "cuda",
          "source": "ssl_audio_tpu_torch/csrc/fused_conv_fwd.cu",
          "replaces": "ssl_audio_tpu/ops/fused_conv.py:186", **conv_row,
          "train_shape": fwd_train_row},
         *bwd_rows,
+        *attention_rows(gen, dev),
     ]
 
 
@@ -520,27 +672,22 @@ def phase_serving(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
     return serving
 
 
-def phase_training(seed: int, dev: torch.device, smi: str) -> dict:
+def entry_epoch(argv: list[str], want: dict, seed: int):
+    """One ENTRY_STEPS-step epoch of the training entry point's path:
+    config_from_args(argv), its Trainer, the DataLoader over SyntheticWav
+    and train_one_epoch, the launch counters zeroed just before each step
+    and read just after it; every step must launch `want`.
+    -> (trainer, the last step's launches, the epoch's numbers)."""
     from ssl_audio_tpu_torch.config import config_from_args
-    from ssl_audio_tpu_torch.tools.serving import seeded_clips
-    from ssl_audio_tpu_torch.tools.train_profile import seeded_training, step_wall_ms
     from ssl_audio_tpu_torch.train.loop import Trainer
-    from ssl_audio_tpu_torch.train.steps import draw_step
 
-    print("phase 5: Barlow Twins training, AudioNTT2022 (64 mels, d=3072, projector "
-          "3072-8192-256, batch 128, crop 96, fp32, LARS), raw 10-s clips in")
-    # the entry point's path: main.py's flags, its Trainer, the DataLoader over
-    # SyntheticWav and train_one_epoch; the launch counters are zeroed just
-    # before each of the epoch's steps and read just after it
-    cfg = config_from_args(["--dataset", "synthetic_wav", "--model_type", "audiontt",
-                            "--epochs", "1", "--synthetic_steps_per_epoch", str(ENTRY_STEPS),
-                            "--seed", str(seed)])
+    cfg = config_from_args(argv + ["--epochs", "1", "--synthetic_steps_per_epoch",
+                                   str(ENTRY_STEPS), "--seed", str(seed)])
     log_lines = []
     trainer = Trainer(cfg, log=log_lines.append)
     if trainer.device.type != "cuda":
         raise SystemExit(f"the Trainer chose {trainer.device}, not the card")
-    state, step, gen = trainer.state, trainer.train_step, trainer.gen
-    before = {k: v.clone() for k, v in state.modules.state_dict().items()}
+    step = trainer.train_step
     per_step, step_ends = [], []
 
     def counted_step(*args, **kwargs):
@@ -558,80 +705,200 @@ def phase_training(seed: int, dev: torch.device, smi: str) -> dict:
     trainer.train_step = step
     for line in log_lines:
         print(f"  | {line}")
-    want = {"log_mel_folded": 1, "log_mel_unfolded": 0, "fused_conv1_fwd": 2,
-            "fused_conv1_bwd": 2, "fused_conv1_dx": 0}
     print(f"  Trainer.train_one_epoch: {len(per_step)} steps, each step's launches: {per_step[0]}")
     if len(per_step) != ENTRY_STEPS or any(c != want for c in per_step):
         raise SystemExit(f"the epoch's steps launched {per_step}, expected {ENTRY_STEPS} x {want}")
     if epoch_loss != epoch_loss or abs(epoch_loss) == float("inf"):
         raise SystemExit(f"the epoch's mean loss is {epoch_loss}")
-    launches = per_step[-1]
     # from the end of one step to the end of the next: the loader's batch (made
     # on the host), its upload and the step
-    entry_ms = [(b - a) * 1e3 for a, b in zip(step_ends, step_ends[1:])]
+    entry_ms = statistics.median([(b - a) * 1e3 for a, b in zip(step_ends, step_ends[1:])])
+    return trainer, per_step[-1], {"steps": ENTRY_STEPS, "epoch_s": epoch_s,
+                                   "mean_loss": epoch_loss,
+                                   "ms_per_step_after_first_median": entry_ms,
+                                   "clips_per_s": TRAIN_BATCH / entry_ms * 1e3}
 
-    # the step alone, on one batch resident on the card
-    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).to(dev)
-    losses = [float(step(state, wavs, gen=gen)["loss"]) for _ in range(2)]      # warm-up
+
+def card_vs_cpu_step(seed: int, dev: torch.device, overrides: dict, step_kwargs: dict,
+                     zero_grad: tuple, loss_rtol: float, grad_rtol: float, why: str,
+                     global_rtol: float | None = None) -> dict:
+    """One small step on the card against the same step on the CPU (plain
+    versions): the same seeded weights, the same 16 wavs, the same draws.
+    zero_grad: parameters whose gradient is mathematically 0 (float noise).
+    Limits: the loss (relative), the worst tensor's gradient (relative L2)
+    and, if given, all gradients as one vector (relative L2)."""
+    from ssl_audio_tpu_torch.tools.serving import seeded_clips
+    from ssl_audio_tpu_torch.tools.train_profile import seeded_training
+    from ssl_audio_tpu_torch.train.steps import draw_step
+
+    wav_small = seeded_clips(torch.Generator().manual_seed(seed + 7), 16, 2 * 16000)
+    runs = {}
+    for where in ("cpu", dev):
+        cfg_s, state_s, step_s, _ = seeded_training(seed, where, **overrides)
+        draws = draw_step(torch.Generator().manual_seed(seed + 9), cfg_s,
+                          tuple(wav_small.shape), state_s.modules["encoder"], wav=True)
+        loss = float(step_s(state_s, wav_small.to(where), draws=draws.to(where),
+                            **step_kwargs)["loss"])
+        grads = {k: p.grad.detach().cpu() for k, p in state_s.modules.named_parameters()
+                 if p.grad is not None}
+        runs[str(where)] = (loss, grads)
+    (loss_c, grads_c), (loss_d, grads_d) = runs["cpu"], runs[str(dev)]
+    loss_err = abs(loss_d - loss_c) / abs(loss_c)
+    worst, worst_name, worst_max, sq_diff, sq_ref = 0.0, "", 0.0, 0.0, 0.0
+    for k, g in grads_c.items():
+        if k in zero_grad:
+            continue
+        diff = grads_d[k].double() - g.double()
+        worst_max = max(worst_max, float(diff.abs().max() / g.abs().max()))
+        rel = float(diff.norm() / g.double().norm())
+        sq_diff += float(diff.norm()) ** 2
+        sq_ref += float(g.double().norm()) ** 2
+        if rel > worst:
+            worst, worst_name = rel, k
+    overall = (sq_diff / sq_ref) ** 0.5
+    print(f"  small step (batch 16, {overrides}), card vs CPU: loss {loss_d!r} vs {loss_c!r}; "
+          f"gradients worst relative L2 {worst:.2e} ({worst_name}), all at once {overall:.2e}, "
+          f"largest single element {worst_max:.1e} of its tensor's largest")
+    check("train step loss, card vs CPU, relative", loss_err, loss_rtol, why)
+    check("train step gradients, |card - CPU| / |CPU| per tensor", worst, grad_rtol, why)
+    if global_rtol is not None:
+        check("train step gradients, |card - CPU| / |CPU| all at once", overall, global_rtol, why)
+    return {"loss_rel_err": loss_err, "grad_rel_l2_err": worst, "worst_grad": worst_name,
+            "grad_rel_l2_err_all": overall, "grad_max_elem_err": worst_max}
+
+
+def timed_steps(step, state, wavs, gen, **kwargs) -> tuple[list[float], list[float]]:
+    """Host-clock ms of TRAIN_STEPS steps on the resident batch after two
+    warm-up steps, and the losses of all of them, which must be finite."""
+    from ssl_audio_tpu_torch.tools.train_profile import step_wall_ms
+
+    losses = [float(step(state, wavs, gen=gen, **kwargs)["loss"]) for _ in range(2)]
     pending = []
-    times = step_wall_ms(lambda: pending.append(step(state, wavs, gen=gen)["loss"]),
+    times = step_wall_ms(lambda: pending.append(step(state, wavs, gen=gen, **kwargs)["loss"]),
                          TRAIN_STEPS)
     losses += [float(v) for v in pending]
     if not all(map(lambda v: v == v and abs(v) != float("inf"), losses)):
         raise SystemExit(f"non-finite loss among {losses}")
+    return times, losses
+
+
+def phase_training(seed: int, dev: torch.device, smi: str) -> dict:
+    from ssl_audio_tpu_torch.tools.serving import seeded_clips
+
+    print("phase 5: Barlow Twins training, AudioNTT2022 (64 mels, d=3072, projector "
+          "3072-8192-256, batch 128, crop 96, fp32, LARS), raw 10-s clips in")
+    want = {"log_mel_folded": 1, "log_mel_unfolded": 0, "fused_conv1_fwd": 2,
+            "fused_conv1_bwd": 2, "fused_conv1_dx": 0, "fused_attention_fwd": 0,
+            "fused_attention_bwd": 0}
+    trainer, launches, entry = entry_epoch(
+        ["--dataset", "synthetic_wav", "--model_type", "audiontt"], want, seed)
+    state, step, gen = trainer.state, trainer.train_step, trainer.gen
+    before = {k: v.clone() for k, v in state.modules.state_dict().items()}
+
+    # the step alone, on one batch resident on the card
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).to(dev)
+    times, losses = timed_steps(step, state, wavs, gen)
     after = state.modules.state_dict()
     frozen = [k for k, v in after.items()
               if torch.equal(v, before[k])
               # a conv bias before a batch norm has a zero gradient
               and k not in ("encoder.features.0.bias", "encoder.features.4.bias")]
     if frozen:
-        raise SystemExit(f"did not move in {ENTRY_STEPS + len(losses)} steps: {frozen}")
-    print(f"  {ENTRY_STEPS} steps through the Trainer (mean loss {epoch_loss:.2f}), then "
-          f"{len(losses)} on a resident batch, losses {losses[0]:.2f} -> {losses[-1]:.2f}, "
-          f"all finite; every parameter and running statistic moved")
+        raise SystemExit(f"did not move in {TRAIN_STEPS + 2} steps: {frozen}")
+    print(f"  {ENTRY_STEPS} steps through the Trainer (mean loss {entry['mean_loss']:.2f}), "
+          f"then {TRAIN_STEPS + 2} on a resident batch, all finite; every parameter and "
+          "running statistic moved")
     median = statistics.median(times)
     training = {"batch": TRAIN_BATCH, "clip_seconds": CLIP / 16000, "steps_timed": TRAIN_STEPS,
                 "ms_per_step_median": median, "ms_per_step_min": min(times),
                 "ms_per_step_max": max(times), "clips_per_s": TRAIN_BATCH / median * 1e3,
                 "first_loss": losses[0], "last_loss": losses[-1], "launches": launches,
-                "entry_point": {"steps": ENTRY_STEPS, "epoch_s": epoch_s,
-                                "mean_loss": epoch_loss,
-                                "ms_per_step_after_first_median": statistics.median(entry_ms),
-                                "clips_per_s": TRAIN_BATCH / statistics.median(entry_ms) * 1e3},
-                "card": smi}
+                "entry_point": entry, "card": smi}
     print("  training: " + json.dumps(training))
+    training["cpu_check"] = card_vs_cpu_step(
+        seed, dev, dict(batch_size=16), {},
+        ("encoder.features.0.bias", "encoder.features.4.bias"), STEP_LOSS_RTOL,
+        STEP_GRAD_RTOL, "pool and ReLU decisions flip on 1e-7 input differences")
+    return training
 
-    # one small step on the card against the same step on the CPU (plain
-    # versions): same seeded weights, same wavs, the same draws
-    small = dict(batch_size=16, mixup_n_memory=2048)
-    wav_small = seeded_clips(torch.Generator().manual_seed(seed + 7), 16, 2 * 16000)
-    runs = {}
-    for where in ("cpu", dev):
-        cfg_s, state_s, step_s, _ = seeded_training(seed, where, **small)
-        draws = draw_step(torch.Generator().manual_seed(seed + 9), cfg_s,
-                          tuple(wav_small.shape), 2048, wav=True)
-        loss = float(step_s(state_s, wav_small.to(where), draws=draws.to(where))["loss"])
-        grads = {k: p.grad.detach().cpu() for k, p in state_s.modules.named_parameters()}
-        runs[str(where)] = (loss, grads)
-    (loss_c, grads_c), (loss_d, grads_d) = runs["cpu"], runs[str(dev)]
-    check(f"train step loss, card {loss_d!r} vs CPU {loss_c!r}, relative",
-          abs(loss_d - loss_c) / abs(loss_c), STEP_LOSS_RTOL,
-          "fp32 through the whole network")
-    worst, worst_name, worst_max = 0.0, "", 0.0
-    for k, g in grads_c.items():
-        if k in ("encoder.features.0.bias", "encoder.features.4.bias"):
-            continue                                   # zero gradient: float noise
-        diff = grads_d[k].double() - g.double()
-        worst_max = max(worst_max, float(diff.abs().max() / g.abs().max()))
-        rel = float(diff.norm() / g.double().norm())
-        if rel > worst:
-            worst, worst_name = rel, k
-    check(f"train step gradients, |card - CPU| / |CPU| per tensor (worst: {worst_name}; "
-          f"largest single element {worst_max:.1e} of its tensor's largest)", worst,
-          STEP_GRAD_RTOL, "pool and ReLU decisions flip on 1e-7 input differences")
-    training["cpu_check"] = {"loss_rel_err": abs(loss_d - loss_c) / abs(loss_c),
-                             "grad_rel_l2_err": worst, "worst_grad": worst_name,
-                             "grad_max_elem_err": worst_max}
+
+def phase_training_vit(seed: int, dev: torch.device, smi: str) -> dict:
+    from ssl_audio_tpu_torch.tools.serving import seeded_clips
+    from ssl_audio_tpu_torch.tools.train_profile import seeded_training
+    from ssl_audio_tpu_torch.train.loop import token_drop_len_keep
+
+    print("phase 6: Barlow Twins training, ViT-B (embed 768, depth 12, 12 heads, 24 patches "
+          "+ CLS, projector 768-8192-256, batch 128, crop 96, fp32 with bf16-operand "
+          "attention kernels, AdamW), raw 10-s clips in")
+    want = {"log_mel_folded": 1, "log_mel_unfolded": 0, "fused_conv1_fwd": 0,
+            "fused_conv1_bwd": 0, "fused_conv1_dx": 0,
+            "fused_attention_fwd": 2 * VIT_DEPTH, "fused_attention_bwd": 2 * VIT_DEPTH}
+    trainer, launches, entry = entry_epoch(VIT_FLAGS, want, seed)
+    state = trainer.state
+    before = {k: v.clone() for k, v in state.modules.state_dict().items()}
+
+    # timed steps on a resident batch, unmasked and with token drop, with the
+    # kernels and with the fp32 einsum attention, in turns (A B B A)
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).to(dev)
+    _, einsum_state, einsum_step, einsum_gen = seeded_training(
+        seed, dev, model_type="vit_base", fused_attention=False)
+    runs = {"fused_attention": (trainer.train_step, state, trainer.gen),
+            "einsum_attention": (einsum_step, einsum_state, einsum_gen)}
+    maskings = {"unmasked": {},
+                "token_drop_0.75": dict(mask_ratio=0.75, len_keep=token_drop_len_keep(
+                    VIT_TOKENS - 1, 0.75))}
+    times = {f"{a}/{m}": [] for a in runs for m in maskings}
+    step_launches = {}
+    for attn in ("fused_attention", "einsum_attention", "einsum_attention", "fused_attention"):
+        step, st, gen = runs[attn]
+        for m, kw in maskings.items():
+            times[f"{attn}/{m}"] += timed_steps(step, st, wavs, gen, **kw)[0]
+            zero_launch_counts()
+            step(st, wavs, gen=gen, **kw)
+            torch.cuda.synchronize()
+            step_launches[f"{attn}/{m}"] = launch_counts()
+    print(f"  launches per timed step: {step_launches}")
+    for m in maskings:
+        if (step_launches[f"fused_attention/{m}"]["fused_attention_fwd"],
+                step_launches[f"fused_attention/{m}"]["fused_attention_bwd"],
+                step_launches[f"einsum_attention/{m}"]["fused_attention_fwd"]) \
+                != (2 * VIT_DEPTH, 2 * VIT_DEPTH, 0):
+            raise SystemExit(f"timed {m} steps launched {step_launches}")
+    after = state.modules.state_dict()
+    moved = {k: not torch.equal(v, before[k]) for k, v in after.items()}
+    frozen = [k for k in moved if k.startswith("encoder.patch_embed")]
+    if any(moved[k] for k in frozen) or any(
+            trainer.state.modules.get_parameter(k).requires_grad for k in frozen):
+        raise SystemExit(f"the frozen patch projection moved or takes a gradient: {frozen}")
+    still = [k for k, m in moved.items()
+             if not m and k not in frozen and not k.endswith("pos_embed")
+             and k != "encoder.norm.bias"]        # BT gradient 0: BatchNorm follows
+    if still:
+        raise SystemExit(f"did not move: {still}")
+    print(f"  {ENTRY_STEPS} steps through the Trainer (mean loss {entry['mean_loss']:.2f}), then "
+          f"{4 * (TRAIN_STEPS + 3)} per attention on a resident batch, all finite; every "
+          "trained parameter moved, the frozen patch projection did not")
+    medians = {k: statistics.median(v) for k, v in times.items()}
+    training = {"model": "vit_base", "batch": TRAIN_BATCH, "clip_seconds": CLIP / 16000,
+                "steps_timed": 2 * TRAIN_STEPS, "order": "fused, einsum, einsum, fused",
+                "ms_per_step_median": medians,
+                "ms_per_step_min": {k: min(v) for k, v in times.items()},
+                "clips_per_s": {k: TRAIN_BATCH / v * 1e3 for k, v in medians.items()},
+                "launches": launches, "timed_step_launches": step_launches,
+                "entry_point": {"flags": VIT_FLAGS, **entry}, "card": smi}
+    print("  training_vit: " + json.dumps(training))
+    # vit_tiny steps, teacher masked by key bias through the kernels on the card;
+    # the final LayerNorm's bias has a zero Barlow Twins gradient (BatchNorm follows)
+    training["cpu_check"] = {
+        attn: card_vs_cpu_step(
+            seed, dev, dict(model_type="vit_tiny", fused_attention=fused, batch_size=16),
+            dict(mask_ratio=0.75), ("encoder.norm.bias",), STEP_LOSS_RTOL, *limits)
+        for attn, fused, limits in (
+            ("einsum_attention", False,
+             (VIT_FP32_GRAD_RTOL, "fp32 sums in another order, through 12 blocks")),
+            ("fused_attention", True,
+             (VIT_FUSED_GRAD_RTOL, "bf16 roundings flipped by 1e-7 differences, amplified",
+              VIT_FUSED_GLOBAL_RTOL)))}
     return training
 
 
@@ -665,15 +932,13 @@ def main() -> int:
     kernels = phase_kernels(gen, dev)
     serving = phase_serving(gen, dev, smi)
     training = phase_training(args.seed, dev, smi)
+    training_vit = phase_training_vit(args.seed, dev, smi)
     # launches on the main paths, per path (timestamp request, scene request,
-    # one train step) and in all; the top-level log_mel entry is the folded
-    # instantiation, which both specs take
-    by_path = {**serving["launches"], "train": training["launches"]}
-    entries = [(k, "log_mel_folded" if k["name"] == "log_mel" else k["name"])
-               for k in kernels]
-    entries += [(k["unfolded"], "log_mel_unfolded") for k in kernels if "unfolded" in k]
-    for entry, counter in entries:
-        entry["launches_by_path"] = {p: c[counter] for p, c in by_path.items()}
+    # one AudioNTT train step, one ViT-B train step) and in all
+    by_path = {**serving["launches"], "train": training["launches"],
+               "train_vit": training_vit["launches"]}
+    for entry in kernels:
+        entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

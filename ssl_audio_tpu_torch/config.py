@@ -32,7 +32,8 @@ DATASETS = [
 
 OPTIMIZERS = ["Adam", "AdamW", "SGD", "LARS"]
 
-PORTED_MODELS = ("audiontt",)
+PORTED_MODELS = ("audiontt", "vit_base", "vit_small", "vit_tiny",
+                 "vitc_base", "vitc_small", "vitc_tiny")
 PORTED_DATASETS = ("synthetic", "synthetic_wav")
 
 
@@ -110,7 +111,11 @@ class Config:
     # Pool-reordered training composition of AudioNTT block 2
     # (models/audiontt.py).  None = auto: on.
     pool_reorder: Optional[bool] = None
+    # ViT attention through the kernels of ops/fused_attention.py (bf16 dot
+    # operands, as the TPU kernel).  None = off: the fp32 einsum path, the
+    # JAX package's default.  --fused_attention turns it on.
     fused_attention: Optional[bool] = None
+    # an XLA layout option of the JAX package, with no counterpart here
     layout_barrier: Optional[bool] = None
     # accepted for the JAX flag surface: the port's log-mel is exact fp32
     # either way (ops/mel.py)
@@ -212,13 +217,11 @@ def unsupported_settings(cfg: Config) -> List[str]:
             ("--resume_path", bool(cfg.resume_path), "checkpoints and resume"),
             ("--save_base_dir", bool(cfg.save_base_dir), "checkpoints"),
             ("--profile_dir", bool(cfg.profile_dir), "the loop's profiler trace"),
-            ("--masked_recon", cfg.masked_recon, "the ViT masked-reconstruction loss"),
             ("--distributed", cfg.distributed, "data-parallel training"),
             ("--data_axis_size", cfg.data_axis_size not in (0, 1), "data-parallel training"),
             ("--model_parallel > 1", cfg.model_parallel != 1, "tensor parallelism"),
             ("--fsdp", cfg.fsdp, "sharded parameters"),
             ("--remat", cfg.remat, "gradient checkpointing of ViT blocks"),
-            ("--fused_attention", bool(cfg.fused_attention), "the ViT attention kernels"),
             ("--layout_barrier", bool(cfg.layout_barrier), "an XLA layout option"),
             ("--load_wav", not cfg.load_lms, "host-side wav loading of the on-disk datasets")):
         if on:

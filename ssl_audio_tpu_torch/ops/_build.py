@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("log_mel.cu", "fused_conv_fwd.cu", "fused_conv_bwd.cu")
+SOURCES = ("log_mel.cu", "fused_conv_fwd.cu", "fused_conv_bwd.cu", "fused_attention.cu")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # source -> nvcc output (ptxas register/spill report)

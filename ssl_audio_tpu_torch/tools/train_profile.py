@@ -2,16 +2,20 @@
 of its step on the card.
 
     python3 -m ssl_audio_tpu_torch.tools.train_profile [--seed 0] [--steps 10]
+        [--model_type vit_base [--fused_attention] [--mask_ratio 0.75 [--token_drop]]]
 
-Builds the default pretraining configuration at full width (AudioNTT2022,
-64 mels, d = 3072, projector 3072 -> 8192 -> 256, batch 128, crop_frames 96,
-fp32, LARS, block 1 through the fused kernels) with weights drawn from a
-seed, and one batch of 128 seeded 10-s clips resident on the card.  After
-two warm-up steps it times `steps` steps with the host clock (each ending in
-a synchronise), then profiles one step with torch.profiler and prints the
+Builds a pretraining configuration at full width with weights drawn from a
+seed, and one batch of 128 seeded 10-s clips resident on the card: by
+default the default one (AudioNTT2022, 64 mels, d = 3072, projector 3072 ->
+8192 -> 256, batch 128, crop_frames 96, fp32, LARS, block 1 through the
+fused kernels); with --model_type a ViT (AdamW, projector from its width,
+attention through the kernels with --fused_attention, the teacher masked at
+--mask_ratio, by token drop with --token_drop, else by key bias).  After two
+warm-up steps it times `steps` steps with the host clock (each ending in a
+synchronise), then profiles one step with torch.profiler and prints the
 device time by kernel (largest first), the device's idle share (1 - device
 busy / wall) and the kernels' launch counts for that step.  chip_smoke.py
-uses the same setup for its training phase.
+uses the same setup for its training phases.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 
 from ssl_audio_tpu_torch.ops import launch_counts, zero_launch_counts
 from ssl_audio_tpu_torch.tools.serving import SAMPLE_RATE, profile, seeded_clips, smi_line
+from ssl_audio_tpu_torch.train.loop import token_drop_len_keep
 
 CLIP_SECONDS = 10
 
@@ -65,23 +70,37 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--model_type", default="audiontt")
+    ap.add_argument("--fused_attention", action="store_true")
+    ap.add_argument("--mask_ratio", type=float, default=0.0)
+    ap.add_argument("--token_drop", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile is a device measurement")
     dev = torch.device("cuda")
     smi = smi_line()
-    cfg, state, step, gen = seeded_training(args.seed, dev)
+    overrides = {}
+    if args.model_type != "audiontt":
+        overrides = dict(model_type=args.model_type, fused_attention=args.fused_attention)
+    cfg, state, step, gen = seeded_training(args.seed, dev, **overrides)
     wavs = seeded_clips(torch.Generator().manual_seed(args.seed), cfg.batch_size,
                         CLIP_SECONDS * SAMPLE_RATE).to(dev)
+    masking = {}
+    if args.mask_ratio > 0:
+        gh, gw = state.modules["encoder"].grid_size()
+        masking = dict(mask_ratio=args.mask_ratio, len_keep=token_drop_len_keep(
+            gh * gw, args.mask_ratio) if args.token_drop else None)
 
     def run_step():
-        return step(state, wavs, gen=gen)
+        return step(state, wavs, gen=gen, **masking)
 
     for _ in range(2):                          # warm-up: kernel build, cuDNN plans
         run_step()
     times = step_wall_ms(run_step, args.steps)
     median = statistics.median(times)
-    print(json.dumps({"what": "train step", "batch": cfg.batch_size, "card": smi,
+    print(json.dumps({"what": "train step", "model_type": cfg.model_type,
+                      "fused_attention": bool(cfg.fused_attention), **masking,
+                      "batch": cfg.batch_size, "card": smi,
                       "steps": args.steps, "ms_per_step_median": median,
                       "ms_per_step_min": min(times), "ms_per_step_max": max(times),
                       "clips_per_s": cfg.batch_size / median * 1e3}))

@@ -1,7 +1,9 @@
 """The training loop: dataset selection, the epoch loop and logging (port of
 ssl_audio_tpu/train/loop.py around the eager step of train/steps.py).
 
-Ported: the synthetic datasets, Trainer, train_one_epoch, fit.  Not yet:
+Ported: the synthetic datasets, Trainer, train_one_epoch, fit, and the ViT
+teacher's masking per step (mask_ratio_for_step: a fixed ratio, a random
+one, or the sine schedule; token drop with a static len_keep).  Not yet:
 checkpoints and resume, the per-epoch evaluation hook, the profiler trace,
 multi-step dispatch and the on-disk datasets; their settings raise
 NotImplementedError (config.require_supported) when the Trainer is built.
@@ -10,19 +12,22 @@ from __future__ import annotations
 
 import sys
 import time
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ssl_audio_tpu_torch.config import require_supported
 from ssl_audio_tpu_torch.data import datasets as D
 from ssl_audio_tpu_torch.data.pipeline import DataLoader
-from ssl_audio_tpu_torch.train.state import init_train_state
+from ssl_audio_tpu_torch.train.state import init_train_state, is_vit
 from ssl_audio_tpu_torch.train.steps import (
     init_monitor,
     make_device_frontend,
     make_train_step,
 )
 from ssl_audio_tpu_torch.utils import resolve_device
+from ssl_audio_tpu_torch.utils.schedules import sine_scheduler_increase
 
 LOG_EVERY = 50          # steps between fetches of the device-side monitor
 
@@ -35,6 +40,31 @@ def get_train_dataset(cfg):
         return D.SyntheticWav(cfg, length=length, seed=cfg.seed)
     raise NotImplementedError(
         f"dataset {cfg.dataset!r} is not ported yet (synthetic, synthetic_wav)")
+
+
+def mask_ratio_for_step(cfg, schedule, iteration: int, rng: np.random.Generator) -> float:
+    """The teacher's mask ratio at `iteration` (reference main.py:72-81): 0
+    without --mask; the schedule's value with --mask_ratio_schedule; with
+    --random_mask_ratio U(0.05, mask_beta) with probability 1/2, else 0;
+    otherwise --mask_ratio."""
+    if not cfg.mask:
+        return 0.0
+    if schedule is not None:
+        return float(schedule[min(iteration, len(schedule) - 1)])
+    if cfg.random_mask_ratio:
+        if rng.random() > 0.5:
+            return float(rng.uniform(0.05, cfg.mask_beta))
+        return 0.0
+    return float(cfg.mask_ratio)
+
+
+def token_drop_len_keep(n_tokens: int, mask_ratio: float) -> Optional[int]:
+    """floor(L * (1 - r)) of the Python float, as the reference's
+    int(L * (1 - r)); None at ratio 0, where every token is kept."""
+    if mask_ratio <= 0:
+        return None
+    lk = int(np.floor(n_tokens * (1.0 - float(mask_ratio))))
+    return lk if lk < n_tokens else None
 
 
 class Trainer:
@@ -62,6 +92,25 @@ class Trainer:
         self.train_step = make_train_step(cfg, world_scale=1.0, frontend=frontend)
         # the step's random numbers are drawn on the device
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.mask_schedule = None
+        if cfg.mask_ratio_schedule:
+            self.mask_schedule = sine_scheduler_increase(
+                final_value=cfg.mask_beta, epochs=cfg.epochs, niter_per_ep=self.niter_per_ep,
+                warmup_epochs=int(cfg.epochs / 5), warmup_value=0)
+        self.host_rng = np.random.default_rng(cfg.seed + 17)
+        # token drop: a masked ViT teacher runs on 1 + len_keep tokens
+        self._token_L = None
+        if is_vit(cfg) and cfg.mask and cfg.token_drop:
+            gh, gw = self.state.modules["encoder"].grid_size()
+            self._token_L = gh * gw
+
+    def _static_len_keep(self, mask_ratio: float) -> Optional[int]:
+        """The token-drop count for a step, or None for key-bias masking:
+        None without token drop and with --random_mask_ratio (the JAX package
+        keeps one compiled shape there)."""
+        if not self._token_L or self.cfg.random_mask_ratio:
+            return None
+        return token_drop_len_keep(self._token_L, mask_ratio)
 
     def _check_monitor(self, monitor) -> float:
         """Fetch the device-side monitor; abort on any non-finite loss since
@@ -82,8 +131,11 @@ class Trainer:
             t_data += dt_i
             tflag = time.time()
             batch = torch.from_numpy(batch).to(self.device)
+            mask_ratio = mask_ratio_for_step(cfg, self.mask_schedule,
+                                             self.niter_per_ep * (epoch - 1) + it, self.host_rng)
             metrics, monitor = self.train_step(self.state, batch, gen=self.gen,
-                                               monitor=monitor)
+                                               monitor=monitor, mask_ratio=mask_ratio,
+                                               len_keep=self._static_len_keep(mask_ratio))
             if it % LOG_EVERY == 0:
                 # sampled sync point: one fetch covers every step since the last
                 self._check_monitor(monitor)

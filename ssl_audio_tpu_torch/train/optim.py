@@ -1,7 +1,9 @@
 """Optimizers and parameter grouping (port of ssl_audio_tpu/train/optim.py).
 
 Grouping rule: parameters with ndim == 1 are "biases" (no weight decay, no
-LARS adaptation, lr_biases); everything else is "weights".
+LARS adaptation, lr_biases); everything else is "weights".  Frozen
+parameters (frozen_param_names) take neither update nor decay: the train
+state turns their gradient off and the optimizer never holds them.
 """
 from __future__ import annotations
 
@@ -78,6 +80,15 @@ class LARS(torch.optim.Optimizer):
                 lr = group["lr_biases"] if is_bias else group["lr_weights"]
                 p.add_(mu, alpha=-lr * f)
         self.count += 1
+
+
+def frozen_param_names(cfg, named_params) -> set[str]:
+    """Names of the parameters that must not be updated: the patch
+    projection of a ViT without the conv stem (a random projection, frozen;
+    reference mae.py:190-192)."""
+    if "vit" not in cfg.model_type or cfg.model_type.startswith("vitc"):
+        return set()
+    return {name for name, _ in named_params if "patch_embed" in name}
 
 
 def _decay_groups(params: Iterable, weight_decay: float):

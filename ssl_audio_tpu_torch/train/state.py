@@ -19,6 +19,7 @@ from torch import nn
 from ssl_audio_tpu_torch.augment.transforms import AugmentState, init_augment_state
 from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022, init_weights_
 from ssl_audio_tpu_torch.models.heads import BarlowTwinsHead, BarlowTwinsPredictor
+from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT, get_mae_vit, init_vit_weights_
 from ssl_audio_tpu_torch.train import optim as optim_lib
 from ssl_audio_tpu_torch.utils import resolve_device
 
@@ -37,12 +38,30 @@ class TrainState:
         return next(self.modules.parameters()).device
 
 
+def is_vit(cfg) -> bool:
+    return "vit" in cfg.model_type
+
+
 def build_encoder(cfg) -> tuple[nn.Module, int]:
-    """-> (encoder, feature_dim).  fused_conv / pool_reorder None = on: the
-    fused block computes the same function on the CPU and on the card."""
+    """-> (encoder, feature_dim).  AudioNTT2022: fused_conv / pool_reorder
+    None = on (the fused block computes the same function on the CPU and on
+    the card).  The ViT family (vit_* and the conv-stem vitc_*): the
+    (n_mels, crop_frames) grid, the decoder when masked_recon, fused
+    attention only with --fused_attention (None = off, as in JAX)."""
+    if is_vit(cfg):
+        for flag, on in (("--remat", cfg.remat), ("--layout_barrier", cfg.layout_barrier)):
+            if on:
+                raise NotImplementedError(f"{flag} is not ported yet")
+        enc = get_mae_vit(cfg.model_type.split("_")[-1], cfg.patch_size,
+                          cfg.model_type.startswith("vitc"),
+                          img_size=(cfg.n_mels, cfg.crop_frames),
+                          use_decoder=cfg.masked_recon,
+                          use_learned_pos_embd=cfg.use_learned_pos_embd,
+                          fused_attention=bool(cfg.fused_attention))
+        return enc, enc.embed_dim
     if cfg.model_type != "audiontt":
         raise NotImplementedError(
-            f"model type {cfg.model_type!r} is not ported yet (audiontt only)")
+            f"model type {cfg.model_type!r} is not ported yet (audiontt and the ViT family)")
     if cfg.squeeze_excitation:
         raise NotImplementedError("--squeeze_excitation (SE blocks) is not ported yet")
     if cfg.n_mels != 64:
@@ -59,7 +78,8 @@ def init_train_state(cfg, generator: torch.Generator, niter_per_ep: int = 100,
                      byol: bool = False, device=None) -> TrainState:
     """Modules with the JAX package's initialisers drawn from `generator` (a
     CPU generator, so the same seed gives the same weights on any device),
-    moved to `device`, their optimizer and the augmentation state.
+    moved to `device`, their optimizer and the augmentation state.  A
+    non-conv-stem ViT's patch projection is frozen (requires_grad False).
     device None = the card: without one this raises unless the caller asks
     for "cpu"."""
     device = resolve_device(device)
@@ -72,7 +92,16 @@ def init_train_state(cfg, generator: torch.Generator, niter_per_ep: int = 100,
                                 cfg.projector_hidden_dim, cfg.projector_out_dim),
         "predictor": BarlowTwinsPredictor(cfg.projector_out_dim, use=cfg.predictor),
     })
-    init_weights_(modules, generator)
+    if isinstance(encoder, MaskedAutoencoderViT):
+        init_vit_weights_(encoder, generator)
+        init_weights_(nn.ModuleList([modules["head"], modules["predictor"]]), generator)
+    else:
+        init_weights_(modules, generator)
+    # frozen parameters take no gradient, so the optimizer never sees them
+    frozen = optim_lib.frozen_param_names(cfg, modules.named_parameters())
+    for name, p in modules.named_parameters():
+        if name in frozen:
+            p.requires_grad_(False)
     modules.to(device)
     optimizer, scheduler = optim_lib.make_optimizer(cfg, modules.parameters(), niter_per_ep)
     return TrainState(cfg=cfg, step=0, modules=modules, optimizer=optimizer,

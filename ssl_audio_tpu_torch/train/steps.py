@@ -2,11 +2,17 @@
 init_monitor, make_device_frontend, make_train_step).
 
 One call = one iteration: [raw wav -> cropped, normalised log-mel] -> two
-augmented views -> teacher and student forwards -> Barlow Twins loss ->
-backward -> optimizer update.  It runs eagerly.  Every random number of a
-step (crop starts, augmentation parameters, dropout keep masks) is drawn
-up front into a StepDraws from a torch.Generator, or handed in by the
-caller, so two implementations can be stepped on the same draws.
+augmented views -> teacher and student forwards -> Barlow Twins loss (+ the
+masked-reconstruction loss of a ViT with masked_recon) -> backward ->
+optimizer update.  It runs eagerly.  Every random number of a step (crop
+starts, augmentation parameters, AudioNTT's dropout keep masks, a ViT's
+token-mask noise and DropPath keep masks) is drawn up front into a
+StepDraws from a torch.Generator, or handed in by the caller, so two
+implementations can be stepped on the same draws.
+
+For a ViT the teacher view is masked at the step's mask_ratio (key-bias
+masking, or token drop with a static len_keep; train/loop.py picks both per
+step) and the students are not, as in the JAX step.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from ssl_audio_tpu_torch.augment.transforms import (
     draw_pair_views,
 )
 from ssl_audio_tpu_torch.models.audiontt import DROPOUT_RATE
+from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT
 from ssl_audio_tpu_torch.objectives.barlow import barlow_twins_loss
 from ssl_audio_tpu_torch.ops import no_tf32
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_cropped
@@ -89,69 +96,106 @@ def _to_device(obj, device):
 
 @dataclass
 class StepDraws:
-    """Every random number of one step."""
+    """Every random number of one step; per encoder forward (teacher view,
+    student view, local crops) where a list."""
     starts: Optional[torch.Tensor]     # (B,) frontend crop starts; None for log-mel batches
     views: PairDraws
-    dropout: List[torch.Tensor]        # per encoder forward: keep mask (B, T/4, hidden)
+    dropout: Optional[List[torch.Tensor]] = None    # AudioNTT: keep masks (B, T/4, hidden)
+    noise: Optional[List[torch.Tensor]] = None      # ViT: token-mask noise (B, L)
+    # ViT with DropPath: per view, per block, keep masks (2, B), None at rate 0
+    drop_path: Optional[List[List[Optional[torch.Tensor]]]] = None
 
     def to(self, device) -> "StepDraws":
         """The same draws on another device (to step two devices alike)."""
         return _to_device(self, device)
 
 
-def draw_step(gen: torch.Generator, cfg, batch_shape, hidden: int, device=None,
+def draw_step(gen: torch.Generator, cfg, batch_shape, encoder, device=None,
               wav: bool = False) -> StepDraws:
-    """Draw a step's random numbers from `gen` (a generator on `device`).
-    batch_shape: (B, L) raw wavs when `wav`, else (B, 1, n_mels, crop_frames)."""
+    """Draw a step's random numbers from `gen` (a generator on `device`) for
+    `encoder`.  batch_shape: (B, L) raw wavs when `wav`, else
+    (B, 1, n_mels, crop_frames)."""
     B = batch_shape[0]
     starts = None
     if wav:
         starts = torch.randint(0, crop_start_bound(cfg, batch_shape[-1]), (B,),
                                generator=gen, device=device, dtype=torch.int32)
     lms_shape = (B, 1, cfg.n_mels, cfg.crop_frames)
-    frames = [cfg.crop_frames // 4] * 2 + [cfg.local_crops_size[1] // 4] * cfg.local_crops_number
-    dropout = [torch.rand(B, t, hidden, generator=gen, device=device) >= DROPOUT_RATE
-               for t in frames]
-    return StepDraws(starts, draw_pair_views(gen, cfg, lms_shape, device), dropout)
+    sizes = [(cfg.n_mels, cfg.crop_frames)] * 2 + \
+        [tuple(cfg.local_crops_size)] * cfg.local_crops_number
+    dropout = noise = drop_path = None
+    if isinstance(encoder, MaskedAutoencoderViT):
+        ph, pw = encoder.spec.patch_size
+        noise = [torch.rand(B, (f // ph) * (t // pw), generator=gen, device=device)
+                 for f, t in sizes]
+        if encoder.spec.drop_path_rate > 0:
+            drop_path = [[torch.rand(2, B, generator=gen, device=device) >= blk.drop_path.rate
+                          if blk.drop_path.rate > 0 else None for blk in encoder.blocks]
+                         for _ in sizes]
+    else:
+        hidden = encoder.fc[0].out_features
+        dropout = [torch.rand(B, t // 4, hidden, generator=gen, device=device) >= DROPOUT_RATE
+                   for _, t in sizes]
+    return StepDraws(starts, draw_pair_views(gen, cfg, lms_shape, device), dropout, noise,
+                     drop_path)
 
 
 def make_train_step(cfg, world_scale: float = 1.0, frontend=None):
-    """-> train_step(state, batch, gen=None, draws=None, monitor=None) ->
-    metrics, or (metrics, monitor) when a monitor is passed.
+    """-> train_step(state, batch, gen=None, draws=None, monitor=None,
+    mask_ratio=0.0, len_keep=None) -> metrics, or (metrics, monitor) when a
+    monitor is passed.
 
     batch: (B, 1, n_mels, crop_frames) normalised log-mels, or raw (B, L)
     wavs when `frontend` (make_device_frontend) is given.  The step updates
     `state` in place (parameters, running statistics, optimizer momentum,
-    mixup bank, step count).  Randomness: `draws`, or drawn from `gen`."""
+    mixup bank, step count).  Randomness: `draws`, or drawn from `gen`.
+    mask_ratio, len_keep: a ViT teacher's masking (train/loop.py)."""
     if cfg.use_fp16:
         raise NotImplementedError(
             "--use_fp16 (bf16 autocast of the encoder) is not ported yet")
 
     def train_step(state: TrainState, batch: torch.Tensor, gen=None,
-                   draws: Optional[StepDraws] = None, monitor=None):
+                   draws: Optional[StepDraws] = None, monitor=None,
+                   mask_ratio: float = 0.0, len_keep: Optional[int] = None):
         mods = state.modules
         encoder, head, predictor = mods["encoder"], mods["head"], mods["predictor"]
         mods.train()
         if draws is None:
-            draws = draw_step(gen, cfg, tuple(batch.shape), encoder.fc[0].out_features,
-                              batch.device, wav=frontend is not None)
+            draws = draw_step(gen, cfg, tuple(batch.shape), encoder, batch.device,
+                              wav=frontend is not None)
         with torch.no_grad():
             if frontend is not None:
                 batch = frontend(batch, draws.starts)
             views = apply_pair_views(batch, state.aug, cfg, draws.views)
 
+        vit = isinstance(encoder, MaskedAutoencoderViT)
+
+        def encode(i: int, v: torch.Tensor, teacher: bool = False):
+            if not vit:
+                return encoder(v, draws.dropout[i])
+            masking = (dict(mask_ratio=mask_ratio, len_keep=len_keep,
+                            masked_recon=cfg.masked_recon) if teacher else {})
+            return encoder(v, mean_pool=cfg.use_mean_pool, noise=draws.noise[i],
+                           drop_keep=None if draws.drop_path is None else draws.drop_path[i],
+                           **masking)
+
         # cuDNN's TF32 flag is read when a kernel is chosen: the backward
         # convolutions run inside loss.backward(), so it stays in the context
         with no_tf32():
-            # teacher: first global view, head + predictor
-            t_z = predictor(head(encoder(views[0], draws.dropout[0])))
-            # student: second global view + locals
+            # teacher: first global view, masked (a ViT), head + predictor
+            t_out = encode(0, views[0], teacher=True)
+            recon = torch.zeros((), device=batch.device)
+            if vit and cfg.masked_recon:
+                t_out, recon = t_out
+            t_z = predictor(head(t_out))
+            # student: second global view + locals, unmasked
             student_zs = []
-            for v, mask in zip(views[1:], draws.dropout[1:]):
-                s_z = head(encoder(v, mask))
+            for i, v in enumerate(views[1:], start=1):
+                s_z = head(encode(i, v))
                 student_zs.append(s_z.detach() if cfg.stop_gradient else s_z)
-            loss = barlow_twins_loss(student_zs, [t_z], lmbda=cfg.lmbda, alpha=cfg.alpha,
-                                     HSIC=cfg.HSIC, world_scale=world_scale)
+            bt = barlow_twins_loss(student_zs, [t_z], lmbda=cfg.lmbda, alpha=cfg.alpha,
+                                   HSIC=cfg.HSIC, world_scale=world_scale)
+            loss = bt + recon
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
         state.optimizer.step()
@@ -159,7 +203,7 @@ def make_train_step(cfg, world_scale: float = 1.0, frontend=None):
             state.scheduler.step()
         state.step += 1
         loss = loss.detach()
-        metrics = {"loss": loss, "bt_loss": loss, "recon_loss": torch.zeros_like(loss)}
+        metrics = {"loss": loss, "bt_loss": bt.detach(), "recon_loss": recon.detach()}
         if monitor is None:
             return metrics
         return metrics, _fold_monitor(monitor, loss)

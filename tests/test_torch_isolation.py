@@ -43,7 +43,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert "ssl_audio_tpu_torch.ops.mel_kernel" in result["modules"]
     for name in ("main", "config", "train.loop", "train.steps", "train.state",
                  "train.optim", "augment.transforms", "objectives.barlow",
-                 "models.heads", "data.pipeline", "tools.train_profile"):
+                 "models.heads", "data.pipeline", "tools.train_profile", "models.vit",
+                 "ops.fused_attention", "ops.pos_embed", "utils.schedules"):
         assert f"ssl_audio_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

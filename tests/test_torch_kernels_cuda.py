@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from ssl_audio_tpu_torch.ops import fused_attention as fa
 from ssl_audio_tpu_torch.ops.fused_conv import (
     fused_conv1_bn_relu_pool,
     fused_conv1_bn_relu_pool_eval,
@@ -37,6 +38,8 @@ STATS_RTOL = 1e-4    # fp32 sums over the batch in another order
 EMB_RTOL = 1e-3      # embeddings / max|embedding|, card vs CPU
 SUMS_RTOL = 1e-4     # backward sums / their largest value: fp32 sums in another order
 DY_ATOL = 1e-4       # dy values O(1): the T1/n, T2/n terms come from those sums
+BF16_SPACING = 2.0 ** -7   # attention: a bf16 operand or output rounded the other way
+ATTN_REL_L2 = 1e-4         # moves one element by one bf16 spacing; relative L2 stays tiny
 
 
 @pytest.fixture
@@ -208,3 +211,62 @@ def test_hear_api_card_matches_cpu(dev, rng):
         assert float((a - b).abs().max()) <= EMB_RTOL * float(b.abs().max())
     assert log_mel_cuda.launches["folded"] > launches[0]
     assert fused_conv1_fwd_cuda.launches > launches[1]
+
+
+def _attention_inputs(rng, B, N, C, masked):
+    qkv = rng.standard_normal((B, N, 3 * C)).astype(np.float32)
+    bias = np.zeros((B, N), np.float32)
+    if masked:                    # the ViT's token mask: -1e9 keys, CLS visible
+        drop = rng.random((B, N)) < 0.75
+        drop[:, 0] = False
+        bias[drop] = -1e9
+    dout = rng.standard_normal((B, N, C)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (qkv, bias, dout)]
+
+
+def _attention_close(got, want, what):
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= BF16_SPACING * scale, what
+    assert float((got - want).double().norm() / want.double().norm()) <= ATTN_REL_L2, what
+
+
+@pytest.mark.parametrize("B,N,C,H,masked", [
+    (128, 25, 768, 12, False), (128, 25, 768, 12, True),   # ViT-B step, both maskings
+    (128, 7, 768, 12, False),                               # token-drop teacher
+    (6, 49, 384, 6, True), (3, 33, 64, 2, True),           # two query tiles, hd 64 / 32
+    (2, 256, 512, 4, True)])                                # the envelope: N 256, hd 128
+def test_fused_attention_kernels_match_plain(dev, rng, B, N, C, H, masked):
+    """Forward and backward kernels against their plain versions; dk and dv
+    come out as bf16 values; two backward launches give the same bits."""
+    qkv, bias, dout = (t.to(dev) for t in _attention_inputs(rng, B, N, C, masked))
+    before = (fa.fused_attention_fwd_cuda.launches, fa.fused_attention_bwd_cuda.launches)
+    out = fa.fused_attention_fwd_cuda(qkv, bias, H)
+    dqkv, dbias = fa.fused_attention_bwd_cuda(qkv, bias, dout, H)
+    again = fa.fused_attention_bwd_cuda(qkv, bias, dout, H)
+    out_p = fa.fused_attention_fwd_plain(qkv, bias, H)
+    dqkv_p, dbias_p = fa.fused_attention_bwd_plain(qkv, bias, dout, H)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_fwd_cuda.launches, fa.fused_attention_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 2)
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+    _attention_close(out, out_p, "out")
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _attention_close(dqkv[..., i * C:(i + 1) * C], dqkv_p[..., i * C:(i + 1) * C], name)
+    _attention_close(dbias, dbias_p, "dbias")
+    dkv = dqkv[..., C:]
+    assert torch.equal(dkv, dkv.bfloat16().float())
+
+
+def test_fused_attention_function_launches_both_kernels(dev, rng):
+    """The autograd Function on the card: one forward and one backward
+    launch, gradients equal to the backward kernel's."""
+    qkv, bias, dout = (t.to(dev) for t in _attention_inputs(rng, 4, 25, 192, True))
+    x = qkv.clone().requires_grad_()
+    b = bias.clone().requires_grad_()
+    before = (fa.fused_attention_fwd_cuda.launches, fa.fused_attention_bwd_cuda.launches)
+    fa.fused_attention(x, b, 3).backward(dout)
+    torch.cuda.synchronize()
+    assert (fa.fused_attention_fwd_cuda.launches, fa.fused_attention_bwd_cuda.launches) == \
+        (before[0] + 1, before[1] + 1)
+    dqkv, dbias = fa.fused_attention_bwd_cuda(qkv, bias, dout, 3)
+    assert torch.equal(x.grad, dqkv) and torch.equal(b.grad, dbias)

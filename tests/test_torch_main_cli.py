@@ -37,18 +37,30 @@ def test_synthetic_log_mel_dataset_with_adamw():
     assert "Epoch [1/1] loss=" in out.stdout
 
 
+def test_vit_tiny_with_fused_attention_on_the_cpu():
+    """The ViT slice's entry point at a small size: vit_tiny, the attention's
+    plain versions, the teacher masked by token drop."""
+    out = run("--device", "cpu", *SMALL, "--model_type", "vit_tiny", "--fused_attention",
+              "--mask", "--mask_ratio", "0.75")
+    assert out.returncode == 0, out.stderr
+    assert "training vit_tiny" in out.stdout and "AdamW" in out.stdout
+    assert "Epoch [1/1] loss=" in out.stdout and "on cpu" in out.stdout
+
+
 def test_without_a_card_it_fails_and_prints_no_result():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device exists")
-    out = run(*SMALL)
-    assert out.returncode != 0
-    assert "Epoch [" not in out.stdout and "loss" not in out.stdout
-    assert "no CUDA device" in out.stderr
+    for extra in ([], ["--model_type", "vit_base", "--fused_attention"]):
+        out = run(*SMALL, *extra)
+        assert out.returncode != 0
+        assert "Epoch [" not in out.stdout and "loss" not in out.stdout
+        assert "no CUDA device" in out.stderr
 
 
 @pytest.mark.parametrize("flags", [["--use_fp16"], ["--steps_per_dispatch", "4"],
                                    ["--resume_path", "ckpt"], ["--squeeze_excitation"],
-                                   ["--dataset", "fsd50k"], ["--model_type", "vit_base"]])
+                                   ["--dataset", "fsd50k"], ["--model_type", "resnet18"],
+                                   ["--model_type", "vit_tiny", "--remat"]])
 def test_deferred_flags_parse_and_raise(flags):
     out = run("--device", "cpu", *SMALL, *flags)
     assert out.returncode != 0

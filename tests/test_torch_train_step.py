@@ -290,7 +290,8 @@ def test_step_draws_from_its_generator_and_moves_everything():
         if k.endswith("bias") and ("features.0" in k or "features.4" in k):
             continue                      # conv bias before a batch norm: zero gradient
         assert not torch.equal(v, before[k]), k
-    d = draw_step(torch.Generator().manual_seed(0), cfg, (B, L), 2048, wav=True)
+    d = draw_step(torch.Generator().manual_seed(0), cfg, (B, L), state.modules["encoder"],
+                  wav=True)
     assert d.starts.dtype == torch.int32 and int(d.starts.max()) <= 51 - 32
     assert d.dropout[0].shape == (B, 8, 2048) and 0.6 < float(d.dropout[0].float().mean()) < 0.8
     mon = init_monitor("cpu")
@@ -321,10 +322,15 @@ def test_deferred_flags_raise():
     from ssl_audio_tpu_torch.config import require_supported, unsupported_settings
 
     assert unsupported_settings(default_config(dataset="synthetic_wav")) == []
+    for kw in (dict(model_type="vit_base", fused_attention=True), dict(masked_recon=True),
+               dict(model_type="vitc_small", mask=True, mask_ratio=0.75)):
+        assert unsupported_settings(default_config(dataset="synthetic_wav", **kw)) == []
     for kw in (dict(use_fp16=True), dict(squeeze_excitation=True), dict(steps_per_dispatch=4),
                dict(resume_path="x"), dict(save_base_dir="x"), dict(profile_dir="x"),
-               dict(model_type="vit_base"), dict(dataset="fsd50k"), dict(distributed=True),
-               dict(masked_recon=True), dict(fsdp=True), dict(model_parallel=2)):
+               dict(model_type="resnet18"), dict(dataset="fsd50k"), dict(distributed=True),
+               dict(model_type="vit_base", remat=True),
+               dict(model_type="vit_base", layout_barrier=True), dict(fsdp=True),
+               dict(model_parallel=2)):
         cfg = default_config(**{"dataset": "synthetic_wav", **kw})
         with pytest.raises(NotImplementedError):
             require_supported(cfg)
@@ -354,4 +360,5 @@ def test_launch_counters_count_kernels_only():
     make_train_step(cfg, frontend=make_device_frontend(cfg, STATS))(
         state, wav, gen=torch.Generator().manual_seed(1))
     assert launch_counts() == {"log_mel_folded": 0, "log_mel_unfolded": 0, "fused_conv1_fwd": 0,
-                               "fused_conv1_bwd": 0, "fused_conv1_dx": 0}
+                               "fused_conv1_bwd": 0, "fused_conv1_dx": 0,
+                               "fused_attention_fwd": 0, "fused_attention_bwd": 0}
