@@ -11,7 +11,10 @@ Phases, each of which exits non-zero on failure:
      serving and training paths' shapes, with the tolerances below, and times
      kernel, plain version and the PyTorch library yardstick with CUDA events
      (the attention kernels at the ViT-B step's shapes: N = 25 with zero and
-     with masked-key biases, and the token-drop teacher's N = 7);
+     with masked-key biases, and the token-drop teacher's N = 7); the
+     log-mel rows carry the tensor-core bound (three TF32 passes) beside the
+     fp32 one, and both instantiations are held against the plain version in
+     float64 on 0.3 tones over a 1e-4 noise floor;
   4. serving: AudioNTT2022 at full width (64 mels, d = 3072, fp32,
      fused_conv=True) with seeded random weights answers a timestamp request
      and a scene request for 16 seeded 10-s clips through the HEAR API; the
@@ -52,13 +55,17 @@ import time
 import torch
 
 # H100 SXM data sheet (dense, no sparsity): fp32 outside the tensor cores,
-# bf16 on the tensor cores, and HBM3 bandwidth
+# bf16 and TF32 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # tolerances, each with its reason
-MEL_ATOL = 1e-4      # log-mel: fp32 FMA sums of 200-1023 terms in another order than cuBLAS
+MEL_ATOL = 1e-4      # log-mel: three TF32 passes (~2^-22 per product) against cuBLAS fp32,
+                     # sums of 200-1023 terms in another order
+MEL_RANGE_FACTOR = 4  # dynamic-range input: the kernel's error against float64 may be this
+                      # many times the fp32 plain version's (or MEL_ATOL)
 CONV_ATOL = 1e-4     # pooled conv values O(1-10): cuDNN's fp32 algorithm rounds otherwise
 STATS_RTOL = 1e-4    # s1, s2: 3.1e6-term fp32 sums in another order
 EMB_RTOL = 1e-3      # embeddings / max|embedding|: fp32 through four layers, card vs CPU
@@ -107,6 +114,22 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tupl
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
+def mel_bounds(ops, frames: int, nbytes: float) -> dict:
+    """The log-mel kernel's bounds for `frames` frames: bound_ms with the DFT
+    in three TF32 passes on the tensor cores and the power and mel product at
+    the fp32 rate; fp32_bound_ms with everything at the fp32 rate (the
+    CUDA-core version's bound); either against the bytes."""
+    dft = frames * ops.dft_flops_per_frame()
+    rest = frames * ops.flops_per_frame() - dft
+    t_ops = 3 * dft / PEAK_TF32_FLOPS + rest / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    fp32, fp32_by = bound_ms(dft + rest, nbytes)
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "fp32_bound_ms": fp32, "fp32_bound_by": fp32_by,
+            "dft_gflop": dft / 1e9}
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -144,11 +167,11 @@ def mel_row(wav: torch.Tensor, spec, fold, label: str) -> dict:
     err = max_err(out, ref)
     B, L = wav.shape
     check(f"log_mel[{label}] ({B} x {L})", err, MEL_ATOL,
-          "fp32 DFT sums in another order")
+          "three TF32 passes, sums in another order")
     ops = kernel_operands(spec, fold)
     nbytes = 4 * (wav.numel() + out.numel() + ops.basis_c.size
                   + ops.basis_s.size + ops.fb.size)
-    bound, by = bound_ms(B * spec.num_frames(L) * ops.flops_per_frame(), nbytes)
+    bounds = mel_bounds(ops, B * spec.num_frames(L), nbytes)
     window = torch.hann_window(spec.win_length, periodic=True, device=wav.device)
     fb_full = torch.from_numpy(spec.filterbank).to(wav.device)
 
@@ -163,7 +186,7 @@ def mel_row(wav: torch.Tensor, spec, fold, label: str) -> dict:
     row = {"max_abs_err": err, "library_max_abs_err": max_err(library(), ref),
            "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold=fold)),
            "plain_ms": cuda_ms(lambda: log_mel_spectrogram_plain(wav, spec, fold=fold)),
-           "bound_ms": bound, "bound_by": by, "library_ms": cuda_ms(library),
+           **bounds, "library_ms": cuda_ms(library),
            "shape": f"{B} x {L} samples -> {tuple(out.shape)}"}
     print(f"  log_mel[{label}]: " + json.dumps(row))
     return row
@@ -185,13 +208,13 @@ def cropped_mel_row(wav: torch.Tensor, starts: torch.Tensor, spec, fold, label: 
     err = max_err(out, ref)
     B, L = wav.shape
     check(f"log_mel[{label}] ({B} x {L}, {T} frames from per-clip starts)", err,
-          MEL_ATOL, "fp32 DFT sums in another order")
+          MEL_ATOL, "three TF32 passes, sums in another order")
     ops = kernel_operands(spec, fold)
     # bytes the function needs: each clip's cropped segment, not the whole clip
     seg = (T - 1) * spec.hop_length + spec.n_fft
     nbytes = 4 * (B * seg + out.numel() + ops.basis_c.size + ops.basis_s.size
                   + ops.fb.size + B)
-    bound, by = bound_ms(B * T * ops.flops_per_frame(), nbytes)
+    bounds = mel_bounds(ops, B * T, nbytes)
     window = torch.hann_window(spec.win_length, periodic=True, device=wav.device)
     fb_full = torch.from_numpy(spec.filterbank).to(wav.device)
     pad = spec.n_fft // 2
@@ -209,10 +232,42 @@ def cropped_mel_row(wav: torch.Tensor, starts: torch.Tensor, spec, fold, label: 
            "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold, starts, T)),
            "plain_ms": cuda_ms(lambda: log_mel_spectrogram_cropped_plain(
                wav, spec, fold, starts, T)),
-           "bound_ms": bound, "bound_by": by, "library_ms": cuda_ms(library),
+           **bounds, "library_ms": cuda_ms(library),
            "shape": f"{B} x {L} samples, per-clip starts -> {tuple(out.shape)}"}
     print(f"  log_mel[{label}]: " + json.dumps(row))
     return row
+
+
+def mel_dynamic_range(gen: torch.Generator, dev: torch.device) -> dict:
+    """64 one-second clips, 0.3 tones over the first half of each and a 1e-4
+    noise floor throughout, at both specs and through both instantiations:
+    the kernel and the fp32 plain version, each against the plain version
+    run in float64 on the card (its fp32 tables cast to float64)."""
+    from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_plain
+    from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
+
+    n, samples = 64, 16000
+    t = torch.arange(samples, dtype=torch.float64) / 16000
+    freqs = 100.0 + 4000.0 * torch.rand(n, 1, generator=gen, dtype=torch.float64)
+    tone = 0.3 * torch.sin(2 * torch.pi * freqs * t)
+    tone[:, samples // 2:] = 0.0
+    noise = 1e-4 * torch.randn(n, samples, generator=gen, dtype=torch.float64)
+    wav = (tone + noise).float().to(dev)
+    errs = {"folded": {}, "unfolded": {}}
+    for win in (400, 1024):
+        spec = MelSpec(win_length=win)
+        for label, fold in (("folded", None), ("unfolded", False)):
+            exact = log_mel_spectrogram_plain(wav.double(), spec, fold=fold)
+            kernel = max_err(log_mel_cuda(wav, spec, fold), exact)
+            plain = max_err(log_mel_spectrogram_plain(wav, spec, fold=fold), exact)
+            errs[label][f"win_{win}"] = {"kernel_vs_float64": kernel,
+                                         "plain_fp32_vs_float64": plain}
+            print(f"  log_mel dynamic range [{label}, win {win}]: kernel {kernel:.3e}, "
+                  f"fp32 plain {plain:.3e}, against float64")
+            check(f"log_mel[{label}, win {win}, dynamic range] vs float64", kernel,
+                  max(MEL_ATOL, MEL_RANGE_FACTOR * plain),
+                  f"max(1e-4, {MEL_RANGE_FACTOR} x the fp32 plain version's)")
+    return errs
 
 
 def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], dict]:
@@ -343,10 +398,20 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
         raise SystemExit("the Function did not launch its kernels as expected")
     # the forward kernel in its statistics mode at this shape, as the step runs it
     fwd_bound, fwd_by = bound_ms(19 * 4 * cells, 4 * (x.numel() + pooled.numel() + 20 * C))
+    def library_fwd():
+        with no_tf32():
+            y = torch.nn.functional.conv2d(x[:, None], w4, bias, padding=1)
+            z = torch.nn.functional.batch_norm(y, None, None, gamma, beta, training=True,
+                                               eps=1e-5)
+            return torch.nn.functional.max_pool2d(torch.relu(z), 2)
+
     fwd_row = {"shape": f"{(B, H, W)} -> sel {tuple(pooled.shape)}, s1, s2",
                "ms": cuda_ms(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
                "plain_ms": cuda_ms(lambda: fc.fused_conv1_fwd_plain(x, wk, bias, gamma)),
-               "bound_ms": fwd_bound, "bound_by": fwd_by}
+               "bound_ms": fwd_bound, "bound_by": fwd_by,
+               "library_ms": cuda_ms(library_fwd),
+               "library_is": "cuDNN conv2d + batch_norm(training=True) + relu + max_pool2d, "
+                             "forward, TF32 off"}
     print("  fused_conv1_fwd[train shape, stats mode]: " + json.dumps(fwd_row))
     src = "ssl_audio_tpu_torch/csrc/fused_conv_bwd.cu"
     return [{"name": "fused_conv1_bwd", "route": "cuda", "source": src,
@@ -497,7 +562,7 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
         train_err[label] = max_err(log_mel_cuda(wav, spec, fold=fold),
                                    log_mel_spectrogram_plain(wav, spec, fold=fold))
         check(f"log_mel[train_spec_{label}] ({CHUNK} x {WINDOW})", train_err[label], MEL_ATOL,
-              "fp32 DFT sums in another order")
+              "three TF32 passes, sums in another order")
     # the training step's input: 128 whole 10-s clips, 96 frames from per-clip
     # starts (first, last valid and random ones), both instantiations
     train_spec = MelSpec(win_length=1024)
@@ -510,6 +575,7 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
                                           "folded, cropped")
     mel_rows["cropped_unfolded"] = cropped_mel_row(train_wav, starts, train_spec, False,
                                                    "unfolded, cropped")
+    dynamic_range = mel_dynamic_range(gen, dev)
 
     # fused conv forward at one chunk of timestamp windows: (512, 64, 96),
     # inputs quantised to 0.5 so windows tie, mixed-sign gamma, one exact 0
@@ -580,6 +646,7 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
          "max_abs_err": max(train_err["folded"], *(mel_rows[k]["max_abs_err"] for k in (
              "folded", "scene_shape", "cropped"))),
          "train_spec_max_abs_err": train_err["folded"],
+         "dynamic_range": dynamic_range["folded"],
          "scene_shape": mel_rows["scene_shape"],
          "cropped": mel_rows["cropped"]},
         {"name": "log_mel_unfolded", "route": "cuda",
@@ -589,6 +656,7 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
          "max_abs_err": max(train_err["unfolded"], *(mel_rows[k]["max_abs_err"] for k in (
              "unfolded", "cropped_unfolded"))),
          "train_spec_max_abs_err": train_err["unfolded"],
+         "dynamic_range": dynamic_range["unfolded"],
          "cropped": mel_rows["cropped_unfolded"]},
         {"name": "fused_conv1_fwd", "route": "cuda",
          "source": "ssl_audio_tpu_torch/csrc/fused_conv_fwd.cu",

@@ -155,7 +155,9 @@ def _reflect_pad(wav: torch.Tensor, pad: int) -> torch.Tensor:
 
 
 def _table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(like.device)
+    """A float32 table on `like`'s device in `like`'s dtype (float64 for the
+    exact-arithmetic witness of the same function)."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(like.device, like.dtype)
 
 
 def _log_mel_of_frames(x: torch.Tensor, first: torch.Tensor, spec: MelSpec,

@@ -1,14 +1,17 @@
 """Where the log-mel kernel's time goes: its time on the card against the
 number of DFT basis rows K it walks, for Hann windows of 200 to 1024
-samples (folded and unfolded), at one 512-window chunk of the HEAR
-timestamp path.
+samples, folded and unfolded, with each frame tile (64 or 96 frames per
+block), at one 512-window chunk of the HEAR timestamp path.  Per line: K,
+the shared memory one block takes and the blocks that fit on an SM
+(cudaOccupancyMaxActiveBlocksPerMultiprocessor, as the source computes
+them), and the time.
 
     python3 -m ssl_audio_tpu_torch.tools.mel_sweep
 
-The slope over K is the cost of one step of the DFT loop for the whole
-launch, the intercept the fixed part (staging, mel product, log, launch);
-a jump where the shared memory a block needs stops two blocks fitting on an
-SM shows the kernel's dependence on occupancy.
+The slope over K is the cost of one k-step of the tensor-core loop for the
+whole launch, the intercept the fixed part (staging, mel product, log,
+launch); the two tiles trade blocks per SM against basis traffic per frame
+and padded frames (T = 96).
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the sweep is a device measurement")
     from ssl_audio_tpu_torch.ops.mel import MelSpec
-    from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
+    from ssl_audio_tpu_torch.ops.mel_kernel import (
+        TILES, kernel_operands, log_mel_cuda, occupancy)
 
     smi = smi_line()
     gen = torch.Generator().manual_seed(0)
@@ -32,11 +36,13 @@ def main() -> int:
         for fold in (None, False):
             spec = MelSpec(win_length=win)
             ops = kernel_operands(spec, fold)
-            print(json.dumps({
-                "win_length": win, "fold": ops.fold, "K": ops.basis_c.shape[0],
-                "smem_bytes": ops.smem_bytes(),
-                "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold=fold), iters=30),
-                "card": smi}))
+            for tile in TILES:
+                print(json.dumps({
+                    "win_length": win, "fold": ops.fold, "K": ops.basis_c.shape[0],
+                    **occupancy(spec, fold, tile),
+                    "ms": cuda_ms(lambda: log_mel_cuda(wav, spec, fold=fold, tile=tile),
+                                  iters=30),
+                    "card": smi}))
     return 0
 
 

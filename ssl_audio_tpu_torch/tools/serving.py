@@ -1,19 +1,25 @@
 """Seeded HEAR serving setup of the port, the card's timing helpers, and a
 device-time profile of its requests on the card.
 
-    python3 -m ssl_audio_tpu_torch.tools.serving [--seed 0] [--clips 16]
+    python3 -m ssl_audio_tpu_torch.tools.serving [--seed 0] [--clips 16] [--timed N]
 
 Builds AudioNTT2022 at full width (64 mels, d = 3072, fp32, fused_conv=True)
 with random weights from a torch.Generator, answers one warm-up timestamp
 and scene request for `clips` seeded 10-s clips, then profiles one of each
 with torch.profiler and prints, per request, the wall time, the device time
 by kernel (largest first) and the device's idle share (1 - device busy /
-wall).  chip_smoke.py uses the same setup for its serving phase.
+wall).  With --timed N it times N requests of each kind instead (host clock
+around each, ending in a synchronise; three warm-ups) and prints their
+median and minimum: an A/B of two checkouts runs this file with each
+checkout's root first on PYTHONPATH, `PYTHONPATH=<root> python3
+<this file> --timed 15`, in turns.  chip_smoke.py uses the same setup for
+its serving phase.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import time
 
@@ -107,6 +113,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--clips", type=int, default=16)
+    ap.add_argument("--timed", type=int, default=0,
+                    help="time this many requests of each kind instead of profiling one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile is a device measurement")
@@ -120,6 +128,23 @@ def main() -> int:
         "timestamp": lambda: hear_conv.get_timestamp_embeddings(audio, model),
         "scene": lambda: hear_conv.get_scene_embeddings(audio, model),
     }
+    if args.timed:
+        import ssl_audio_tpu_torch
+
+        out = {"package": ssl_audio_tpu_torch.__file__, "clips": args.clips, "card": smi}
+        for name, fn in requests.items():
+            for _ in range(3):
+                fn()
+            times = []
+            for _ in range(args.timed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[name] = {"median_ms": statistics.median(times), "min_ms": min(times)}
+        print(json.dumps(out))
+        return 0
     for fn in requests.values():
         fn()                                    # warm-up: kernel build, cuDNN plans
     for name, fn in requests.items():

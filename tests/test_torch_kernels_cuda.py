@@ -32,7 +32,7 @@ from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands, log_mel_cuda
 pytestmark = pytest.mark.cuda
 
 # the tolerances of chip_smoke.py, with their reasons
-MEL_ATOL = 1e-4      # fp32 DFT sums in another order than cuBLAS
+MEL_ATOL = 1e-4      # three TF32 passes (~2^-22 per product) against cuBLAS fp32
 CONV_ATOL = 1e-4     # cuDNN's fp32 conv algorithm rounds otherwise
 STATS_RTOL = 1e-4    # fp32 sums over the batch in another order
 EMB_RTOL = 1e-3      # embeddings / max|embedding|, card vs CPU
@@ -98,6 +98,80 @@ def test_log_mel_kernel_with_crop_starts_matches_plain(dev, rng, fold, frames):
         s0 = int(starts[b])
         torch.testing.assert_close(out[b], full[b, :, s0:s0 + frames],
                                    atol=MEL_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("fold", [None, False])
+@pytest.mark.parametrize("case", ["partial_tiles", "k_not_a_slab", "last_and_past_starts",
+                                  "short_clip", "one_clip"])
+def test_log_mel_kernel_edges(dev, rng, fold, case):
+    """Edges of the tensor-core kernel, each instantiation and both tiles:
+    T not a multiple of the tile (T = 101, 33 cropped), a support K that is
+    not a multiple of the 8-row slab (win 300: K = 150 folded, 299
+    unfolded), crop starts at the last valid frame and clamped past the
+    clip's end, L just above n_fft / 2 (reflect centring at its limit, a
+    partial single tile), B = 1; one launch of the right instantiation each."""
+    win, B, L, frames = {"partial_tiles": (1024, 3, 16000, None),
+                         "k_not_a_slab": (300, 4, 15200, None),
+                         "last_and_past_starts": (1024, 4, 16000, 33),
+                         "short_clip": (1024, 2, 513, None),
+                         "one_clip": (400, 1, 15200, 96)}[case]
+    spec = MelSpec(win_length=win)
+    ops = kernel_operands(spec, fold)
+    if case == "k_not_a_slab":
+        assert ops.basis_c.shape[0] % 8 != 0 and ops.k_pad % 8 == 0
+    wav = _wav(rng, (B, L)).to(dev)
+    T_full = spec.num_frames(L)
+    starts = None
+    if frames is not None:
+        last = T_full - frames
+        starts = torch.tensor(([last, last + 5, last + frames + 10, 0] * B)[:B],
+                              dtype=torch.int32, device=dev)
+    for tile in (64, 96):
+        before = dict(log_mel_cuda.launches)
+        if starts is None:
+            out = log_mel_cuda(wav, spec, fold, tile=tile)
+            ref = log_mel_spectrogram_plain(wav, spec, fold=fold)
+        else:
+            out = log_mel_cuda(wav, spec, fold, starts, frames, tile=tile)
+            ref = log_mel_spectrogram_cropped_plain(wav, spec, fold, starts, frames)
+        torch.cuda.synchronize()
+        took = "folded" if ops.fold else "unfolded"
+        assert log_mel_cuda.launches == {**before, took: before[took] + 1}
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        torch.testing.assert_close(out, ref, atol=MEL_ATOL, rtol=0, msg=f"tile {tile}")
+
+
+@pytest.mark.parametrize("fold", [None, False])
+def test_log_mel_dynamic_range_against_float64(dev, rng, fold):
+    """0.3 tones over a 1e-4 noise floor: the kernel's error against the
+    plain version in float64 is at most max(1e-4, 4 x the fp32 plain
+    version's)."""
+    spec = MelSpec(win_length=1024)
+    t = np.arange(32000) / 16000
+    tone = 0.3 * np.sin(2 * np.pi * (200 + 3000 * rng.random((8, 1))) * t)
+    wav = torch.from_numpy((tone + 1e-4 * rng.standard_normal((8, 32000))).astype(np.float32))
+    wav = wav.to(dev)
+    exact = log_mel_spectrogram_plain(wav.double(), spec, fold=fold)
+    plain = log_mel_spectrogram_plain(wav, spec, fold=fold)
+    out = log_mel_cuda(wav, spec, fold)
+    plain_err = float((plain.double() - exact).abs().max())
+    assert float((out.double() - exact).abs().max()) <= max(MEL_ATOL, 4 * plain_err)
+
+
+def test_log_mel_occupancy_matches_the_host_layout(dev):
+    """The source's shared-memory size equals the wrapper's, and the blocks
+    per SM the card reports are the wrapper's (two of 64 frames at the HEAR
+    spec)."""
+    from ssl_audio_tpu_torch.ops.mel_kernel import occupancy
+
+    for win in (400, 1024):
+        for fold in (None, False):
+            spec = MelSpec(win_length=win)
+            ops = kernel_operands(spec, fold)
+            for tile in (64, 96):
+                occ = occupancy(spec, fold, tile)
+                assert occ["smem_bytes"] == ops.smem_bytes(tile), occ
+                assert occ["blocks_per_sm"] == ops.blocks_per_sm(tile), occ
 
 
 def _conv_inputs(rng, B, H, W, C=64):

@@ -14,7 +14,7 @@ import torch
 from ssl_audio_tpu.ops import mel as jmel
 from ssl_audio_tpu.ops.mel_pallas import log_mel_spectrogram_pallas
 from ssl_audio_tpu_torch.ops import mel as tmel
-from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands
+from ssl_audio_tpu_torch.ops.mel_kernel import FCH, kernel_operands
 
 HEAR = dict(win_length=400)        # hear/config.yaml frontend
 TRAIN = dict(win_length=1024)      # the training frontend (MelSpec defaults)
@@ -133,7 +133,7 @@ def test_kernel_operands(rng, kw, fold):
               ("train", True): (1, 512), ("train", False): (1, 1023)}
     key = ("hear" if kw == HEAR else "train", fold is None)
     assert (ops.n_lo, ops.basis_c.shape[0]) == expect[key]
-    assert ops.basis_c.shape[1] % 256 == 0 and ops.fb.shape[0] == ops.basis_c.shape[1]
+    assert ops.basis_c.shape[1] % FCH == 0 and ops.fb.shape[0] == ops.basis_c.shape[1]
     # every nonzero filterbank entry lies inside its mel's band
     rows = np.arange(ops.fb.shape[0])[:, None]
     inside = (rows >= ops.band[0]) & (rows < ops.band[1])
@@ -145,12 +145,13 @@ def test_kernel_operands(rng, kw, fold):
 
 
 def test_kernel_operands_pad_columns(rng):
-    """A spec whose used columns are not a multiple of 256 (f_max at
-    Nyquist: 513 columns) is padded with zero columns and zero
-    filterbank rows."""
+    """A spec whose used columns are not a multiple of the kernel's 128-column
+    chunk (f_max at Nyquist: 513 columns) is padded with zero columns and
+    zero filterbank rows."""
     spec = tmel.MelSpec(win_length=400, f_max=8000.0)
     ops = kernel_operands(spec)
-    assert spec.n_freqs_used == 513 and ops.basis_c.shape[1] == 768
+    assert FCH == 128
+    assert spec.n_freqs_used == 513 and ops.basis_c.shape[1] == 640
     assert not ops.basis_c[:, 513:].any() and not ops.fb[513:].any()
     wav = _wav(rng, (1, 3000))
     ref = tmel.log_mel_spectrogram_plain(torch.from_numpy(wav), spec).numpy()
