@@ -11,7 +11,9 @@ Phases, each of which exits non-zero on failure:
      serving and training paths' shapes, with the tolerances below, and times
      kernel, plain version and the PyTorch library yardstick with CUDA events
      (the attention kernels at the ViT-B step's shapes: N = 25 with zero and
-     with masked-key biases, and the token-drop teacher's N = 7); the
+     with masked-key biases, and the token-drop teacher's N = 7, by the
+     device-only timer, cold and warm, with the wrappers' host time and the
+     tensor-core bound beside the byte bound); the
      log-mel rows carry the tensor-core bound (three TF32 passes) beside the
      fp32 one, and both instantiations are held against the plain version in
      float64 on 0.3 tones over a 1e-4 noise floor;
@@ -439,12 +441,16 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
     plain versions at the ViT-B step's shapes: qkv (128, 25, 2304) with zero
     biases and with -1e9 on ~3/4 of the patch keys (key-bias masking at
     ratio 0.75, CLS visible), and the token-drop teacher's (128, 7, 2304).
-    Times at N = 25 and N = 7; the library yardstick is the raw-qkv split
-    and transpose plus scaled_dot_product_attention on bf16 q, k, v with
-    the additive mask (forward; forward and backward through autograd for
-    the backward row)."""
+    Times at N = 25 and N = 7 by device_ms (cold: the L2 flushed between
+    launches, as the step finds qkv; and warm), the wrapper's host time per
+    call beside them (host_ms) and the older back-to-back CUDA-event time;
+    the byte bound and the tensor-core operation bound.  The library
+    yardstick is the raw-qkv split and transpose plus
+    scaled_dot_product_attention on bf16 q, k, v with the additive mask:
+    forward; for the backward row its backward alone (and, under its own
+    name, forward and backward through autograd)."""
     from ssl_audio_tpu_torch.ops import fused_attention as fa
-    from ssl_audio_tpu_torch.tools.serving import cuda_ms
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms, device_ms, host_ms
 
     B, C, H = TRAIN_BATCH, VIT_DIM, VIT_HEADS
     hd = C // H
@@ -503,37 +509,65 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
         qkv, bias, dout = inputs[label]
         N = qkv.shape[1]
         lib = library_fwd(qkv, bias).transpose(1, 2).reshape(B, N, C).float()
-        fwd_bound, fwd_by = bound_ms(4 * B * N * N * C, 4 * (4 * B * N * C + B * N),
-                                     PEAK_BF16_FLOPS)
-        bwd_bound, bwd_by = bound_ms(10 * B * N * N * C, 4 * (7 * B * N * C + 2 * B * N),
-                                     PEAK_BF16_FLOPS)
-        rows["fwd"][label] = {
-            "shape": f"qkv {tuple(qkv.shape)}, bias {tuple(bias.shape)} -> ({B}, {N}, {C})",
-            "ms": cuda_ms(lambda: fa.fused_attention_fwd_cuda(qkv, bias, H)),
-            "plain_ms": cuda_ms(lambda: fa.fused_attention_fwd_plain(qkv, bias, H)),
-            "bound_ms": fwd_bound, "bound_by": fwd_by,
-            "library_ms": cuda_ms(lambda: library_fwd(qkv, bias)),
-            "library_max_abs_err": max_err(lib, fa.fused_attention_fwd_plain(qkv, bias, H))}
-        rows["bwd"][label] = {
-            "shape": f"qkv {tuple(qkv.shape)}, dout {tuple(dout.shape)} -> dqkv, dbias",
-            "ms": cuda_ms(lambda: fa.fused_attention_bwd_cuda(qkv, bias, dout, H)),
-            "plain_ms": cuda_ms(lambda: fa.fused_attention_bwd_plain(qkv, bias, dout, H)),
-            "bound_ms": bwd_bound, "bound_by": bwd_by,
-            "library_ms": cuda_ms(lambda: library_fwd_bwd(qkv, bias, dout)),
-            "function_fwd_bwd_ms": cuda_ms(lambda: ours_fwd_bwd(qkv, bias, dout))}
-        for kind in ("fwd", "bwd"):
-            print(f"  fused_attention_{kind}[{label}]: " + json.dumps(rows[kind][label]))
+        # the library's backward alone: its forward once, then the gradient
+        # of the same output timed (the graph kept)
+        x = qkv.detach().requires_grad_()
+        lib_o = library_fwd(x, bias)
+        lib_g = dout.reshape(B, N, H, hd).transpose(1, 2).bfloat16()
+
+        def library_bwd():
+            return torch.autograd.grad(lib_o, x, lib_g, retain_graph=True)
+
+        # bounds: each input read once and each output written once, against
+        # the bf16 products on the tensor cores (forward S and P V; backward
+        # S, dP, dQ, dK, dV)
+        fwd_bytes, bwd_bytes = 4 * (4 * B * N * C + B * N), 4 * (7 * B * N * C + 2 * B * N)
+        fwd_flops, bwd_flops = 4 * B * N * N * C, 10 * B * N * N * C
+        for kind, fn, plain, nbytes, flops, library in (
+                ("fwd", lambda: fa.fused_attention_fwd_cuda(qkv, bias, H),
+                 lambda: fa.fused_attention_fwd_plain(qkv, bias, H), fwd_bytes, fwd_flops,
+                 lambda: library_fwd(qkv, bias)),
+                ("bwd", lambda: fa.fused_attention_bwd_cuda(qkv, bias, dout, H),
+                 lambda: fa.fused_attention_bwd_plain(qkv, bias, dout, H), bwd_bytes,
+                 bwd_flops, library_bwd)):
+            bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            plan = fa.plan(B, N, H, hd, kind == "bwd")
+            row = {"shape": f"qkv {tuple(qkv.shape)}, bias {tuple(bias.shape)}"
+                            + (f", dout {tuple(dout.shape)} -> dqkv, dbias" if kind == "bwd"
+                               else f" -> ({B}, {N}, {C})"),
+                   "ms": device_ms(fn, cold=True), "ms_warm": device_ms(fn),
+                   "host_ms": host_ms(fn), "cuda_events_ms": cuda_ms(fn),
+                   "plain_ms": device_ms(plain, iters=5), "bound_ms": bound, "bound_by": by,
+                   "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                   "ops_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
+                   "library_ms": device_ms(library),
+                   "plan": {"heads_per_block": plan.heads_per_block,
+                            "query_tiles_per_round": plan.rounds_tiles, "warps": plan.warps,
+                            "smem_bytes": plan.smem, "blocks": plan.blocks}}
+            row["bound_share_cold"] = row["bytes_bound_ms"] / row["ms"]
+            if kind == "fwd":
+                row["library_max_abs_err"] = max_err(
+                    lib, fa.fused_attention_fwd_plain(qkv, bias, H))
+            else:
+                row["library_fwd_bwd_ms"] = device_ms(lambda: library_fwd_bwd(qkv, bias, dout))
+                row["function_fwd_bwd_ms"] = device_ms(lambda: ours_fwd_bwd(qkv, bias, dout))
+            rows[kind][label] = row
+            print(f"  fused_attention_{kind}[{label}]: " + json.dumps(row))
     src = "ssl_audio_tpu_torch/csrc/fused_attention.cu"
     return [{"name": "fused_attention_fwd", "route": "cuda", "source": src,
              "replaces": "ssl_audio_tpu/ops/fused_attention.py:152",
              "max_abs_err": errs["fwd"], **rows["fwd"]["N=25"],
+             "timer": "ms: device_ms with the L2 flushed between launches (cold), ms_warm "
+                      "without; host_ms: the wrapper's host time per call",
              "library_is": "split + transpose of the raw qkv, scaled_dot_product_attention "
                            "on bf16 q, k, v with the additive mask",
              "token_drop": rows["fwd"]["N=7, token drop"]},
             {"name": "fused_attention_bwd", "route": "cuda", "source": src,
              "replaces": "ssl_audio_tpu/ops/fused_attention.py:187",
              "max_abs_err": errs["bwd"], **rows["bwd"]["N=25"],
-             "library_is": "the same yardstick forward and backward through autograd",
+             "library_is": "the same yardstick's backward alone (torch.autograd.grad of its "
+                           "output, forward run once); library_fwd_bwd_ms: forward and "
+                           "backward through autograd",
              "token_drop": rows["bwd"]["N=7, token drop"]}]
 
 

@@ -28,14 +28,27 @@ only with --fused_attention.
 The CUDA kernels (csrc/fused_attention.cu) replace the Pallas _fwd_kernel
 (:152) and _bwd_kernel (:187); the head packing into block-diagonal slabs
 and the 0/1 fold matmuls were a workaround for the TPU's matrix unit and are
-gone.  Each has a plain PyTorch version here with the same signature and the
-same rounding points: the CPU path and the kernels' oracle.  A wrapper takes
-the plain version only for a CPU tensor; for a CUDA tensor it launches the
-kernel or raises.
+gone.  A block takes G heads of one sample, staged from the raw qkv by
+cp.async and converted to bf16 once.  The scores and dP are fp32 FMA sums in
+the plain versions' order (so P and dS round to bf16 as here); the products
+with P and dS (P V, dQ, dK, dV) run on the tensor cores (mma.sync
+m16n8k16, bf16 operands, exact products, fp32 sums in another order).  A
+warp owns a 16-query tile for the softmax -- row max, then the row sum,
+then the normalised P, as the contract rounds it -- P V and dQ, or a 16-key
+tile for dK and dV, summed over every query inside the warp.  plan() picks
+G and the number R of 16-query tiles resident at once (all of them unless N
+is above 64); the kernels check the same layout.  The bias cotangent comes
+out per (sample, group of G heads) and is summed over the H / G groups here
+when G < H.  Each kernel has a plain PyTorch version here with the same
+signature and the same rounding points: the CPU path and the kernels'
+oracle.  A wrapper takes the plain version only for a CPU tensor; for a CUDA
+tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,10 +57,18 @@ from ssl_audio_tpu_torch.ops import _build
 MAX_SEQ = 256          # the JAX envelope (supports()); the kernels' shared memory holds
 MAX_PACKED = 1024      # K and V of one head at N <= 256, hd <= 128
 
+# the launch geometry of csrc/fused_attention.cu (layout(), warps_of())
+TILE = 16              # query / key rows per mma tile
+MAX_WARPS = 8
+SMEM_PER_BLOCK = 232448    # H100: the most dynamic shared memory a block may take
+ROWS_PER_BLOCK = 64        # padded query rows of the heads a block takes, at most (plan())
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fused_attention_fwd_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "fused_attention_bwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "fused_attention_fwd_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "fused_attention_bwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "fused_attention_smem_bytes": [_I, _I, _I, _I, _I],
+    "fused_attention_warps": [_I, _I, _I, _I],
 }
 
 
@@ -61,9 +82,92 @@ def supports(batch: int, seq: int, dim: int, heads: int) -> bool:
             and heads * seq <= MAX_PACKED and batch >= 1)
 
 
+@functools.lru_cache(maxsize=None)
 def _scale(dim: int, heads: int) -> float:
     """hd^-0.5 as the fp32 the kernels multiply by."""
     return float(torch.tensor((dim // heads) ** -0.5, dtype=torch.float32))
+
+
+def _pad(n: int) -> int:
+    return -(-n // TILE) * TILE
+
+
+def padded_head_dim(hd: int) -> int:
+    """The kernels' instantiation for head width hd: 32, 64 or 128 columns."""
+    return 32 if hd <= 32 else 64 if hd <= 64 else 128
+
+
+def launch_warps(seq: int, G: int, R: int, backward: bool) -> int:
+    """Warps per block: one per (head, query tile) of a round, and in the
+    backward one per (head, key tile), at most MAX_WARPS (warps loop over
+    the rest)."""
+    tasks = G * R
+    if backward:
+        tasks = max(tasks, G * (_pad(seq) // TILE))
+    return min(tasks, MAX_WARPS)
+
+
+def ring_slots(seq: int, hd: int, G: int, R: int, backward: bool) -> int:
+    """16-byte cp.async slots per thread: all of the first round's chunks of
+    k, q, v (and dO) where they fit in 32 KB, else as many as do."""
+    T = 32 * launch_warps(seq, G, R, backward)
+    cpr, rq = G * hd // 4, min(R * TILE, seq)
+    want = 2 * -(-seq * cpr // T) + (2 if backward else 1) * -(-rq * cpr // T)
+    return min(want, 2048 // T)
+
+
+def smem_bytes(seq: int, hd: int, G: int, R: int, backward: bool) -> int:
+    """Dynamic shared memory of one block: bf16 K and V of G heads (all keys,
+    rows padded to 16, row stride padded hd + 8) and q (and dO) for R query
+    tiles; the key bias (and the tiles' column sums of dS and the per-head
+    bias cotangent) in fp32; then the larger of the score rows of the
+    round's queries -- fp32 scores (and dP * P), stride N + 2; bf16 P (and
+    dS), stride N + 8 -- and the cp.async ring that overlays them."""
+    lds = padded_head_dim(hd) + 8
+    np_, rq = _pad(seq), R * TILE
+    bwd = 1 if backward else 0
+    tiles = 2 * (2 * G * np_ * lds + (1 + bwd) * G * rq * lds)
+    floats = np_ + bwd * (G * R * np_ + G * np_)
+    scores = G * rq * (1 + bwd) * (4 * (np_ + 2) + 2 * (np_ + 8))
+    ring = 16 * 32 * launch_warps(seq, G, R, backward) * ring_slots(seq, hd, G, R, backward)
+    return tiles + 4 * floats + max(scores, ring)
+
+
+class Plan(NamedTuple):
+    heads_per_block: int       # G, a divisor of H
+    rounds_tiles: int          # R: 16-query tiles resident at once
+    warps: int
+    smem: int                  # bytes per block
+    blocks: int
+
+
+def plan_for(batch: int, seq: int, heads: int, hd: int, backward: bool, G: int) -> Plan:
+    """The launch with G heads per block: the most query tiles per round
+    that fit in a block's shared memory."""
+    if heads % G:
+        raise ValueError(f"{G} heads per block do not divide {heads}")
+    for R in range(_pad(seq) // TILE, 0, -1):
+        smem = smem_bytes(seq, hd, G, R, backward)
+        if smem <= SMEM_PER_BLOCK:
+            return Plan(G, R, launch_warps(seq, G, R, backward), smem, batch * heads // G)
+    raise ValueError(f"no round of query tiles fits: N {seq}, hd {hd}, G {G}")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(batch: int, seq: int, heads: int, hd: int, backward: bool) -> Plan:
+    """G and R for one launch: the most heads per block whose padded query
+    rows stay within 64 (four warps on the query tiles) and whose block fits
+    with every query tile resident; else one head per block, with rounds of
+    query tiles where they do not all fit.  At the ViT-B step this is G = 2
+    at N = 25 and G = 4 at N = 7, the fastest or within 2 % of it among every
+    G timed on the card (tools/attention_sweep.py, PERF.md)."""
+    ntiles = _pad(seq) // TILE
+    for G in range(min(heads, ROWS_PER_BLOCK // _pad(seq)), 1, -1):
+        if heads % G == 0:
+            p = plan_for(batch, seq, heads, hd, backward, G)
+            if p.rounds_tiles == ntiles:
+                return p
+    return plan_for(batch, seq, heads, hd, backward, 1)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -139,12 +243,19 @@ def fused_attention_fwd_cuda(qkv: torch.Tensor, key_bias: torch.Tensor,
                              num_heads: int) -> torch.Tensor:
     """Launch the forward kernel: (B, N, C)."""
     dev, B, N, C = _require(qkv, key_bias, num_heads)
-    out = torch.empty(B, N, C, device=dev)
+    return _launch_fwd(qkv, key_bias, num_heads, plan(B, N, num_heads, C // num_heads, False))
+
+
+def _launch_fwd(qkv, key_bias, num_heads: int, p: Plan) -> torch.Tensor:
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    out = torch.empty(B, N, C, device=qkv.device)
     lib = _build.load("fused_attention.cu", _SIGNATURES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(qkv.device):
         code = lib.fused_attention_fwd_launch(
             qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), B, N, num_heads,
-            C // num_heads, _scale(C, num_heads), _build.stream_ptr(dev))
+            C // num_heads, _scale(C, num_heads), p.heads_per_block, p.rounds_tiles,
+            _build.stream_ptr(qkv.device))
     _build.check(code, "fused_attention_fwd_launch")
     fused_attention_fwd_cuda.launches += 1
     return out
@@ -156,21 +267,30 @@ fused_attention_fwd_cuda.launches = 0
 def fused_attention_bwd_cuda(qkv: torch.Tensor, key_bias: torch.Tensor,
                              dout: torch.Tensor, num_heads: int):
     """Launch the backward kernel: (dqkv (B, N, 3C), d key_bias (B, N)).  The
-    kernel writes the bias cotangent per (sample, head, key); the sum over
-    heads is a PyTorch reduction, in a fixed order."""
+    kernel writes the bias cotangent per (sample, group of G heads, key),
+    summed over its heads in a fixed order; where G < H the sum over the
+    groups is a PyTorch reduction, also in a fixed order."""
     dev, B, N, C = _require(qkv, key_bias, num_heads)
     _build.require(dout, "dout", (B, N, C), dev)
-    dqkv = torch.empty(B, N, 3 * C, device=dev)
-    dbias_heads = torch.empty(B, num_heads, N, device=dev)
+    return _launch_bwd(qkv, key_bias, dout, num_heads,
+                       plan(B, N, num_heads, C // num_heads, True))
+
+
+def _launch_bwd(qkv, key_bias, dout, num_heads: int, p: Plan):
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    groups = num_heads // p.heads_per_block
+    dqkv = torch.empty(B, N, C3, device=qkv.device)
+    dbias = torch.empty(B, groups, N, device=qkv.device)
     lib = _build.load("fused_attention.cu", _SIGNATURES)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(qkv.device):
         code = lib.fused_attention_bwd_launch(
             qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-            dbias_heads.data_ptr(), B, N, num_heads, C // num_heads,
-            _scale(C, num_heads), _build.stream_ptr(dev))
+            dbias.data_ptr(), B, N, num_heads, C // num_heads, _scale(C, num_heads),
+            p.heads_per_block, p.rounds_tiles, _build.stream_ptr(qkv.device))
     _build.check(code, "fused_attention_bwd_launch")
     fused_attention_bwd_cuda.launches += 1
-    return dqkv, dbias_heads.sum(dim=1)
+    return dqkv, (dbias[:, 0] if groups == 1 else dbias.sum(dim=1))
 
 
 fused_attention_bwd_cuda.launches = 0

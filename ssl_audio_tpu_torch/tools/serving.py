@@ -3,6 +3,10 @@ device-time profile of its requests on the card.
 
     python3 -m ssl_audio_tpu_torch.tools.serving [--seed 0] [--clips 16] [--timed N]
 
+Also the card's timing helpers: cuda_ms (events around back-to-back calls),
+device_ms (each call timed on the device alone, warm or with L2 flushed
+between calls) and host_ms (the host's enqueue time per call).
+
 Builds AudioNTT2022 at full width (64 mels, d = 3072, fp32, fused_conv=True)
 with random weights from a torch.Generator, answers one warm-up timestamp
 and scene request for `clips` seeded 10-s clips, then profiles one of each
@@ -37,8 +41,9 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20) -> float:
-    """Mean device milliseconds per call, CUDA events around `iters` calls
-    after 3 warm-up calls."""
+    """Mean milliseconds per call, CUDA events around `iters` calls after 3
+    warm-up calls.  Where a call's host work outlasts its kernels this times
+    the host: use device_ms for short kernels."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -50,6 +55,82 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_sleep_cycles_per_ms: list[float] = []
+_L2_FLUSH_BYTES = 128 << 20          # well above the H100's 50 MB L2
+
+
+def _cycles_per_ms() -> float:
+    """torch.cuda._sleep's spin cycles per device millisecond (measured once)."""
+    if not _sleep_cycles_per_ms:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(5_000_000)
+        end.record()
+        end.synchronize()
+        _sleep_cycles_per_ms.append(5_000_000 / start.elapsed_time(end))
+    return _sleep_cycles_per_ms[0]
+
+
+def _queued(fn, iters: int, flush: torch.Tensor | None) -> tuple[float, float]:
+    """Enqueue `iters` calls behind a spin kernel that outlasts the host's
+    enqueueing, each call between its own pair of CUDA events (after an L2
+    flush if `flush` is given).  -> (device ms per call: the mean of the
+    pairs, host ms per call: the enqueueing's wall time)."""
+    t0 = time.perf_counter()
+    fn()
+    if flush is not None:
+        flush.zero_()
+    guess_ms = (time.perf_counter() - t0) * 1e3 * iters
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    for attempt in range(4):
+        asleep = torch.cuda.Event(enable_timing=True)
+        awake = torch.cuda.Event(enable_timing=True)
+        asleep.record()
+        torch.cuda._sleep(int(_cycles_per_ms() * (2 * guess_ms + 1)))
+        awake.record()
+        t0 = time.perf_counter()
+        for start, end in pairs:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < asleep.elapsed_time(awake):      # the queue never ran dry
+            break
+        guess_ms = 2 * host_ms
+    else:
+        raise RuntimeError("the device caught up with the host: not a device time")
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters, host_ms / iters
+
+
+def device_ms(fn, iters: int = 20, cold: bool = False) -> float:
+    """Device milliseconds per call: after 3 warm-up calls, `iters` calls
+    queued behind a spin kernel (torch.cuda._sleep) long enough that the host
+    has enqueued them all before the device starts, each timed by its own
+    pair of CUDA events; so the host's per-call work is not in the time.
+    cold=True writes 128 MB between calls, so each call finds its inputs
+    out of the 50 MB L2 (as a training step does), outside the events."""
+    for _ in range(3):
+        fn()
+    flush = torch.empty(_L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
+    return _queued(fn, iters, flush)[0]
+
+
+def host_ms(fn, iters: int = 20) -> float:
+    """The host's milliseconds per call while the device is busy behind a
+    spin kernel: the wrapper's own work (argument checks, allocation,
+    launch), without waiting on the device."""
+    for _ in range(3):
+        fn()
+    return _queued(fn, iters, None)[1]
 
 
 def seeded_clips(gen: torch.Generator, n: int, samples: int) -> torch.Tensor:

@@ -300,6 +300,9 @@ def _attention_inputs(rng, B, N, C, masked):
 
 def _attention_close(got, want, what):
     scale = float(want.abs().max())
+    if scale == 0.0:               # N = 1: P = 1, so dS and what follows from it vanish
+        assert torch.equal(got, want), what
+        return
     assert float((got - want).abs().max()) <= BF16_SPACING * scale, what
     assert float((got - want).double().norm() / want.double().norm()) <= ATTN_REL_L2, what
 
@@ -344,3 +347,104 @@ def test_fused_attention_function_launches_both_kernels(dev, rng):
         (before[0] + 1, before[1] + 1)
     dqkv, dbias = fa.fused_attention_bwd_cuda(qkv, bias, dout, 3)
     assert torch.equal(x.grad, dqkv) and torch.equal(b.grad, dbias)
+
+
+def _edge_inputs(rng, B, N, C):
+    """The ViT's key-bias mask on most samples, and at the end one sample
+    with every key but CLS at -1e9 (rows with one live key) and one with
+    every key at -1e9 (fully masked rows: uniform over the N real keys)."""
+    qkv, bias, dout = _attention_inputs(rng, B, N, C, True)
+    bias[-1] = -1e9
+    if B > 1:
+        bias[-2, 1:] = -1e9
+    return qkv, bias, dout
+
+
+def _check_attention(dev, qkv, bias, dout, H, plan_fwd=None, plan_bwd=None):
+    """Both kernels (with the given launch plans, or plan()'s) against the
+    plain versions; two backward launches give the same bits; dk and dv are
+    bf16 values."""
+    C = qkv.shape[-1] // 3
+    qkv, bias, dout = (t.to(dev) for t in (qkv, bias, dout))
+    if plan_fwd is None:
+        out = fa.fused_attention_fwd_cuda(qkv, bias, H)
+        dqkv, dbias = fa.fused_attention_bwd_cuda(qkv, bias, dout, H)
+        again = fa.fused_attention_bwd_cuda(qkv, bias, dout, H)
+    else:
+        out = fa._launch_fwd(qkv, bias, H, plan_fwd)
+        dqkv, dbias = fa._launch_bwd(qkv, bias, dout, H, plan_bwd)
+        again = fa._launch_bwd(qkv, bias, dout, H, plan_bwd)
+    out_p = fa.fused_attention_fwd_plain(qkv, bias, H)
+    dqkv_p, dbias_p = fa.fused_attention_bwd_plain(qkv, bias, dout, H)
+    torch.cuda.synchronize()
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+    _attention_close(out, out_p, "out")
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _attention_close(dqkv[..., i * C:(i + 1) * C], dqkv_p[..., i * C:(i + 1) * C], name)
+    _attention_close(dbias, dbias_p, "dbias")
+    dkv = dqkv[..., C:]
+    assert torch.equal(dkv, dkv.bfloat16().float())
+
+
+@pytest.mark.parametrize("hd", [8, 32, 64, 128])
+@pytest.mark.parametrize("N", [1, 7, 8, 9, 16, 17, 32, 33, 64, 65, 256])
+def test_fused_attention_kernel_edges(dev, rng, N, hd):
+    """Query and key tiles cut at every place (N around 16 and 32, one key,
+    the envelope's 256), each padded head width, rows with one live key and
+    fully masked rows (B = 4: a one-ulp dk flip stays under 1e-4 of the
+    norm, see tests/test_torch_attention_tiles.py)."""
+    H = 2
+    _check_attention(dev, *_edge_inputs(rng, 4, N, H * hd), H)
+
+
+@pytest.mark.parametrize("N,H,hd", [(256, 4, 128), (256, 4, 8), (64, 16, 64), (128, 8, 128),
+                                    (32, 32, 32)])
+def test_fused_attention_kernels_at_the_envelope_edge(dev, rng, N, H, hd):
+    """H N = 1024: the most heads the envelope takes at each N; at N = 256,
+    hd = 128 the backward takes its query tiles in rounds."""
+    if (N, hd) == (256, 128):
+        assert fa.plan(4, N, H, hd, True).rounds_tiles < N // 16
+    _check_attention(dev, *_edge_inputs(rng, 4, N, H * hd), H)
+
+
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 6, 12])
+@pytest.mark.parametrize("N", [25, 7])
+def test_fused_attention_every_head_grouping(dev, rng, N, G):
+    """The ViT-B shapes with every choice of heads per block that fits a
+    block's shared memory (the backward's bias cotangent summed over the
+    H / G groups); a G that does not fit is refused by the plan."""
+    B, H, hd = 16, 12, 64
+    try:
+        plans = [fa.plan_for(B, N, H, hd, bwd, G) for bwd in (False, True)]
+    except ValueError:
+        assert fa.smem_bytes(N, hd, G, 1, True) > fa.SMEM_PER_BLOCK
+        return
+    _check_attention(dev, *_edge_inputs(rng, B, N, H * hd), H, *plans)
+
+
+def test_fused_attention_rounds_of_query_tiles(dev, rng):
+    """Forced rounds of one and three query tiles at N = 65 (dK, dV partials
+    added in device memory in order, rounded after the last round).  B = 16:
+    with three quarters of the keys masked, one dk element rounded the other
+    way must stay under 1e-4 of dk's norm."""
+    B, N, H, hd = 16, 65, 4, 64
+    for R in (1, 3):
+        plans = [fa.plan_for(B, N, H, hd, bwd, 2)._replace(rounds_tiles=R)
+                 for bwd in (False, True)]
+        _check_attention(dev, *_edge_inputs(rng, B, N, H * hd), H, *plans)
+
+
+def test_fused_attention_layout_matches_the_plan(dev):
+    """The kernels' shared-memory bytes and warps per block (C entry points
+    of the source) are those of the host's plan() formula."""
+    from ssl_audio_tpu_torch.ops import _build
+    lib = _build.load("fused_attention.cu", fa._SIGNATURES)
+    for N in (1, 7, 16, 25, 33, 65, 200, 256):
+        for hd in (8, 40, 64, 96, 128):
+            for G in (1, 2, 4):
+                for R in range(1, -(-N // 16) + 1):
+                    for bwd in (False, True):
+                        assert lib.fused_attention_smem_bytes(N, hd, G, R, int(bwd)) == \
+                            fa.smem_bytes(N, hd, G, R, bwd), (N, hd, G, R, bwd)
+                        assert lib.fused_attention_warps(N, G, R, int(bwd)) == \
+                            fa.launch_warps(N, G, R, bwd)
