@@ -16,7 +16,12 @@ Phases, each of which exits non-zero on failure:
      tensor-core bound beside the byte bound); the
      log-mel rows carry the tensor-core bound (three TF32 passes) beside the
      fp32 one, and both instantiations are held against the plain version in
-     float64 on 0.3 tones over a 1e-4 noise floor;
+     float64 on 0.3 tones over a 1e-4 noise floor; the fused conv rows
+     (forward eval at the serving chunk and in statistics mode at the
+     training shape, backward, dx) carry the device time cold and warm, the
+     grid (blocks, resident blocks per SM, waves), the forward's byte and
+     FMA bounds side by side, the backward's split per launch, and two
+     launches of each reduction giving the same bits;
   4. serving: AudioNTT2022 at full width (64 mels, d = 3072, fp32,
      fused_conv=True) with seeded random weights answers a timestamp request
      and a scene request for 16 seeded 10-s clips through the HEAR API; the
@@ -130,6 +135,37 @@ def mel_bounds(ops, frames: int, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "fp32_bound_ms": fp32, "fp32_bound_by": fp32_by,
             "dft_gflop": dft / 1e9}
+
+
+def both_bounds(flops: float, nbytes: float) -> dict:
+    """bound_ms / bound_by beside the two times they are the larger of."""
+    bound, by = bound_ms(flops, nbytes)
+    return {"bound_ms": bound, "bound_by": by, "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "ops_bound_ms": flops / PEAK_FP32_FLOPS * 1e3}
+
+
+def device_times(fn) -> dict:
+    """A kernel wrapper's device time, cold (the L2 flushed between calls)
+    and warm, and the older back-to-back CUDA-event mean."""
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms, device_ms
+
+    return {"ms": device_ms(fn, cold=True), "ms_warm": device_ms(fn),
+            "cuda_events_ms": cuda_ms(fn)}
+
+
+def conv_grid(B: int, H: int, W: int, backward: bool, eval_mode: bool = False) -> dict:
+    """The fused conv kernels' grid, resident blocks per SM and waves."""
+    from ssl_audio_tpu_torch.ops import _build
+    from ssl_audio_tpu_torch.ops import fused_conv as fc
+
+    blocks = fc.launch_plan(B, H, W).blocks
+    if backward:
+        per_sm = _build.load("fused_conv_bwd.cu", fc._BWD_SIGNATURES) \
+            .fused_conv1_bwd_blocks_per_sm()
+    else:
+        per_sm = _build.load("fused_conv_fwd.cu", fc._SIGNATURES) \
+            .fused_conv1_fwd_blocks_per_sm(int(eval_mode))
+    return {"blocks": blocks, "blocks_per_sm": per_sm, "waves": fc.waves(blocks, per_sm)}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -280,7 +316,7 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
     times at the same shape)."""
     from ssl_audio_tpu_torch.ops import fused_conv as fc
     from ssl_audio_tpu_torch.ops import no_tf32
-    from ssl_audio_tpu_torch.tools.serving import cuda_ms
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms, per_launch_ms
 
     B, H, W, C = TRAIN_BATCH, 64, TRAIN_FRAMES, 64
     x = (torch.round(torch.randn(B, H, W, generator=gen) * 2) / 2).to(dev)
@@ -296,7 +332,9 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
         pooled, mean, var = fc.fused_conv1_bn_relu_pool(x[..., None], kernel_hwio, bias,
                                                         gamma, beta)
     r = torch.rsqrt(var + 1e-5)
-    dp = torch.randn(B, H // 2, W // 2, C, generator=gen).to(dev)
+    # the cotangent in the forward's layout, (B, C, H/2, W/2) memory, as the
+    # Function hands it to the kernels
+    dp = torch.randn(B, C, H // 2, W // 2, generator=gen).to(dev).permute(0, 2, 3, 1)
     args = (x, wk, bias, gamma, mean, r, pooled, dp)
     n = float(x.numel())
 
@@ -363,10 +401,12 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
                                  4 * (x.numel() + 2 * pooled.numel() + 22 * C + 90))
     dx_bound, dx_by = bound_ms(96 * cells,
                                4 * (x.numel() + 2 * pooled.numel() + dy.numel() + 16 * C))
+    bwd_fn = lambda: fc.fused_conv1_bwd_cuda(*args)          # noqa: E731
     bwd_row = {
         "max_abs_err": bwd_err, "error_is": "largest sum error / that sum's largest value",
         "shape": f"x {(B, H, W)}, dpooled {tuple(dp.shape)} -> T1, T2, Sx, A1, A2, Gram",
-        "ms": cuda_ms(lambda: fc.fused_conv1_bwd_cuda(*args)),
+        **device_times(bwd_fn), "per_launch_ms": per_launch_ms(bwd_fn),
+        **conv_grid(B, H, W, backward=True),
         "plain_ms": cuda_ms(lambda: fc.fused_conv1_bwd_plain(*args), iters=5),
         "bound_ms": bwd_bound, "bound_by": bwd_by,
         "library_ms": cuda_ms(lambda: library(False)),
@@ -378,7 +418,7 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
     dx_row = {
         "max_abs_err": dy_err,
         "shape": f"x {(B, H, W)}, dpooled {tuple(dp.shape)} -> dy {tuple(dy.shape)}",
-        "ms": cuda_ms(lambda: fc.fused_conv1_dx_cuda(*args, sums[0], sums[1], n)),
+        **device_times(lambda: fc.fused_conv1_dx_cuda(*args, sums[0], sums[1], n)),
         "plain_ms": cuda_ms(lambda: fc.fused_conv1_dx_plain(*args, sums[0], sums[1], n),
                             iters=5),
         "bound_ms": dx_bound, "bound_by": dx_by,
@@ -399,7 +439,8 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
             != (1, 1, 0) or with_dx["fused_conv1_dx"] != 1:
         raise SystemExit("the Function did not launch its kernels as expected")
     # the forward kernel in its statistics mode at this shape, as the step runs it
-    fwd_bound, fwd_by = bound_ms(19 * 4 * cells, 4 * (x.numel() + pooled.numel() + 20 * C))
+    fwd_bounds = both_bounds(19 * 4 * cells, 4 * (x.numel() + pooled.numel() + 20 * C))
+
     def library_fwd():
         with no_tf32():
             y = torch.nn.functional.conv2d(x[:, None], w4, bias, padding=1)
@@ -408,9 +449,11 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
             return torch.nn.functional.max_pool2d(torch.relu(z), 2)
 
     fwd_row = {"shape": f"{(B, H, W)} -> sel {tuple(pooled.shape)}, s1, s2",
-               "ms": cuda_ms(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
+               **device_times(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
+               "per_launch_ms": per_launch_ms(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
+               **conv_grid(B, H, W, backward=False),
                "plain_ms": cuda_ms(lambda: fc.fused_conv1_fwd_plain(x, wk, bias, gamma)),
-               "bound_ms": fwd_bound, "bound_by": fwd_by,
+               **fwd_bounds,
                "library_ms": cuda_ms(library_fwd),
                "library_is": "cuDNN conv2d + batch_norm(training=True) + relu + max_pool2d, "
                              "forward, TF32 off"}
@@ -575,7 +618,7 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     from ssl_audio_tpu_torch.ops import no_tf32
     from ssl_audio_tpu_torch.ops.fused_conv import (
         fused_conv1_bn_relu_pool_eval, fused_conv1_fwd_cuda,
-        fused_conv1_fwd_plain)
+        fused_conv1_fwd_plain, nchw_memory)
     from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_plain
     from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
     from ssl_audio_tpu_torch.tools.serving import cuda_ms, seeded_clips
@@ -627,9 +670,12 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     kernel_hwio = wk.reshape(3, 3, 1, C)
 
     sel, s1, s2 = fused_conv1_fwd_cuda(x, wk, bias, gamma)
+    again = fused_conv1_fwd_cuda(x, wk, bias, gamma)
     sel_p, s1_p, s2_p = fused_conv1_fwd_plain(x, wk, bias, gamma)
     ev = fused_conv1_bn_relu_pool_eval(x[..., None], kernel_hwio, bias, gamma,
                                        beta, mean, var)
+    # the eval kernel as the wrapper launches it, with its statistics precomputed
+    stats = torch.stack([mean, torch.rsqrt(var + 1e-5), beta]).contiguous()
 
     def plain_eval():
         sp, _, _ = fused_conv1_fwd_plain(x, wk, bias, gamma)
@@ -637,6 +683,11 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
 
     ev_p = plain_eval()
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((sel, s1, s2), again)):
+        raise SystemExit("fused_conv1_fwd: two launches gave different bits")
+    if not (nchw_memory(sel) and nchw_memory(ev)):
+        raise SystemExit("fused_conv1_fwd: the output is not (B, C, H/2, W/2) in memory")
+    print("  fused_conv1_fwd: two launches give the same bits; output (B, C, H/2, W/2) in memory")
     check(f"fused_conv1_fwd sel ({B} x {H} x {W})", max_err(sel, sel_p), CONV_ATOL,
           "cuDNN fp32 conv algorithm rounding")
     for name, a, b in (("s1", s1, s1_p), ("s2", s2, s2_p)):
@@ -658,17 +709,22 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     lib_conv_err = max_err(library_conv().permute(0, 2, 3, 1), ev_p)
     conv_flops = 19 * B * H * W * C + 7 * B * (H // 2) * (W // 2) * C
     conv_bytes = 4 * (x.numel() + ev.numel() + 14 * C)
-    bound, by = bound_ms(conv_flops, conv_bytes)
+    stats_mode = device_times(lambda: fused_conv1_fwd_cuda(x, wk, bias, gamma))
     conv_row = {
         "max_abs_err": max(conv_err, max_err(sel, sel_p)),
         "shape": f"{(B, H, W)} -> {tuple(ev.shape)}, eval epilogue fused",
+        "layout": "(B, C, H/2, W/2) in memory, a (B, H/2, W/2, C) view",
         "library_max_abs_err": lib_conv_err,
-        "ms": cuda_ms(lambda: fused_conv1_bn_relu_pool_eval(
+        **device_times(lambda: fused_conv1_fwd_cuda(x, wk, bias, gamma, stats)),
+        "function_ms": cuda_ms(lambda: fused_conv1_bn_relu_pool_eval(
             x[..., None], kernel_hwio, bias, gamma, beta, mean, var)),
-        "plain_ms": cuda_ms(plain_eval), "bound_ms": bound, "bound_by": by,
+        **conv_grid(B, H, W, backward=False, eval_mode=True),
+        "plain_ms": cuda_ms(plain_eval), **both_bounds(conv_flops, conv_bytes),
         "library_ms": cuda_ms(library_conv),
-        "stats_mode_ms": cuda_ms(lambda: fused_conv1_fwd_cuda(x, wk, bias, gamma)),
+        "stats_mode_ms": stats_mode["ms"], "stats_mode_ms_warm": stats_mode["ms_warm"],
         "stats_mode_plain_ms": cuda_ms(lambda: fused_conv1_fwd_plain(x, wk, bias, gamma)),
+        "timer": "ms: device_ms with the L2 flushed between launches (cold), ms_warm without; "
+                 "cuda_events_ms: the mean of back-to-back launches",
     }
     print("  fused_conv1_fwd[eval]: " + json.dumps(conv_row))
     bwd_rows, fwd_train_row = backward_rows(gen, dev)

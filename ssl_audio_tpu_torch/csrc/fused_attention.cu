@@ -37,16 +37,19 @@
 //     missed the kernels' 1e-4 relative-L2 limit on small batches (PERF.md,
 //     PR 5).  A thread owns 4 rows x 4 keys of a 16 x 32 block: 8 rows
 //     loaded per 16 sums, where an mma C fragment's 2 x 4 loads 6 per 8.
-//   * The products with P and dS -- O = bf16(P) V, dQ = bf16(dS) K,
-//     dV = bf16(P)^T dO, dK = bf16(dS)^T q -- run on the tensor cores:
-//     mma.sync.m16n8k16 bf16 -> fp32, not wgmma.  wgmma takes 64-row tiles;
-//     a head has 25 query rows on the main path (7 for the token-drop
+//   * The products O = bf16(P) V and dQ = bf16(dS) K run on the tensor
+//     cores: mma.sync.m16n8k16 bf16 -> fp32, not wgmma.  wgmma takes 64-row
+//     tiles; a head has 25 query rows on the main path (7 for the token-drop
 //     teacher) and its own K, so a 64-row tile would be at least 60 %
 //     padding.  m16n8k16 pads 25 to 32 queries and keys (7 to 16).  The
 //     operands are bf16, so every product is exact.  P and dS are written to
 //     shared memory in bf16 and every operand comes by ldmatrix (.trans
 //     where it is needed transposed), from rows padded by 16 bytes: eight
 //     rows of an 8x8 matrix fall in 32 distinct banks.
+//   * dV = bf16(P)^T dO and dK = bf16(dS)^T q, which the contract rounds to
+//     bf16, are fp32 FMA sums over queries in order on the CUDA cores, the
+//     plain version's order: the tensor cores' order let a dk element round
+//     to the other bf16 neighbour, 1.1e-4 of dk's norm at B = 2.
 //   * A warp owns (head, 16-query tile) for the softmax, P V and dQ.  The
 //     contract rounds the normalised P to bf16 before P V, so FlashAttention's
 //     online softmax (normalise O after P V) is out: the warp stores the
@@ -59,12 +62,12 @@
 //     the D = rowsum(dO * O) shortcut would centre otherwise),
 //     dS = dP * P - P * c, bf16(P) and bf16(dS) to shared memory with the
 //     tile's column sums of dS, dQ = bf16(dS) K.  Phase B per (head, 16-key
-//     tile): dV += bf16(P)^T dO and dK += bf16(dS)^T q, every query of the
-//     round summed inside the warp in a fixed order.  K and V stay resident;
-//     q and dO come in rounds of R query tiles only where all of them do not
-//     fit (N above 64): each dK, dV element's owning thread then adds its
-//     round's partial to the output in device memory and rounds after the
-//     last round.
+//     tile): dV += bf16(P)^T dO and dK += bf16(dS)^T q, the queries in
+//     order inside the warp.  K and V stay resident; q and dO come in rounds
+//     of R query tiles only where all of them do not fit (N above 64): each
+//     dK, dV element's owning thread then keeps its running sum in the
+//     output in device memory between rounds, continues it in the next, and
+//     rounds after the last round.
 //   * The bias cotangent is summed over queries tile by tile, then over the
 //     block's G heads, in a fixed order, and written per (sample, head
 //     group, key); with G = H that is (B, N).  No float atomics anywhere:
@@ -210,13 +213,6 @@ __device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 
 // ldmatrix.x4: as an A operand (matrices: rows 0-7 / 8-15, then cols 8-15)
 __device__ __forceinline__ const bf16* a_addr(const bf16* t, int lds, int lane) {
   return t + ((lane & 7) + ((lane >> 3) & 1) * 8) * lds + (lane >> 4) * 8;
-}
-
-// ... with .trans, as the A operand that is the transpose of a 16 x 16 tile
-// stored by rows (P^T, dS^T: matrices rows 0-7 / cols 0-7, rows 0-7 / cols
-// 8-15, rows 8-15 / cols 0-7, rows 8-15 / cols 8-15)
-__device__ __forceinline__ const bf16* bn_addr(const bf16* t, int lds, int lane) {
-  return t + ((lane & 7) + ((lane >> 4) & 1) * 8) * lds + ((lane >> 3) & 1) * 8;
 }
 
 // ... as the B operand (with .trans) of two n8 tiles whose k runs along the
@@ -557,64 +553,68 @@ __device__ __forceinline__ void store_rows(float* dst, int ld, const float (&acc
   }
 }
 
-template <int HDP>
-__device__ __forceinline__ void zero_acc(float (&acc)[HDP / 8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < HDP / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-}
-
-// dK or dV of one key tile: with one round, acc * mul rounded to bf16; with
-// several, each element's owner adds its round's partial sum to the output
-// and rounds after the last round
-template <int HDP>
-__device__ __forceinline__ void store_keys(float* dst, int ld, const float (&acc)[HDP / 8][4],
-                                           int rows, int hd, int lane, float mul, bool first,
-                                           bool last) {
-  if (first && last) {
-    store_rows<HDP>(dst, ld, acc, rows, hd, lane, mul, true);
-    return;
-  }
-  const int g = lane >> 2, q4 = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < HDP / 8; ++nt) {
-    const int col = nt * 8 + 2 * q4;
-    if (col >= hd) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = g + 8 * h;
-      if (r >= rows) continue;
-      float2* p = reinterpret_cast<float2*>(dst + (size_t)r * ld + col);
-      float2 v = make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-      if (!first) {
-        const float2 prev = *p;
-        v.x = __fadd_rn(prev.x, v.x);
-        v.y = __fadd_rn(prev.y, v.y);
-      }
-      if (last) {
-        v.x = round_bf16(__fmul_rn(v.x, mul));
-        v.y = round_bf16(__fmul_rn(v.y, mul));
-      }
-      *p = v;
-    }
-  }
-}
-
-// Backward phase B: key tile kt against the round's query tiles (q_valid
-// real rows): dV += bf16(P)^T dO and dK += bf16(dS)^T q, the A operands by
-// ldmatrix.trans from the round's P and dS rows (stride ls)
-template <int HDP>
+// Backward phase B: dV = bf16(P)^T dO and dK = bf16(dS)^T q for key tile kt
+// of one head, fp32 FMA over the round's queries in order (i = 0, 1, ...):
+// the plain version's order (ops/fused_attention.py _sum_over_queries), so
+// the sums are its sums bit for bit and round to the same bf16 values.  On
+// the tensor cores the same sums come out in another order, and a dk element
+// rounded to the other bf16 neighbour was 1.1e-4 of dk's norm at N = 256,
+// B = 2 (PERF.md).  Lane (kq, cq) = (lane / 8, lane % 8) owns keys
+// 4 kq .. 4 kq + 3 and columns c0 + 4 cq .. + 3 of each 32-column chunk c0.
+// With several rounds the running sums go to the output in device memory
+// after each round, exactly, and the next round continues from them; after
+// the last, dK is scaled and both are rounded to bf16.
 __device__ __forceinline__ void bwd_keys(const bf16* q, const bf16* dout, int lds, int hd,
                                          int lane, int kt, const bf16* p_rows,
-                                         const bf16* ds_rows, int ls, int q_valid,
-                                         float (&dk)[HDP / 8][4], float (&dv)[HDP / 8][4]) {
-  for (int qt = 0; qt * QT < q_valid; ++qt) {
-    uint32_t pa[4], dsa[4];
-    ldsm_x4_t(pa, bn_addr(p_rows + qt * QT * ls + kt * QT, ls, lane));
-    ldsm_x4_t(dsa, bn_addr(ds_rows + qt * QT * ls + kt * QT, ls, lane));
-    mma_rows<HDP>(dv, pa, dout + qt * QT * lds, lds, hd, lane);
-    mma_rows<HDP>(dk, dsa, q + qt * QT * lds, lds, hd, lane);
+                                         const bf16* ds_rows, int ls, int q_valid, int keys,
+                                         float* dst, int ld, int C, float scale, bool first,
+                                         bool last) {
+  const int kq = lane >> 3, cq = lane & 7;
+  const bf16* pr = p_rows + kt * QT + 4 * kq;
+  const bf16* sr = ds_rows + kt * QT + 4 * kq;
+  for (int c0 = 0; c0 < hd; c0 += 32) {
+    const int col = c0 + 4 * cq;
+    if (col >= hd) continue;
+    float dk[4][4], dv[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = k4;
+      if (!first && 4 * kq + a < keys) {
+        const float* o = dst + (size_t)(4 * kq + a) * ld + col;
+        k4 = *reinterpret_cast<const float4*>(o);
+        v4 = *reinterpret_cast<const float4*>(o + C);
+      }
+      dk[a][0] = k4.x; dk[a][1] = k4.y; dk[a][2] = k4.z; dk[a][3] = k4.w;
+      dv[a][0] = v4.x; dv[a][1] = v4.y; dv[a][2] = v4.z; dv[a][3] = v4.w;
+    }
+    for (int i = 0; i < q_valid; ++i) {
+      float pv[4], sv[4], x[4], y[4];
+      unpack4(*reinterpret_cast<const uint2*>(pr + i * ls), pv);
+      unpack4(*reinterpret_cast<const uint2*>(sr + i * ls), sv);
+      unpack4(*reinterpret_cast<const uint2*>(q + i * lds + col), x);
+      unpack4(*reinterpret_cast<const uint2*>(dout + i * lds + col), y);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dv[a][e] = fmaf(pv[a], y[e], dv[a][e]);
+          dk[a][e] = fmaf(sv[a], x[e], dk[a][e]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (4 * kq + a >= keys) continue;
+      if (last) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk[a][e] = round_bf16(__fmul_rn(dk[a][e], scale));
+          dv[a][e] = round_bf16(dv[a][e]);
+        }
+      }
+      float* o = dst + (size_t)(4 * kq + a) * ld + col;
+      *reinterpret_cast<float4*>(o) = make_float4(dk[a][0], dk[a][1], dk[a][2], dk[a][3]);
+      *reinterpret_cast<float4*>(o + C) = make_float4(dv[a][0], dv[a][1], dv[a][2], dv[a][3]);
+    }
   }
 }
 
@@ -782,15 +782,10 @@ fused_attention_bwd_kernel(const float* __restrict__ qkv,    // (B, N, 3C)
     // phase B: dK, dV per (head, key tile)
     for (int t = k.warp; t < G * nkt; t += k.W) {
       const int gl = t / nkt, kt = t - gl * nkt;
-      float dk[HDP / 8][4], dv[HDP / 8][4];
-      zero_acc<HDP>(dk);
-      zero_acc<HDP>(dv);
-      bwd_keys<HDP>(sq + gl * L.rq * L.lds, sd + gl * L.rq * L.lds, L.lds, hd, k.lane, kt,
-                    sp + gl * L.rq * L.lsb, sds + gl * L.rq * L.lsb, L.lsb, q_valid, dk, dv);
-      const int rows = min(QT, N - kt * QT);
-      float* dst = dx + (size_t)(kt * QT) * C3 + C + (k.h0 + gl) * hd;
-      store_keys<HDP>(dst, C3, dk, rows, hd, k.lane, scale, first, last);
-      store_keys<HDP>(dst + C, C3, dv, rows, hd, k.lane, 1.f, first, last);
+      bwd_keys(sq + gl * L.rq * L.lds, sd + gl * L.rq * L.lds, L.lds, hd, k.lane, kt,
+               sp + gl * L.rq * L.lsb, sds + gl * L.rq * L.lsb, L.lsb, q_valid,
+               min(QT, N - kt * QT), dx + (size_t)(kt * QT) * C3 + C + (k.h0 + gl) * hd, C3,
+               C, scale, first, last);
     }
   }
   __syncthreads();

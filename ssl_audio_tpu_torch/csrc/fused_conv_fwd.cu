@@ -5,133 +5,154 @@
 // behind _fwd_call (sel, s1, s2) and, with the epilogue fused, the eval block
 // fused_conv1_bn_relu_pool_eval.  The TPU kernel's X16 flat-shift layout,
 // its zeroed garbage lanes and the closed-form bias correction are Mosaic
-// layout workarounds and are not carried over: here a block stages a padded
-// input tile in shared memory and reads the 4x4 input patch of each 2x2
-// window straight from it.
+// layout workarounds and are not carried over.
 //
 // x (B, H, W), H and W even, 3x3 kernel wk (9, C) tap-major, bias (C,),
 // gamma (C,).  For every window cell (i, j) and channel c the kernel
 // computes the four conv outputs y of the window's corners, then
-//   sel[b, i, j, c] = max of the four where gamma[c] > 0, min otherwise
+//   sel[b, c, i, j] = max of the four where gamma[c] > 0, min otherwise
 //                     (gamma == 0 takes the min, as the TPU kernel does);
 //   EVAL=false: writes sel, and per-block partial sums of y and y*y over all
-//               four corners; a second small kernel reduces the partials in
-//               a fixed order, so s1 = sum(y), s2 = sum(y^2) are deterministic;
-//   EVAL=true:  writes relu(gamma * (sel - mean) * r + beta), r =
-//               rsqrt(running var + eps) from the host, and no sums.
+//               four corners; reduce_columns_kernel adds the partials in a
+//               fixed order, so s1 = sum(y), s2 = sum(y^2) are deterministic
+//               (no float atomics);
+//   EVAL=true:  writes relu(a * sel + b), a = gamma r, b = beta - a mean,
+//               r = rsqrt(running var + eps) from the host, and no sums.
 // The monotone BN affine and ReLU commute with the sign-aware extreme, so
 // the (B, H, W, C) conv activation never exists, in memory or in registers.
 //
-// C = 64 channels (AudioNTT's base width), a compile-time constant.
-// Thread map: thread = (channel c, row group g), 4 row groups.  A warp holds
-// 32 consecutive channels of one window cell, so each store is one contiguous
-// 128-byte segment of the channels-last output, every thread keeps its own
-// channel's 9 weights and running sums in registers, and all lanes of a warp
-// read the same input value from shared memory (a broadcast).  Along a row
-// the 4x4 patch slides by two columns, so each cell loads 8 new values.
+// Output layout (B, C, H/2, W/2), channel-major like the TPU kernel's own
+// sel: the NCHW tensor AudioNTT's block-2 cuDNN convolution reads, so no
+// layout conversion runs between the two blocks.  The wrapper hands it out
+// as a (B, H/2, W/2, C) view, the JAX function's shape.
 //
-// Bound on the H100: bytes.  The pooled output (B, H/2, W/2, C) fp32 is 16x
-// the input for C = 64; at 36 FMA per output value the work is ~9 FLOP per
-// byte written, under the card's fp32 ridge of ~20 FLOP/byte.
+// Bounds on the H100 (the output is 16x the input for C = 64): at one
+// serving chunk, x (512, 64, 96), bytes 213.9 MB = 0.0639 ms at 3.35 TB/s
+// against 4.18 GFLOP of fp32 FMA = 0.0624 ms at 67 TFLOP/s; at the training
+// shape (128, 64, 96) in statistics mode, bytes 0.0160 ms and FMA 0.0143 ms.
+// The two nearly tie, so the FP32 pipes and the store path must both be
+// busy.  The tensor cores do not pay here: Cin = 1 gives a product depth of
+// 9 taps, fp32 accuracy takes three TF32 passes over it padded to 12 or 16
+// (4-5x the FMA work at 7.4x the rate, with mma.sync at about half its
+// peak), and it would change y's bits, which the backward recomputes.
+//
+// Design (common header): a thread holds the 4 x 10 input patch of 4
+// consecutive window cells in registers, loaded once, and walks the 64
+// channels; a channel's 9 weights, bias and epilogue constants are four
+// 16-byte shared-memory broadcasts, so ~43 instructions are issued per 36
+// conv FMA (a thread per channel that re-reads the patch from shared memory
+// per cell issued ~60-65).  Stores: the thread's 4 outputs of a channel are
+// one 16-byte store, a warp's 512 contiguous bytes of one channel plane;
+// the store queue drains while the thread computes the next channel, so no
+// staging in shared memory is needed for the stores to overlap the FMAs.
+// Blocks of 128 threads: 1,536 at the serving chunk, 384 at the training
+// shape.  Four threads to a group, each with a quarter of the channels
+// (four times the warps), measured no faster (PERF.md).  The statistics
+// mode takes the extreme as a max of s y (common header).
 #include "fused_conv_common.cuh"
 
 namespace {
 
-using namespace fused_conv;   // C, the tile constants, staging and the conv recompute
+using namespace fused_conv;
+
+// A thread's outputs of one channel: one 16-byte store where its group is
+// whole and W/2 a multiple of 4, else one store per valid cell.
+__device__ __forceinline__ void store_cells(float* oc, const float (&sel)[CELLS], bool vec,
+                                            int n) {
+  if (vec) {
+    *reinterpret_cast<float4*>(oc) = make_float4(sel[0], sel[1], sel[2], sel[3]);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < CELLS; ++k)
+    if (k < n) oc[k] = sel[k];
+}
 
 template <bool EVAL>
-__global__ void __launch_bounds__(THREADS)
-fused_conv1_fwd_kernel(const float* __restrict__ x, int H, int W,
+__global__ void __launch_bounds__(TPB)
+fused_conv1_fwd_kernel(const float* __restrict__ x, int B, int H, int W,
                        const float* __restrict__ wk,      // (9, C)
                        const float* __restrict__ bias,    // (C,)
                        const float* __restrict__ gamma,   // (C,)
                        const float* __restrict__ stats,   // EVAL: (3, C) mean, rsqrt(var+eps), beta
-                       float* __restrict__ out,           // (B, H/2, W/2, C)
-                       float* __restrict__ partials) {    // !EVAL: (2, n_blocks, C)
-  __shared__ float xs[TROWS * TCOLS];
-  __shared__ float red[2 * THREADS];
+                       float* __restrict__ out,           // (B, C, H/2, W/2)
+                       float* __restrict__ partials) {    // !EVAL: (n_blocks, 2, C)
+  // per channel: w0-3, w4-7, (w8, bias, gamma, 0), (a, b, 0, 0); in the
+  // statistics mode times the channel's sign s (common header), with s in
+  // place of gamma
+  __shared__ float4 cw[C][4];
+  __shared__ float red[2][WARPS][C];
 
-  const int h2 = H / 2, w2 = W / 2;
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * R, j0 = blockIdx.x * CW;
-  const int tid = threadIdx.x;
-  const int c = tid % C, g = tid / C;
-
-  const float* xb = x + static_cast<size_t>(b) * H * W;
-  stage_tile(xb, H, W, i0, j0, xs);
-  float w[9];
-#pragma unroll
-  for (int s = 0; s < 9; ++s) w[s] = wk[s * C + c];
-  const float bc = bias[c];
-  const bool pos = gamma[c] > 0.f;
-  float a_scale = 0.f, a_mean = 0.f, a_beta = 0.f;
-  if (EVAL) {
-    a_mean = stats[c];
-    a_scale = stats[C + c];
-    a_beta = stats[2 * C + c];
+  for (int c = threadIdx.x; c < C; c += TPB) {
+    const float g = gamma[c], s = EVAL ? 1.f : channel_sign(g);
+    float a = 0.f, b = 0.f;
+    if (EVAL) {
+      a = g * stats[C + c];
+      b = fmaf(-a, stats[c], stats[2 * C + c]);
+    }
+    cw[c][0] = make_float4(s * wk[0 * C + c], s * wk[1 * C + c], s * wk[2 * C + c],
+                           s * wk[3 * C + c]);
+    cw[c][1] = make_float4(s * wk[4 * C + c], s * wk[5 * C + c], s * wk[6 * C + c],
+                           s * wk[7 * C + c]);
+    cw[c][2] = make_float4(s * wk[8 * C + c], s * bias[c], EVAL ? g : s, 0.f);
+    cw[c][3] = make_float4(a, b, 0.f, 0.f);
   }
-  const float gc = gamma[c];
+  const Group gr = group_of(B, H, W);
+  float p[4][PW];
+  load_patch(x, H, W, gr, p);
   __syncthreads();
 
-  float s1 = 0.f, s2 = 0.f;
-  for (int il = g; il < R && i0 + il < h2; il += GROUPS) {
-    const float* row = xs + 2 * il * TCOLS;
-    float p[4][4];
-    patch_begin(row, p);
-    float* o = out + ((static_cast<size_t>(b) * h2 + i0 + il) * w2 + j0) * C + c;
-    for (int jl = 0; jl < CW && j0 + jl < w2; ++jl) {
-      patch_slide(row, jl, p);
+  const int h2 = H / 2, w2 = W / 2, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t plane = static_cast<size_t>(h2) * w2;
+  float* o = out + (static_cast<size_t>(gr.b) * C * h2 + gr.i) * w2 + gr.j0;
+  const bool vec = gr.n == CELLS && w2 % 4 == 0;
+
+#pragma unroll 1
+  for (int c = 0; c < C; ++c) {
+    const float4 q0 = cw[c][0], q1 = cw[c][1], q2 = cw[c][2];
+    const float w[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
+    const float bc = q2.y, sgn = q2.z;  // EVAL: gamma; else the sign s
+    float sel[CELLS];                   // EVAL: the extreme; else max(s y)
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < CELLS; ++k) {
       float v[4];
-      conv_corners(p, w, bc, v);
-      const float sel = window_extreme(v, pos);
-      if (EVAL) {
-        o[static_cast<size_t>(jl) * C] =
-            fmaxf(gc * (sel - a_mean) * a_scale + a_beta, 0.f);
-      } else {
-        o[static_cast<size_t>(jl) * C] = sel;
+      cell_corners(p, w, bc, k, v);
+      sel[k] = EVAL ? window_extreme(v, sgn > 0.f) : corners_max(v);
+      if (!EVAL && k < gr.n) {
         s1 += (v[0] + v[1]) + (v[2] + v[3]);
-        s2 += (v[0] * v[0] + v[1] * v[1]) + (v[2] * v[2] + v[3] * v[3]);
+        s2 += fmaf(v[0], v[0], v[1] * v[1]) + fmaf(v[2], v[2], v[3] * v[3]);
       }
+    }
+    if (EVAL) {
+      const float4 q3 = cw[c][3];
+#pragma unroll
+      for (int k = 0; k < CELLS; ++k) sel[k] = fmaxf(fmaf(q3.x, sel[k], q3.y), 0.f);
+    } else {                            // s max(s y) and the sum of s y, negated back: exact
+#pragma unroll
+      for (int k = 0; k < CELLS; ++k) sel[k] *= sgn;
+      s1 *= sgn;
+    }
+    store_cells(o + c * plane, sel, vec, gr.n);
+    if (!EVAL) {
+      // lanes 0 .. 15 end with the warp's s1, lanes 16 .. 31 with its s2
+      float s12[2] = {s1, s2};
+      const int which = warp_reduce_scatter(s12, lane);
+      if ((lane & 15) == 0) red[which][warp][c] = s12[0];
     }
   }
 
   if (!EVAL) {
-    red[tid] = s1;
-    red[THREADS + tid] = s2;
     __syncthreads();
-    if (g == 0) {
-      float t1 = 0.f, t2 = 0.f;
+    // the block's partials: its warps in order
+    for (int k = threadIdx.x; k < 2 * C; k += TPB) {
+      const int s = k / C, c = k - s * C;
+      float acc = 0.f;
 #pragma unroll
-      for (int k = 0; k < GROUPS; ++k) {
-        t1 += red[k * C + c];
-        t2 += red[THREADS + k * C + c];
-      }
-      const size_t n_blocks = static_cast<size_t>(gridDim.x) * gridDim.y * gridDim.z;
-      const size_t blk = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
-                         gridDim.x + blockIdx.x;
-      partials[blk * C + c] = t1;
-      partials[(n_blocks + blk) * C + c] = t2;
+      for (int wp = 0; wp < WARPS; ++wp) acc += red[s][wp][c];
+      partials[static_cast<size_t>(blockIdx.x) * 2 * C + k] = acc;
     }
   }
-}
-
-// One block per (channel, statistic): strided sums then a fixed-order tree.
-__global__ void __launch_bounds__(THREADS)
-reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
-                       float* __restrict__ sums) {   // (2, C): s1, s2
-  __shared__ float buf[THREADS];
-  const int c = blockIdx.x, which = blockIdx.y;
-  const float* p = partials + static_cast<size_t>(which) * n_blocks * C + c;
-  float acc = 0.f;
-  for (int k = threadIdx.x; k < n_blocks; k += THREADS)
-    acc += p[static_cast<size_t>(k) * C];
-  buf[threadIdx.x] = acc;
-  __syncthreads();
-  for (int half = THREADS / 2; half > 0; half /= 2) {
-    if (threadIdx.x < half) buf[threadIdx.x] += buf[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) sums[which * C + c] = buf[0];
 }
 
 }  // namespace
@@ -139,43 +160,48 @@ reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
 extern "C" {
 
 // Blocks the forward launches for (B, H, W); the wrapper sizes the
-// partial-sum scratch (2, n_blocks, C) with it.
-int fused_conv1_fwd_blocks(int B, int H, int W) {
-  return ((W / 2 + CW - 1) / CW) * ((H / 2 + R - 1) / R) * B;
+// partial-sum scratch (n_blocks, 2, C) with it.
+int fused_conv1_fwd_blocks(int B, int H, int W) { return n_blocks(B, H, W); }
+
+// Resident blocks per SM of the eval (eval != 0) or statistics kernel, from
+// its registers and shared memory (what the card reports).
+int fused_conv1_fwd_blocks_per_sm(int eval) {
+  int n = 0;
+  if (eval)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_conv1_fwd_kernel<true>, TPB, 0);
+  else
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_conv1_fwd_kernel<false>, TPB, 0);
+  return n;
 }
 
 // c_out must equal C.  eval != 0: stats = (3, C) running mean,
 // rsqrt(running var + eps), beta; out = the eval block's pooled activation;
 // partials and sums unused.
-// eval == 0: stats unused; out = sel; partials (2, n_blocks, C) scratch;
-// sums (2, C) = s1, s2.
+// eval == 0: stats unused; out = sel; partials (n_blocks, 2, C) scratch;
+// sums (2, C) = s1, s2.  out is (B, C, H/2, W/2) either way.
 int fused_conv1_fwd_launch(const void* x, int B, int H, int W, const void* wk,
                            const void* bias, const void* gamma,
                            const void* stats, void* out, void* partials,
                            void* sums, int c_out, int eval, void* stream) {
-  if (H % 2 || W % 2 || c_out != C) return cudaErrorInvalidValue;
+  if (H % 2 || W % 2 || c_out != C || B < 1) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W / 2 + CW - 1) / CW, (H / 2 + R - 1) / R, B);
+  const int blocks = n_blocks(B, H, W);
   auto xp = static_cast<const float*>(x);
   auto wp = static_cast<const float*>(wk);
   auto bp = static_cast<const float*>(bias);
   auto gp = static_cast<const float*>(gamma);
-  auto sp = static_cast<const float*>(stats);
   auto op = static_cast<float*>(out);
-  auto pp = static_cast<float*>(partials);
   if (eval) {
-    fused_conv1_fwd_kernel<true><<<grid, THREADS, 0, s>>>(
-        xp, H, W, wp, bp, gp, sp, op, nullptr);
+    fused_conv1_fwd_kernel<true><<<blocks, TPB, 0, s>>>(
+        xp, B, H, W, wp, bp, gp, static_cast<const float*>(stats), op, nullptr);
     return cudaGetLastError();
   }
-  fused_conv1_fwd_kernel<false><<<grid, THREADS, 0, s>>>(
-      xp, H, W, wp, bp, gp, nullptr, op, pp);
+  auto pp = static_cast<float*>(partials);
+  fused_conv1_fwd_kernel<false><<<blocks, TPB, 0, s>>>(xp, B, H, W, wp, bp, gp, nullptr, op,
+                                                       pp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n_blocks = static_cast<int>(grid.x * grid.y * grid.z);
-  reduce_partials_kernel<<<dim3(C, 2), THREADS, 0, s>>>(
-      pp, n_blocks, static_cast<float*>(sums));
-  return cudaGetLastError();
+  return reduce_columns(pp, blocks, 2 * C, static_cast<float*>(sums), s);
 }
 
 }  // extern "C"

@@ -15,7 +15,8 @@ when fused_conv=True and the input's H and W are even, the rule of the JAX
 module: the forward-only kernel with running statistics in eval mode, the
 autograd Function with its hand-written backward in train mode.  Otherwise
 (the 10-s scene clips, T = 1001) it is the plain Conv2d + BatchNorm + ReLU +
-MaxPool2d composition.
+MaxPool2d composition.  The fused block's output is channel-major in memory,
+so block 2 receives a contiguous NCHW tensor either way.
 
 Block 2 runs no hand-written kernel, as in JAX.  In train mode with
 pool_reorder=True it is the pool-reordered composition of the JAX module:
@@ -96,7 +97,7 @@ class AudioNTT2022(nn.Module):
             else:
                 pooled = fused_conv1_bn_relu_pool_eval(
                     *args, bn.running_mean, bn.running_var, bn.eps)
-            return pooled.permute(0, 3, 1, 2)        # NCHW view, channels-last memory
+            return pooled.permute(0, 3, 1, 2)        # contiguous NCHW, as block 2's conv reads it
         return self.features[:4](x)
 
     def _block2(self, h: torch.Tensor) -> torch.Tensor:

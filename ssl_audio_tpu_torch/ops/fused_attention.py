@@ -13,10 +13,10 @@ heads and queries.  Per head, with hd = C / H and scale = hd^-0.5:
 
 The backward recomputes S and P (no (B, H, N, N) tensor is saved) and gives
 
-    dV = bf16( bf16(P)^T . bf16(dO) )
+    dV = bf16( bf16(P)^T . bf16(dO) )             (fp32 sums over queries in order)
     dP = bf16(dO) . bf16(v)^T,   T = dP * P,   dS = T - P * rowsum(T)
     dQ = bf16(dS) . bf16(k) * scale                (not rounded)
-    dK = bf16( bf16(dS)^T . bf16(q) * scale )
+    dK = bf16( bf16(dS)^T . bf16(q) * scale )     (the same)
     d key_bias = sum over queries and heads of dS  (fp32)
 
 with the rounding points of the Pallas _bwd_kernel: its fold matmul rounds
@@ -30,10 +30,12 @@ The CUDA kernels (csrc/fused_attention.cu) replace the Pallas _fwd_kernel
 and the 0/1 fold matmuls were a workaround for the TPU's matrix unit and are
 gone.  A block takes G heads of one sample, staged from the raw qkv by
 cp.async and converted to bf16 once.  The scores and dP are fp32 FMA sums in
-the plain versions' order (so P and dS round to bf16 as here); the products
-with P and dS (P V, dQ, dK, dV) run on the tensor cores (mma.sync
-m16n8k16, bf16 operands, exact products, fp32 sums in another order).  A
-warp owns a 16-query tile for the softmax -- row max, then the row sum,
+the plain versions' order (so P and dS round to bf16 as here); P V and dQ
+run on the tensor cores (mma.sync m16n8k16, bf16 operands, exact products,
+fp32 sums in another order).  dK and dV, which the contract rounds to bf16,
+are fp32 FMA sums over queries in order on the CUDA cores, the plain
+version's order (_sum_over_queries), so they round to the same bf16 values.
+A warp owns a 16-query tile for the softmax -- row max, then the row sum,
 then the normalised P, as the contract rounds it -- P V and dQ, or a 16-key
 tile for dK and dV, summed over every query inside the warp.  plan() picks
 G and the number R of 16-query tiles resident at once (all of them unless N
@@ -205,6 +207,18 @@ def fused_attention_fwd_plain(qkv: torch.Tensor, key_bias: torch.Tensor,
     return out.transpose(1, 2).reshape(B, N, C3 // 3)
 
 
+def _sum_over_queries(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b for a (B, H, N, N) and b (B, H, N, hd), both bf16 values: the
+    fp32 sum over queries i = 0, 1, ..., N - 1 in that order, one term at a
+    time.  A product of two bf16 values is exact in fp32, so each step
+    rounds once, as the kernel's fmaf chain does: the two give the same
+    bits, and dK and dV round to the same bf16 values."""
+    acc = torch.zeros(*a.shape[:2], a.shape[3], b.shape[3], dtype=a.dtype, device=a.device)
+    for i in range(a.shape[2]):
+        acc = acc + a[:, :, i, :, None] * b[:, :, i, None, :]
+    return acc
+
+
 def fused_attention_bwd_plain(qkv: torch.Tensor, key_bias: torch.Tensor,
                               dout: torch.Tensor, num_heads: int):
     """Plain PyTorch version of fused_attention_bwd_cuda, same signature and
@@ -214,13 +228,13 @@ def fused_attention_bwd_plain(qkv: torch.Tensor, key_bias: torch.Tensor,
     q, k, v = _qkv_heads(qkv, num_heads)
     do = _bf16(_heads(dout, num_heads))
     p = _probs(q, k, key_bias, scale)
-    dv = _bf16(torch.matmul(_bf16(p).transpose(-1, -2), do))
+    dv = _bf16(_sum_over_queries(_bf16(p), do))
     t = torch.matmul(do, v.transpose(-1, -2)) * p
     ds = t - p * t.sum(dim=-1, keepdim=True)
     dbias = ds.sum(dim=2).sum(dim=1)
     ds16 = _bf16(ds)
     dq = torch.matmul(ds16, k) * scale
-    dk = _bf16(torch.matmul(ds16.transpose(-1, -2), q) * scale)
+    dk = _bf16(_sum_over_queries(ds16, q) * scale)
     dqkv = torch.cat([g.transpose(1, 2).reshape(B, N, C3 // 3) for g in (dq, dk, dv)], dim=-1)
     return dqkv, dbias
 

@@ -4,12 +4,20 @@ backward (port of ssl_audio_tpu/ops/fused_conv.py, AudioNTT block 1).
 The CUDA kernel (csrc/fused_conv_fwd.cu) replaces the Pallas forward
 _fwd_kernel/_fwd_call: for x (B, H, W) with H and W even it computes the
 per-2x2-window extreme of the conv output y (max where gamma > 0, else min)
-laid out (B, H/2, W/2, C), and the per-channel sums s1 = sum(y),
+of shape (B, H/2, W/2, C), and the per-channel sums s1 = sum(y),
 s2 = sum(y^2) over the full conv output.  Because the BN affine and ReLU
 are monotone in y with direction sign(gamma), pool(relu(bn(y))) equals
 relu(bn(extreme)), so the (B, H, W, C) activation is never stored.  The
 eval block fuses the running-statistics epilogue into the same kernel.
-It is bound by the bytes of the pooled output on the H100 (see the source).
+Its bytes and its FMA nearly tie as bounds on the H100 (see the source).
+
+Layout: the (B, H/2, W/2, C) results are views of channel-major memory,
+(B, C, H/2, W/2) contiguous (as the TPU kernel's own sel), so that the
+model's permute to NCHW hands block 2's cuDNN convolution a contiguous
+NCHW tensor: with channels-last memory cuDNN converted it to NCHW and its
+output back around every block-2 convolution.  The plain versions give the
+same layout; the backward kernels read pooled and its cotangent in it
+(nchw_memory() says whether a tensor is in it).
 
 The training block fused_conv1_bn_relu_pool is a torch.autograd.Function
 around that forward in its statistics mode.  Its backward is two more CUDA
@@ -30,6 +38,7 @@ yet, so under data parallelism its batch statistics would be per rank.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -41,24 +50,69 @@ _SIGNATURES = {
     "fused_conv1_fwd_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _P],
     "fused_conv1_fwd_blocks": [_I, _I, _I],
+    "fused_conv1_fwd_blocks_per_sm": [_I],
 }
 _BWD_SIGNATURES = {
     "fused_conv1_bwd_blocks": [_I, _I, _I],
-    "fused_conv1_gram_blocks": [_I, _I, _I],
+    "fused_conv1_bwd_blocks_per_sm": [],
     "fused_conv1_bwd_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _I, _P],
-    "fused_conv1_dx_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _I, _P],
+    "fused_conv1_dx_launch": [_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               ctypes.c_float, _P, _I, _P],
 }
 N_CHAN_SUMS = 12               # rows of the backward's per-channel sums: T1, T2, Sx, A1[0..8]
-MAX_GRID_Z = 65535
+N_TAP_SUMS = 90                # ... and its channel-free sums: Gram (9 x 9), A2 (9)
+MAX_GRID_Z = 65535             # the dx kernel's grid: one z per image
 C_OUT = 64                     # the kernel's channel count, a compile-time constant
+
+# the launch geometry of csrc/fused_conv_common.cuh: a thread per group of
+# CELLS window cells of one window row, THREADS threads a block
+CELLS = 4
+THREADS = 128
+SMEM_FWD = C_OUT * 16 * 4 + 2 * (THREADS // 32) * C_OUT * 4     # weights, per-warp s1 / s2
+SMEM_BWD = C_OUT * 16 * 4 + (THREADS // 32) * (N_CHAN_SUMS * C_OUT + 64) * 4
+SMS = 132                      # H100 SXM
+
+
+class ConvPlan(NamedTuple):
+    groups_per_row: int        # groups of CELLS cells in a window row (the last may be ragged)
+    groups: int                # threads with cells: B * H/2 * groups_per_row
+    blocks: int                # of THREADS threads, each writing one row of partial sums
+
+
+def launch_plan(B: int, H: int, W: int) -> ConvPlan:
+    """The forward and backward kernels' grid for x (B, H, W) (the
+    kernels' n_blocks()): groups numbered row-major over (b, i, j / CELLS)."""
+    g4 = -(-(W // 2) // CELLS)
+    groups = B * (H // 2) * g4
+    blocks = -(-groups // THREADS)
+    return ConvPlan(g4, groups, blocks)
+
+
+def waves(blocks: int, blocks_per_sm: int, sms: int = SMS) -> float:
+    """Rounds of resident blocks the card runs a grid in."""
+    return blocks / (blocks_per_sm * sms)
+
+
+def nchw_memory(t: torch.Tensor) -> bool:
+    """t (B, H/2, W/2, C) is a view of contiguous (B, C, H/2, W/2) memory."""
+    return t.dim() == 4 and t.permute(0, 3, 1, 2).is_contiguous()
+
+
+def _require_pooled(t: torch.Tensor, name: str, shape: tuple, dev: torch.device) -> None:
+    """Raise unless t is a float32 (B, H/2, W/2, C) view of channel-major
+    memory on `dev`: strides, not just contiguity."""
+    if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape) \
+            or not nchw_memory(t):
+        raise ValueError(
+            f"{name}: want float32 {tuple(shape)} on {dev} over (B, C, H/2, W/2) memory, "
+            f"got {t.dtype} {tuple(t.shape)} strides {t.stride()} on {t.device}")
 
 
 def fused_conv1_fwd_plain(x: torch.Tensor, wk: torch.Tensor,
                           bias: torch.Tensor, gamma: torch.Tensor):
-    """x (B, H, W), wk (9, C) tap-major -> (sel (B, H/2, W/2, C), s1 (C,),
-    s2 (C,)) in plain PyTorch."""
+    """x (B, H, W), wk (9, C) tap-major -> (sel (B, H/2, W/2, C) over
+    channel-major memory, s1 (C,), s2 (C,)) in plain PyTorch."""
     C = wk.shape[1]
     with no_tf32():
         y = F.conv2d(x[:, None], wk.t().reshape(C, 1, 3, 3), bias, padding=1)
@@ -66,34 +120,34 @@ def fused_conv1_fwd_plain(x: torch.Tensor, wk: torch.Tensor,
     s2 = (y * y).sum(dim=(0, 2, 3))
     sign = torch.where(gamma > 0, 1.0, -1.0).to(y.dtype)[None, :, None, None]
     sel = sign * F.max_pool2d(y * sign, 2)
-    return sel.permute(0, 2, 3, 1).contiguous(), s1, s2
+    return sel.permute(0, 2, 3, 1), s1, s2
 
 
 def fused_conv1_fwd_cuda(x: torch.Tensor, wk: torch.Tensor, bias: torch.Tensor,
                          gamma: torch.Tensor, stats: torch.Tensor | None = None):
     """Launch the CUDA kernel.  stats None: returns (sel, s1, s2).
     stats (3, C) = (running mean, rsqrt(running var + eps), beta): returns
-    the eval block's relu(gamma * (sel - mean) * r + beta), (B, H/2, W/2, C)."""
+    the eval block's relu(gamma * (sel - mean) * r + beta), (B, H/2, W/2, C).
+    Either output is a view of (B, C, H/2, W/2) memory."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"fused_conv1_fwd_cuda needs a CUDA tensor, got {dev}")
     B, H, W = x.shape
     C = wk.shape[-1]
-    if H % 2 or W % 2 or C != C_OUT or not 0 < B <= MAX_GRID_Z:
+    if H % 2 or W % 2 or C != C_OUT or B < 1:
         raise ValueError(f"unsupported shape: x {tuple(x.shape)}, C={C} "
-                         f"(H, W even; C = {C_OUT}; 0 < B <= {MAX_GRID_Z})")
+                         f"(H, W even; C = {C_OUT}; B >= 1)")
     _build.require(x, "x", (B, H, W), dev)
     _build.require(wk, "wk", (9, C), dev)
     _build.require(bias, "bias", (C,), dev)
     _build.require(gamma, "gamma", (C,), dev)
-    out = torch.empty(B, H // 2, W // 2, C, device=dev)
+    out = torch.empty(B, C, H // 2, W // 2, device=dev)
     lib = _build.load("fused_conv_fwd.cu", _SIGNATURES)
     if stats is not None:
         _build.require(stats, "stats", (3, C), dev)
         args = (stats.data_ptr(), out.data_ptr(), None, None)
     else:
-        n_blocks = lib.fused_conv1_fwd_blocks(B, H, W)
-        partials = torch.empty(2, n_blocks, C, device=dev)
+        partials = torch.empty(lib.fused_conv1_fwd_blocks(B, H, W), 2, C, device=dev)
         sums = torch.empty(2, C, device=dev)
         args = (None, out.data_ptr(), partials.data_ptr(), sums.data_ptr())
     with torch.cuda.device(dev):
@@ -103,6 +157,7 @@ def fused_conv1_fwd_cuda(x: torch.Tensor, wk: torch.Tensor, bias: torch.Tensor,
             _build.stream_ptr(dev))
     _build.check(code, "fused_conv1_fwd_launch")
     fused_conv1_fwd_cuda.launches += 1
+    out = out.permute(0, 2, 3, 1)
     return out if stats is not None else (out, sums[0], sums[1])
 
 
@@ -122,7 +177,8 @@ def fused_conv1_bn_relu_pool_eval(x, kernel, bias, gamma, beta, mean, var,
                                   eps: float = 1e-5) -> torch.Tensor:
     """Inference-mode block, forward only: conv + BN with running stats +
     relu + 2x2 max pool.  x (B, H, W, 1) with H, W even, kernel (3, 3, 1, C)
-    -> (B, H/2, W/2, C), the JAX function's layouts."""
+    -> (B, H/2, W/2, C), the JAX function's shapes; the output is a view of
+    (B, C, H/2, W/2) memory."""
     x2 = x[..., 0].float().contiguous()
     C = kernel.shape[-1]
     wk = kernel.reshape(9, C).float().contiguous()
@@ -201,14 +257,15 @@ def _require_bwd_args(x, wk, bias, gamma, mean, r, pooled, dpooled):
     for name, t in (("bias", bias), ("gamma", gamma), ("mean", mean), ("r", r)):
         _build.require(t, name, (C,), dev)
     for name, t in (("pooled", pooled), ("dpooled", dpooled)):
-        _build.require(t, name, (B, H // 2, W // 2, C), dev)
+        _require_pooled(t, name, (B, H // 2, W // 2, C), dev)
     return dev, B, H, W, C
 
 
 def fused_conv1_bwd_cuda(x, wk, bias, gamma, mean, r, pooled, dpooled):
-    """Launch the backward reduction kernels.  x (B, H, W), wk (9, C), mean
-    and r = rsqrt(var + eps) the forward's batch statistics, pooled the
-    forward's output (B, H/2, W/2, C) and dpooled its cotangent ->
+    """Launch the backward reduction kernel and its fixed-order reduction.
+    x (B, H, W), wk (9, C), mean and r = rsqrt(var + eps) the forward's
+    batch statistics, pooled the forward's output (B, H/2, W/2, C) and
+    dpooled its cotangent, both over (B, C, H/2, W/2) memory ->
     (t1, t2, sx (C,), a1 (9, C), a2 (9,), gram (9, 9)):
       t1 = sum dz, t2 = sum dz xhat, sx = sum xhat,
       a1[s, c] = sum dz[c] xpad[. + tap s], a2[s] = sum xpad[. + tap s],
@@ -217,19 +274,18 @@ def fused_conv1_bwd_cuda(x, wk, bias, gamma, mean, r, pooled, dpooled):
     kernels in a fixed order."""
     dev, B, H, W, C = _require_bwd_args(x, wk, bias, gamma, mean, r, pooled, dpooled)
     lib = _build.load("fused_conv_bwd.cu", _BWD_SIGNATURES)
-    stats = torch.stack([mean, r]).contiguous()
-    partials = torch.empty(lib.fused_conv1_bwd_blocks(B, H, W), N_CHAN_SUMS, C, device=dev)
-    gram_partials = torch.empty(lib.fused_conv1_gram_blocks(B, H, W), 90, device=dev)
-    chan = torch.empty(N_CHAN_SUMS, C, device=dev)
-    taps = torch.empty(10, 9, device=dev)
+    n_sums = N_CHAN_SUMS * C + N_TAP_SUMS
+    partials = torch.empty(lib.fused_conv1_bwd_blocks(B, H, W), n_sums, device=dev)
+    sums = torch.empty(n_sums, device=dev)
     with torch.cuda.device(dev):
         code = lib.fused_conv1_bwd_launch(
             x.data_ptr(), B, H, W, wk.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
-            stats.data_ptr(), pooled.data_ptr(), dpooled.data_ptr(),
-            partials.data_ptr(), gram_partials.data_ptr(), chan.data_ptr(),
-            taps.data_ptr(), C, _build.stream_ptr(dev))
+            mean.data_ptr(), r.data_ptr(), pooled.data_ptr(), dpooled.data_ptr(),
+            partials.data_ptr(), sums.data_ptr(), C, _build.stream_ptr(dev))
     _build.check(code, "fused_conv1_bwd_launch")
     fused_conv1_bwd_cuda.launches += 1
+    chan = sums[:N_CHAN_SUMS * C].view(N_CHAN_SUMS, C)
+    taps = sums[N_CHAN_SUMS * C:].view(10, 9)
     return chan[0], chan[1], chan[2], chan[3:], taps[9], taps[:9]
 
 
@@ -245,14 +301,12 @@ def fused_conv1_dx_cuda(x, wk, bias, gamma, mean, r, pooled, dpooled, t1, t2,
     _build.require(t1, "t1", (C,), dev)
     _build.require(t2, "t2", (C,), dev)
     lib = _build.load("fused_conv_bwd.cu", _BWD_SIGNATURES)
-    stats = torch.stack([mean, r]).contiguous()
-    sums = torch.stack([t1, t2]).contiguous()
     dy = torch.empty(B, H, W, C, device=dev)
     with torch.cuda.device(dev):
         code = lib.fused_conv1_dx_launch(
             x.data_ptr(), B, H, W, wk.data_ptr(), bias.data_ptr(), gamma.data_ptr(),
-            stats.data_ptr(), pooled.data_ptr(), dpooled.data_ptr(),
-            sums.data_ptr(), float(n), dy.data_ptr(), C, _build.stream_ptr(dev))
+            mean.data_ptr(), r.data_ptr(), pooled.data_ptr(), dpooled.data_ptr(),
+            t1.data_ptr(), t2.data_ptr(), float(n), dy.data_ptr(), C, _build.stream_ptr(dev))
     _build.check(code, "fused_conv1_dx_launch")
     fused_conv1_dx_cuda.launches += 1
     return dy
@@ -308,7 +362,9 @@ class _FusedConv1BnReluPool(torch.autograd.Function):
     def backward(ctx, dpooled, _dmean, _dvar):
         x2, wk, bias, gamma, mean, r, pooled = ctx.saved_tensors
         n = float(x2.numel())
-        args = (x2, wk, bias, gamma, mean, r, pooled, dpooled.contiguous())
+        if not nchw_memory(dpooled):          # the kernels read the forward's layout
+            dpooled = dpooled.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        args = (x2, wk, bias, gamma, mean, r, pooled, dpooled)
         t1, t2, sx, a1, a2, gram = sums = fused_conv1_bwd(*args)
         dwk, db, dgamma, dbeta = param_grads_from_sums(wk, bias, gamma, mean, r, n, *sums)
         dx = None

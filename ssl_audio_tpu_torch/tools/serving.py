@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -163,6 +164,25 @@ def seeded_serving_model(gen: torch.Generator, device="cuda"):
             bn.running_var.copy_(0.5 + torch.rand(c, generator=gen))
     net.to(model.device).eval()
     return model
+
+
+def short_kernel_name(name: str) -> str:
+    """A profiler kernel name without its return type, namespaces' anonymity,
+    template arguments and parameters: "fused_conv1_fwd_kernel",
+    "fused_conv::reduce_columns_kernel", "at::native::reduce_kernel"."""
+    name = name.replace("(anonymous namespace)::", "")
+    return re.match(r"(?:void\s+)?([\w:]*)", name).group(1) or name
+
+
+def per_launch_ms(fn) -> dict:
+    """Device ms of each kernel one call of fn launches, by short name
+    (torch.profiler, after one call outside the trace)."""
+    fn()
+    out: dict[str, float] = {}
+    for name, ms in profile(fn)["device_ms_by_kernel"].items():
+        key = short_kernel_name(name)
+        out[key] = out.get(key, 0.0) + ms
+    return out
 
 
 def profile(fn) -> dict:

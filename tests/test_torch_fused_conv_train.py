@@ -131,3 +131,38 @@ def test_plain_sums_shapes_and_dy_layout():
     assert dy.shape == (2, 8, 12, C)
     # BN's backward removes the mean and the xhat component of dy
     assert float(dy.sum(dim=(0, 1, 2)).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+def test_cotangent_layout_changes_nothing(layout):
+    """The forward's output is a (B, H/2, W/2, C) view of channel-major
+    memory, and the backward reads its cotangent in that layout: a
+    cotangent handed over contiguous (channels-last memory) or as a view of
+    NCHW memory gives the same values and gradients, bit for bit, and both
+    the JAX custom_vjp's."""
+    x, k, b, g, be, dp = make_inputs(4, ties=True)
+    want = torch_grads(x, k, b, g, be, dp, need_dx=True)
+    ts = [torch.tensor(a, requires_grad=True) for a in (x, k, b, g, be)]
+    pooled, mean, var = fused_conv1_bn_relu_pool(*ts)
+    assert pooled.permute(0, 3, 1, 2).is_contiguous()
+    cot = torch.tensor(dp)
+    if layout == "nchw":
+        cot = cot.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        assert not cot.is_contiguous()
+    pooled.backward(cot)
+    assert torch.equal(pooled.detach(), want[0])
+    for a, w in zip([t.grad for t in ts], want[3]):
+        assert torch.equal(a, w)
+
+    def loss(x, k, b, g, be):
+        p, m, v = jax_block(x, k, b, g, be)
+        return jnp.sum(p * dp), p
+
+    (_, p_j), g_j = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+        x, k, b, g, be)
+    np.testing.assert_allclose(pooled.detach().numpy(), p_j, atol=TOL, rtol=TOL)
+    for name, a, j in zip(("dx", "dW", "db", "dgamma", "dbeta"), [t.grad for t in ts], g_j):
+        j = np.asarray(j)
+        atol = DB_ATOL if name == "db" else TOL * max(1.0, float(np.abs(j).max()))
+        np.testing.assert_allclose(a.numpy(), j, atol=atol, rtol=0 if name == "db" else TOL,
+                                   err_msg=name)
