@@ -46,7 +46,22 @@ Phases, each of which exits non-zero on failure:
      backward, the counters zeroed around each step), then timed steps on
      the resident batch unmasked and with token drop, each beside the same
      step with --no_fused_attention; a small step (vit_tiny, batch 16) is
-     held against the same step on the CPU.
+     held against the same step on the CPU;
+  7. ViT serving: vitc_base 16x8, the HEAR ViT wrapper's default (embed 768,
+     depth 11, 12 heads of 64, 48 patches + CLS over (64, 96), fp32 einsum
+     attention, seeded random weights and ConvStem statistics) answers a
+     timestamp request (3,216 windows in 7 chunks of 512) and a scene
+     request (16 x 11 units) for 16 seeded 10-s clips through the HEAR API,
+     the counters zeroed just before each and read just after (log-mel
+     folded 7 / 1, every other kernel 0); median wall times, the device
+     time by kernel and idle share (torch.profiler), the fp32 operation
+     bound; a small request of each kind held against the CPU;
+  8. the evaluation stack: eval_linear (embeddings of three seeded
+     class-structured SyntheticLMS loaders, the MLP probe, the low-shot
+     protocol) with make_embedding_forward of AudioNTT2022 (the fused block
+     1's eval kernel) and of ViT-B --fused_attention (the attention forward
+     kernel), each path's launches counted; a batch's embeddings held
+     against the same encoder on the CPU.
 The `kernels` JSON line lists every ported kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -114,6 +129,9 @@ ENTRY_STEPS = 6      # steps of the epoch that the Trainer runs over its DataLoa
 VIT_FLAGS = ["--dataset", "synthetic_wav", "--model_type", "vit_base", "--fused_attention",
              "--mask", "--mask_ratio", "0.75", "--no_token_drop"]
 VIT_DEPTH, VIT_HEADS, VIT_DIM, VIT_TOKENS = 12, 12, 768, 25
+EVAL_ITEMS = {"train": 1024, "val": 256, "test": 256}   # SyntheticLMS clips per loader
+EVAL_CLASSES = 10
+EVAL_MAX_ITER = 20   # probe epochs (eval_linear's max_iter)
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -796,18 +814,8 @@ def phase_serving(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
         raise SystemExit("non-finite embeddings")
     print(f"  timestamp {tuple(ts_emb.shape)}, scene {tuple(scene.shape)}, finite")
 
-    def wall_ms(fn, reps: int = 3) -> float:
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
-    ts_ms = wall_ms(requests["timestamp"])
-    sc_ms = wall_ms(requests["scene"])
+    ts_ms = statistics.median(wall_ms(requests["timestamp"]))
+    sc_ms = statistics.median(wall_ms(requests["scene"]))
     serving = {
         "clips": N_CLIPS, "clip_seconds": CLIP / 16000, "windows": N_CLIPS * n_frames,
         "timestamp_ms_per_request": ts_ms,
@@ -1060,6 +1068,189 @@ def phase_training_vit(seed: int, dev: torch.device, smi: str) -> dict:
     return training
 
 
+def wall_ms(fn, reps: int = 3) -> list[float]:
+    """Host-clock ms of `reps` calls of fn, each ending in a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def unit_flops(model: torch.nn.Module, unit: torch.Tensor) -> float:
+    """FLOPs of one forward of `model` on a batch-1 unit: 2 x the
+    multiply-adds of every Conv2d and Linear (from a forward's output
+    shapes) and of the attention's two products (2 N^2 C per block)."""
+    macs = []
+
+    def conv(mod, inp, out):
+        macs.append(out.numel() * mod.in_channels // mod.groups * mod.weight[0, 0].numel())
+
+    def linear(mod, inp, out):
+        macs.append(out.numel() * mod.in_features)
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else linear)
+             for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            tokens = model(unit, return_all=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    n, c = tokens.shape[1], tokens.shape[2]
+    return 2.0 * (sum(macs) + len(model.blocks) * 2 * n * n * c)
+
+
+def phase_serving_vit(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
+    from ssl_audio_tpu_torch.hear import vit as hear_vit
+    from ssl_audio_tpu_torch.tools.serving import profile, seeded_clips, seeded_vit_serving_model
+
+    print("phase 7: HEAR serving, vitc_base 16x8 (embed 768, depth 11, 12 heads, 48 patches "
+          "+ CLS, fp32, einsum attention)")
+    model = seeded_vit_serving_model(gen, dev)
+    spec = model.model.spec
+    if (spec.embed_dim, spec.depth, spec.num_heads, model.model.grid_size()) != (
+            768, 11, 12, (4, 12)) or model.model.training:
+        raise SystemExit(f"not the vitc_base 16x8 serving model: {spec}")
+    audio = seeded_clips(gen, N_CLIPS, CLIP)
+    requests = {"hear_vit_timestamp": lambda: hear_vit.get_timestamp_embeddings(audio, model),
+                "hear_vit_scene": lambda: hear_vit.get_scene_embeddings(audio, model)}
+    for fn in requests.values():
+        fn()                                     # warm-up: cuBLAS and cuDNN plans
+    launches, outputs = {}, {}
+    for path, request in requests.items():
+        zero_launch_counts()
+        outputs[path] = request()
+        torch.cuda.synchronize()
+        launches[path] = launch_counts()
+        print(f"  {path} request launches: {launches[path]}")
+    ts_emb, ts = outputs["hear_vit_timestamp"]
+    scene = outputs["hear_vit_scene"]
+    windows = N_CLIPS * ts.shape[1]
+    chunks = -(-windows // CHUNK)
+    for path, n in (("hear_vit_timestamp", chunks), ("hear_vit_scene", 1)):
+        want = {k: 0 for k in launches[path]}
+        want["log_mel_folded"] = n
+        if launches[path] != want:
+            raise SystemExit(f"{path} request launched {launches[path]}, expected {want}")
+    if ts_emb.shape != (N_CLIPS, ts.shape[1], 768) or scene.shape != (N_CLIPS, 768):
+        raise SystemExit(f"bad shapes {tuple(ts_emb.shape)} {tuple(scene.shape)}")
+    if not (torch.isfinite(ts_emb).all() and torch.isfinite(scene).all()):
+        raise SystemExit("non-finite embeddings")
+    print(f"  timestamp {tuple(ts_emb.shape)} ({windows} windows, {chunks} chunks), "
+          f"scene {tuple(scene.shape)}, finite")
+
+    # the work: one forward per window, one silent unit per chunk; the scene
+    # request's units of 96 frames (the last one padded) per clip
+    per_unit = unit_flops(model.model, torch.zeros(1, 1, 64, 96, device=dev))
+    scene_units = N_CLIPS * (model.mel.num_frames(CLIP) // 96 + 1)
+    times = {p: wall_ms(fn) for p, fn in requests.items()}
+    serving = {"model": "vitc_base 16x8", "clips": N_CLIPS, "clip_seconds": CLIP / 16000,
+               "windows": windows, "chunks": chunks, "scene_units": scene_units,
+               "gflop_per_unit": per_unit / 1e9, "launches": launches, "card": smi}
+    for path, units in (("hear_vit_timestamp", windows + chunks),
+                        ("hear_vit_scene", scene_units)):
+        prof = profile(requests[path])
+        median = statistics.median(times[path])
+        serving[path] = {
+            "ms_per_request_median": median, "ms_per_request": times[path],
+            "clips_per_s": N_CLIPS / median * 1e3, "unit_forwards": units,
+            "tflop": units * per_unit / 1e12,
+            "bound_ms": units * per_unit / PEAK_FP32_FLOPS * 1e3, "bound_by": "operations",
+            "profiled_wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+            "idle_share": prof["idle_share"],
+            "device_ms_by_kernel": {k[:90]: v for k, v in prof["device_ms_by_kernel"].items()}}
+        print(f"  {path}: " + json.dumps(serving[path]))
+
+    # the same model on the CPU (plain path) on a small request
+    cpu = hear_vit.load_model("", "vitc_base", "16x8", device="cpu")
+    cpu.model.load_state_dict(model.model.state_dict())
+    small = audio[:2, :16000]
+    serving["cpu_check"] = {}
+    for name, fn in (("timestamp", lambda m: hear_vit.get_timestamp_embeddings(small, m)[0]),
+                     ("scene", lambda m: hear_vit.get_scene_embeddings(small, m))):
+        a, b = fn(model), fn(cpu)
+        err = max_err(a, b) / float(b.abs().max())
+        serving["cpu_check"][name] = err
+        check(f"ViT {name} embeddings card vs CPU, / max|emb|", err, EMB_RTOL,
+              "fp32 sums in another order through the stem and 11 blocks")
+    return serving
+
+
+def phase_eval(seed: int, dev: torch.device, smi: str) -> dict:
+    import copy
+
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.data.datasets import SyntheticLMS
+    from ssl_audio_tpu_torch.data.pipeline import DataLoader
+    from ssl_audio_tpu_torch.eval.linear import eval_linear, make_embedding_forward
+    from ssl_audio_tpu_torch.models.audiontt import init_weights_
+    from ssl_audio_tpu_torch.models.vit import init_vit_weights_
+    from ssl_audio_tpu_torch.train.state import build_encoder
+
+    print("phase 8: evaluation stack: eval_linear over seeded SyntheticLMS loaders "
+          f"({EVAL_ITEMS}, {EVAL_CLASSES} classes, crop 96), probe max_iter {EVAL_MAX_ITER}")
+    paths = {"eval_audiontt": (dict(model_type="audiontt"), "fused_conv1_fwd"),
+             "eval_vit": (dict(model_type="vit_base", fused_attention=True),
+                          "fused_attention_fwd")}
+    out = {"card": smi, "items": EVAL_ITEMS, "classes": EVAL_CLASSES,
+           "max_iter": EVAL_MAX_ITER, "launches": {}}
+    for path, (kw, kernel) in paths.items():
+        cfg = default_config(dataset="synthetic", **kw)
+        gen = torch.Generator().manual_seed(seed)
+        enc, dim = build_encoder(cfg)
+        if kw["model_type"] == "audiontt":
+            init_weights_(enc, gen)
+            with torch.no_grad():
+                for bn in (enc.features[1], enc.features[5]):
+                    c = bn.num_features
+                    bn.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=gen))
+                    bn.weight[: c // 4] *= -1.0
+                    bn.running_mean.copy_(0.5 * torch.randn(c, generator=gen))
+                    bn.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+        else:
+            init_vit_weights_(enc, gen)
+        cpu_enc = copy.deepcopy(enc)
+        enc.to(dev)
+        forward = make_embedding_forward(cfg, enc)
+        loaders = [DataLoader(SyntheticLMS(cfg, length=n, n_classes=EVAL_CLASSES, seed=i),
+                              batch_size=cfg.batch_size, shuffle=False, drop_last=False,
+                              num_workers=4)
+                   for i, n in enumerate(EVAL_ITEMS.values())]
+        forward(torch.zeros(2, 1, 64, 96, device=dev))     # warm-up
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = eval_linear(forward, *loaders, max_iter=EVAL_MAX_ITER, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = out["launches"][path] = launch_counts()
+        print(f"  {path} launches: {launches}")
+        if launches[kernel] <= 0 or any(v for k, v in launches.items() if k != kernel):
+            raise SystemExit(f"{path}: expected {kernel} launches only, got {launches}")
+        # one batch's embeddings, card against the same encoder on the CPU
+        x, _ = next(iter(loaders[2]))
+        x = torch.from_numpy(x[:16])
+        a = forward(x.to(dev)).cpu()
+        b = make_embedding_forward(cfg, cpu_enc)(x)
+        err = max_err(a, b) / float(b.abs().max())
+        check(f"{path} embeddings card vs CPU, / max|emb|", err, EMB_RTOL,
+              "fp32 sums in another order" + ("; bf16 attention operands that round "
+                                              "the other way" if kernel.startswith("fused_att")
+                                              else ""))
+        s5 = scores["score_5"]
+        if not (0.0 < scores["score_all"] <= 1.0 and all(0.0 <= v <= 1.0 for v in s5)):
+            raise SystemExit(f"{path}: scores out of range {scores}")
+        out[path] = {"encoder": kw, "embed_dim": dim, "score_all_map": scores["score_all"],
+                     "score_5_map_mean_std": list(s5), "eval_linear_s": seconds,
+                     "cpu_check": err}
+        print(f"  {path}: " + json.dumps(out[path]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1091,10 +1282,14 @@ def main() -> int:
     serving = phase_serving(gen, dev, smi)
     training = phase_training(args.seed, dev, smi)
     training_vit = phase_training_vit(args.seed, dev, smi)
+    serving_vit = phase_serving_vit(gen, dev, smi)
+    evaluation = phase_eval(args.seed, dev, smi)
     # launches on the main paths, per path (timestamp request, scene request,
-    # one AudioNTT train step, one ViT-B train step) and in all
+    # one AudioNTT train step, one ViT-B train step, the ViT timestamp and
+    # scene requests, eval_linear with each encoder) and in all
     by_path = {**serving["launches"], "train": training["launches"],
-               "train_vit": training_vit["launches"]}
+               "train_vit": training_vit["launches"], **serving_vit["launches"],
+               **evaluation["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

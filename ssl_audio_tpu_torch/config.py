@@ -212,6 +212,7 @@ def unsupported_settings(cfg: Config) -> List[str]:
                    "the on-disk datasets and their loaders wait)")
     for flag, on, what in (
             ("--use_fp16", cfg.use_fp16, "bf16 autocast of the encoder"),
+            ("--use_fp16_eval", cfg.use_fp16_eval, "bf16 embedding extraction"),
             ("--squeeze_excitation", cfg.squeeze_excitation, "SE blocks"),
             ("--steps_per_dispatch > 1", cfg.steps_per_dispatch != 1, "multi-step dispatch"),
             ("--resume_path", bool(cfg.resume_path), "checkpoints and resume"),

@@ -1,7 +1,7 @@
 """HEAR helpers shared by the serving wrappers (port of the shared part of
 ssl_audio_tpu/hear/vit.py: its constants, _as_numpy,
-_frame_audio_on_device, _timestamp_pipeline and _fetch_embeddings).  The
-ViT wrapper itself is a later slice; hear/conv.py uses these now.
+_frame_audio_on_device, _timestamp_pipeline and _fetch_embeddings), used by
+hear/conv.py and hear/vit.py.
 """
 from __future__ import annotations
 

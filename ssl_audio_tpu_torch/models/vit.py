@@ -324,6 +324,14 @@ class MaskedAutoencoderViT(nn.Module):
         x = imgs.reshape(N, C, Fr // ph, ph, T // pw, pw).permute(0, 2, 4, 3, 5, 1)
         return x.reshape(N, (Fr // ph) * (T // pw), ph * pw * C)
 
+    def unpatchify(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, L, ph*pw*C) -> (N, C, F, T), the inverse of patchify."""
+        ph, pw = self.spec.patch_size
+        h, w = self.grid_size()
+        C = self.spec.in_chans
+        x = x.reshape(x.shape[0], h, w, ph, pw, C).permute(0, 5, 1, 3, 2, 4)
+        return x.reshape(x.shape[0], C, h * ph, w * pw)
+
     def _pos_embed_for(self, Fr: int, T: int) -> torch.Tensor:
         gh, gw = self.grid_size()
         h0, w0 = Fr // self.spec.patch_size[0], T // self.spec.patch_size[1]
@@ -422,6 +430,39 @@ class MaskedAutoencoderViT(nn.Module):
             pred = self.forward_decoder(tokens, out_mask)
             return latent, self.forward_loss(imgs, pred, out_mask)
         return latent
+
+    def forward_viz(self, imgs: torch.Tensor, mask_ratio=0.75, mask=None, noise=None):
+        """Reconstruction for visualisation (reference mae.py:471-480): ->
+        (loss, recons with the visible patches copied from the input,
+        errormap, mask (B, gh, gw)).  The mask comes from `mask` or from
+        `noise` at `mask_ratio`, as in forward_encoder; needs the decoder."""
+        tokens, out_mask, _ = self.forward_encoder(imgs, mask_ratio, mask, None, noise)
+        pred = self.forward_decoder(tokens, out_mask)
+        loss = self.forward_loss(imgs, pred, out_mask)
+        visible = (out_mask == 0.0)[..., None]
+        recons = self.unpatchify(torch.where(visible, self.patchify(imgs), pred))
+        errormap = torch.sqrt((recons - imgs) ** 2)
+        return loss, recons, errormap, out_mask.reshape(out_mask.shape[0], *self.grid_size())
+
+    def forward_attn(self, imgs: torch.Tensor, mask_ratio=0, noise=None) -> torch.Tensor:
+        """Every block's attention map (the fp32 einsum path), stacked:
+        (depth, B, heads, N, N) (reference mae.py:482-489)."""
+        tokens, _, key_bias, _ = self.prepare_tokens(imgs, mask_ratio, noise=noise)
+        attns = []
+        for blk in self.blocks:
+            attns.append(blk(tokens, key_bias, return_attention=True))
+            tokens = blk(tokens, key_bias)
+        return torch.stack(attns)
+
+    def get_intermediate_layers(self, imgs: torch.Tensor, mask_ratio=0,
+                                noise=None) -> List[torch.Tensor]:
+        """norm(tokens) after each block."""
+        tokens, _, key_bias, _ = self.prepare_tokens(imgs, mask_ratio, noise=noise)
+        out = []
+        for blk in self.blocks:
+            tokens = blk(tokens, key_bias)
+            out.append(self.norm(tokens))
+        return out
 
 
 _SIZES = {

@@ -17,7 +17,8 @@ around each, ending in a synchronise; three warm-ups) and prints their
 median and minimum: an A/B of two checkouts runs this file with each
 checkout's root first on PYTHONPATH, `PYTHONPATH=<root> python3
 <this file> --timed 15`, in turns.  chip_smoke.py uses the same setup for
-its serving phase.
+its serving phase, and seeded_vit_serving_model (vitc_base 16x8) for its
+ViT serving phase.
 """
 from __future__ import annotations
 
@@ -162,6 +163,28 @@ def seeded_serving_model(gen: torch.Generator, device="cuda"):
             bn.bias.copy_(0.2 * torch.randn(c, generator=gen))
             bn.running_mean.copy_(0.5 * torch.randn(c, generator=gen))
             bn.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+    net.to(model.device).eval()
+    return model
+
+
+def seeded_vit_serving_model(gen: torch.Generator, device="cuda"):
+    """hear.vit.load_model() (vitc_base, 16x8 patches) with weights redrawn
+    from `gen` (the JAX module's initialisers) and the ConvStem's BatchNorm
+    scales, shifts and running statistics drawn from `gen`."""
+    from ssl_audio_tpu_torch.hear import vit as hear_vit
+    from ssl_audio_tpu_torch.models.vit import init_vit_weights_
+
+    model = hear_vit.load_model(device=device)
+    net = model.model.cpu()
+    init_vit_weights_(net, gen)
+    with torch.no_grad():
+        for bn in net.modules():
+            if isinstance(bn, torch.nn.modules.batchnorm._BatchNorm):
+                c = bn.num_features
+                bn.weight.copy_(1.0 + 0.3 * torch.randn(c, generator=gen))
+                bn.bias.copy_(0.2 * torch.randn(c, generator=gen))
+                bn.running_mean.copy_(0.5 * torch.randn(c, generator=gen))
+                bn.running_var.copy_(0.5 + torch.rand(c, generator=gen))
     net.to(model.device).eval()
     return model
 

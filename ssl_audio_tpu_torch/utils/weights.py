@@ -186,3 +186,14 @@ def _zero_stats_like(params):
         z = np.zeros_like(np.asarray(params["scale"]))
         return {"mean": z, "var": z}
     return {k: _zero_stats_like(v) for k, v in params.items() if isinstance(v, dict)}
+
+
+def mlp_clf_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX MLP probe's parameters (eval/mlp_clf.py: a list of {"w" (in,
+    out), "b" (out,)} per layer) -> a state dict of the port's probe, an
+    nn.Sequential with its Linear layers at the even indices."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i, layer in enumerate(params):
+        sd[f"{2 * i}.weight"] = _t(np.asarray(layer["w"]).T)
+        sd[f"{2 * i}.bias"] = _t(layer["b"])
+    return sd

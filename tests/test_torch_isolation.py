@@ -1,5 +1,6 @@
 """The port (ssl_audio_tpu_torch) and chip_smoke.py stand alone: they import
-torch and never jax or anything of the JAX package ssl_audio_tpu, and
+torch and never jax or anything of the JAX package ssl_audio_tpu, nor
+scikit-learn or PyYAML (the card's machine has neither), and
 chip_smoke.py refuses to run without a CUDA device or without the repo."""
 import ast
 import os
@@ -21,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k.startswith("jaxlib")
-             or k == "ssl_audio_tpu" or k.startswith("ssl_audio_tpu."))
+             or k == "ssl_audio_tpu" or k.startswith("ssl_audio_tpu.")
+             or k.split(".")[0] in ("sklearn", "yaml"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -44,7 +46,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     for name in ("main", "config", "train.loop", "train.steps", "train.state",
                  "train.optim", "augment.transforms", "objectives.barlow",
                  "models.heads", "data.pipeline", "tools.train_profile", "models.vit",
-                 "ops.fused_attention", "ops.pos_embed", "utils.schedules"):
+                 "ops.fused_attention", "ops.pos_embed", "utils.schedules", "hear.vit",
+                 "eval.encode", "eval.stats", "eval.mlp_clf", "eval.low_shot", "eval.knn",
+                 "eval.linear"):
         assert f"ssl_audio_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 
@@ -67,7 +71,7 @@ def test_sources_name_no_jax_import():
         for name in _imported_roots(f):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                "ssl_audio_tpu", "yaml"), (f, name)
+                                "ssl_audio_tpu", "yaml", "sklearn"), (f, name)
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
