@@ -61,7 +61,23 @@ Phases, each of which exits non-zero on failure:
      protocol) with make_embedding_forward of AudioNTT2022 (the fused block
      1's eval kernel) and of ViT-B --fused_attention (the attention forward
      kernel), each path's launches counted; a batch's embeddings held
-     against the same encoder on the CPU.
+     against the same encoder on the CPU;
+  9. the pretraining run: `ssl_audio_tpu_torch.main.main` in-process at
+     the defaults (AudioNTT2022, batch 128, LARS, mixup bank 2,048, raw wav
+     in) for 4 epochs of 3 steps, twice uninterrupted and once resumed from
+     the first run's model_2.pt, in a temporary directory: the per-epoch
+     losses, the largest parameter difference resumed vs uninterrupted
+     beside uninterrupted vs uninterrupted (the resumed run may differ by no
+     more; bit-identical where the two uninterrupted runs are), the
+     checkpoint's bytes and its save and load seconds; the same for ViT-B
+     (--fused_attention, AdamW, --lr_schedule, 4 epochs of 2 steps); HEAR
+     serving of the timestamp request from the AudioNTT run's model_4.pt
+     with fused_conv=True, bit-identical to a model given the trainer's
+     encoder in memory (log-mel folded 7, fused forward 7); and a 3-epoch
+     learning proof (tools/prove_learning.py: SyntheticMultiCue, batch 128,
+     100 steps per epoch, Adam 1e-3, the probe at init and after each epoch
+     through Trainer.fit's eval_fn hook), its losses finite and its scores
+     in [0, 1], launches counted per step and per probe.
 The `kernels` JSON line lists every ported kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -69,9 +85,14 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import glob
+import io
 import json
+import os
 import statistics
 import sys
+import tempfile
 import time
 
 import torch
@@ -132,6 +153,19 @@ VIT_DEPTH, VIT_HEADS, VIT_DIM, VIT_TOKENS = 12, 12, 768, 25
 EVAL_ITEMS = {"train": 1024, "val": 256, "test": 256}   # SyntheticLMS clips per loader
 EVAL_CLASSES = 10
 EVAL_MAX_ITER = 20   # probe epochs (eval_linear's max_iter)
+RESUME_EPOCHS = 4    # phase 9: epochs of each pretraining run; the resumed run starts at 3
+PRETRAIN = {         # phase 9: each run's flags, steps per epoch and launches per step
+    "pretrain_audiontt": (["--dataset", "synthetic_wav", "--model_type", "audiontt"], 3,
+                          {"log_mel_folded": 1, "fused_conv1_fwd": 2, "fused_conv1_bwd": 2}),
+    "pretrain_vit": (["--dataset", "synthetic_wav", "--model_type", "vit_base",
+                      "--fused_attention", "--optimizer", "AdamW", "--lr_schedule"], 2,
+                     {"log_mel_folded": 1, "fused_attention_fwd": 2 * 12,
+                      "fused_attention_bwd": 2 * 12})}
+PROOF_FLAGS = ["--dataset", "synthetic_multicue", "--model_type", "audiontt", "--epochs", "3",
+               "--batch_size", "128", "--synthetic_steps_per_epoch", "100",
+               "--optimizer", "Adam", "--lr", "1e-3"]
+PROOF_STEP = {"fused_conv1_fwd": 2, "fused_conv1_bwd": 2}     # log-mels in: no frontend
+PROOF_PROBE = {"fused_conv1_fwd": 8}   # eval batches of 128: 400 + 200 + 200 clips
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -1251,6 +1285,166 @@ def phase_eval(seed: int, dev: torch.device, smi: str) -> dict:
     return out
 
 
+def expect(counts: dict, per_unit: dict, units: int, what: str) -> dict:
+    """counts must be `units` x per_unit (every other kernel 0) -> the counts
+    per unit."""
+    want = {k: units * per_unit.get(k, 0) for k in counts}
+    if counts != want:
+        raise SystemExit(f"{what}: launched {counts}, expected {want}")
+    return {k: per_unit.get(k, 0) for k in counts}
+
+
+def run_main(argv: list[str]):
+    """ssl_audio_tpu_torch.main.main(argv) in-process, its stdout kept, the
+    counters zeroed just before and read just after -> (trainer, seconds,
+    launches, output lines)."""
+    from ssl_audio_tpu_torch.main import main as train_main
+
+    out = io.StringIO()
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        trainer = train_main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if trainer.device.type != "cuda":
+        raise SystemExit(f"main trained on {trainer.device}, not the card")
+    return trainer, seconds, launch_counts(), out.getvalue().splitlines()
+
+
+def state_gap(a, b) -> tuple[float, str]:
+    """The largest absolute difference over two train states' modules
+    (parameters and running statistics), and the tensor it is in."""
+    sa, sb = a.state.modules.state_dict(), b.state.modules.state_dict()
+    gaps = {k: float((v.double() - sb[k].double()).abs().max()) for k, v in sa.items()}
+    name = max(gaps, key=gaps.get)
+    return gaps[name], name
+
+
+def resume_check(path: str, seed: int):
+    """Two uninterrupted RESUME_EPOCHS-epoch runs of main and one resumed
+    from the first run's model_2.pt (in the working directory) -> (the
+    record, the first run's trainer, its last checkpoint)."""
+    from ssl_audio_tpu_torch.utils import checkpoint as ckpt_lib
+
+    flags, steps, per_step = PRETRAIN[path]
+    base = flags + ["--epochs", str(RESUME_EPOCHS), "--synthetic_steps_per_epoch", str(steps),
+                    "--seed", str(seed)]
+    runs = {}
+    for name, extra in (("a", ["--epoch_save_f", "2"]), ("b", ["--epoch_save_f", str(RESUME_EPOCHS)])):
+        runs[name] = run_main(base + extra + ["--save_base_dir", f"{path}/{name}"])
+        expect(runs[name][2], per_step, RESUME_EPOCHS * steps, f"{path} run {name}")
+    (ckpt2,) = glob.glob(f"{path}/a/results/*/*/model_2.pt")
+    (ckpt_last,) = glob.glob(f"{path}/a/results/*/*/model_{RESUME_EPOCHS}.pt")
+    runs["r"] = run_main(base + ["--epoch_save_f", "2", "--save_base_dir", f"{path}/r",
+                                 "--resume_path", ckpt2])
+    per_step = expect(runs["r"][2], per_step, (RESUME_EPOCHS - 2) * steps, f"{path} resumed")
+    if not any(line.startswith(f"Resumed from {ckpt2} at epoch 3") for line in runs["r"][3]):
+        raise SystemExit(f"{path}: the resumed run did not start at epoch 3")
+    a, b, r = (runs[k][0] for k in "abr")
+    gap_ab, where_ab = state_gap(a, b)
+    gap_ar, where_ar = state_gap(a, r)
+    losses = {k: runs[k][0].epoch_losses for k in "abr"}
+    for k, ls in losses.items():
+        if not all(v == v and abs(v) != float("inf") for v in ls.values()):
+            raise SystemExit(f"{path} run {k}: non-finite epoch loss {ls}")
+
+    # the checkpoint's size, and one save and one load of it, timed
+    timed = "timed.pt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_lib.save_checkpoint(timed, a.state, RESUME_EPOCHS + 1,
+                             ckpt_lib.encode_rng(a.gen, a.host_rng))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt_lib.load_checkpoint(timed, a.state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    record = {"flags": base, "losses": {k: {str(e): v for e, v in ls.items()}
+                                        for k, ls in losses.items()},
+              "gap_uninterrupted": gap_ab, "gap_uninterrupted_tensor": where_ab,
+              "gap_resumed": gap_ar, "gap_resumed_tensor": where_ar,
+              "checkpoint_bytes": os.path.getsize(timed), "save_s": save_s, "load_s": load_s,
+              "run_s": {k: runs[k][1] for k in "abr"}, "launches_per_step": per_step}
+    print(f"  {path}: " + json.dumps(record))
+    os.remove(timed)
+    if gap_ab == 0.0:
+        if gap_ar != 0.0 or losses["r"] != {e: losses["a"][e] for e in losses["r"]}:
+            raise SystemExit(f"{path}: two uninterrupted runs are bit-identical, the resumed "
+                             f"one is not (gap {gap_ar} in {where_ar})")
+    elif gap_ar > gap_ab:
+        raise SystemExit(f"{path}: resumed vs uninterrupted {gap_ar} ({where_ar}) above "
+                         f"uninterrupted vs uninterrupted {gap_ab} ({where_ab})")
+    return record, a, os.path.abspath(ckpt_last)
+
+
+def phase_pretraining(seed: int, dev: torch.device, smi: str) -> dict:
+    from ssl_audio_tpu_torch.hear import conv as hear_conv
+    from ssl_audio_tpu_torch.tools import prove_learning
+    from ssl_audio_tpu_torch.tools.serving import seeded_clips
+
+    print("phase 9: pretraining runs through main (AudioNTT2022 at the defaults, ViT-B "
+          "--fused_attention AdamW --lr_schedule), checkpoints and resume, HEAR from a "
+          "checkpoint, a 3-epoch learning proof")
+    out = {"card": smi, "launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, contextlib.chdir(tmp):
+        for path in PRETRAIN:
+            out[path], trainer, ckpt_last = resume_check(path, seed)
+            out["launches"][path] = out[path]["launches_per_step"]
+            if path != "pretrain_audiontt":
+                continue
+            # HEAR from the checkpoint file against the trainer's encoder in memory
+            served = hear_conv.load_model(ckpt_last, fused_conv=True)
+            in_memory = hear_conv.load_model("", fused_conv=True)
+            in_memory.model.load_state_dict(trainer.state.modules["encoder"].state_dict())
+            audio = seeded_clips(torch.Generator().manual_seed(seed), N_CLIPS, CLIP)
+            zero_launch_counts()
+            emb, _ = hear_conv.get_timestamp_embeddings(audio, served)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            emb_mem, _ = hear_conv.get_timestamp_embeddings(audio, in_memory)
+            out["launches"]["hear_checkpoint_timestamp"] = expect(
+                launches, {"log_mel_folded": 7, "fused_conv1_fwd": 7}, 1,
+                "the timestamp request from the checkpoint")
+            out["hear_checkpoint"] = {"checkpoint": os.path.basename(ckpt_last),
+                                      "shape": list(emb.shape),
+                                      "max_abs_diff_vs_in_memory": max_err(emb, emb_mem),
+                                      "bit_identical": bool(torch.equal(emb, emb_mem))}
+            print("  HEAR timestamp request from the checkpoint: "
+                  + json.dumps(out["hear_checkpoint"]) + f", launches {launches}")
+            if not out["hear_checkpoint"]["bit_identical"]:
+                raise SystemExit("the checkpoint's encoder serves other embeddings than "
+                                 "the trainer's")
+            del trainer, served, in_memory
+        torch.cuda.empty_cache()
+
+        zero_launch_counts()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            record = prove_learning.main(PROOF_FLAGS + ["--seed", str(seed), "--out",
+                                                        "proof.json"])
+        epochs = record["epochs"]
+        for e in epochs:
+            if not (0.0 <= e["score"] <= 1.0) or (
+                    e["loss"] is not None and not (e["loss"] == e["loss"]
+                                                   and abs(e["loss"]) != float("inf"))):
+                raise SystemExit(f"learning proof: epoch {e['epoch']} loss {e['loss']} "
+                                 f"score {e['score']}")
+            if e["epoch"]:
+                out["launches"]["proof_step"] = expect(
+                    e["train_launches"], PROOF_STEP, record["steps_per_epoch"],
+                    f"learning proof epoch {e['epoch']}'s steps")
+            out["launches"]["proof_probe"] = expect(e["probe_launches"], PROOF_PROBE, 1,
+                                                    f"learning proof probe {e['epoch']}")
+        out["proof"] = {"flags": PROOF_FLAGS, "scores": [e["score"] for e in epochs],
+                        "losses": [e["loss"] for e in epochs], "learned": record["learned"],
+                        "wall_s": record["wall_s"], "ms_per_step": record["ms_per_step"],
+                        "probe_s": [e["probe_s"] for e in epochs]}
+        print("  learning proof: " + json.dumps(out["proof"]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1284,12 +1478,17 @@ def main() -> int:
     training_vit = phase_training_vit(args.seed, dev, smi)
     serving_vit = phase_serving_vit(gen, dev, smi)
     evaluation = phase_eval(args.seed, dev, smi)
+    t9 = time.perf_counter()
+    pretraining = phase_pretraining(args.seed, dev, smi)
+    print(f"  phase 9: {time.perf_counter() - t9:.1f} s")
     # launches on the main paths, per path (timestamp request, scene request,
     # one AudioNTT train step, one ViT-B train step, the ViT timestamp and
-    # scene requests, eval_linear with each encoder) and in all
+    # scene requests, eval_linear with each encoder; phase 9: one step of
+    # each pretraining run, the timestamp request from a checkpoint, one
+    # step and one probe of the learning proof) and in all
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
-               **evaluation["launches"]}
+               **evaluation["launches"], **pretraining["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -136,6 +136,14 @@ class MixupState:
     count: int = 0
     pos: int = 0
 
+    def state_dict(self) -> dict:
+        return {"bank": self.bank, "count": self.count, "pos": self.pos}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Copies the bank into this state's tensor (its device stays)."""
+        self.bank.copy_(sd["bank"])
+        self.count, self.pos = int(sd["count"]), int(sd["pos"])
+
 
 def init_mixup_state(n_memory: int, shape, device=None) -> MixupState:
     return MixupState(bank=torch.zeros(n_memory, *shape, device=device))
@@ -229,6 +237,14 @@ class RunningNormState:
     mu: torch.Tensor          # mean, the shape of one reduced sample
     s2: torch.Tensor          # running mean of the squared deviation
     n: int = 0                # updates so far
+
+    def state_dict(self) -> dict:
+        return {"mu": self.mu, "s2": self.s2, "n": self.n}
+
+    def load_state_dict(self, sd: dict) -> None:
+        device = self.mu.device
+        self.mu, self.s2 = sd["mu"].to(device), sd["s2"].to(device)
+        self.n = int(sd["n"])
 
 
 def init_running_norm_state(shape, device=None) -> RunningNormState:

@@ -31,6 +31,20 @@ class AugmentState:
     mixup: Optional[A.MixupState]
     running_norm: Optional[A.RunningNormState] = None
 
+    def state_dict(self) -> dict:
+        """Tensors and ints only (None where a part is off)."""
+        return {name: None if part is None else part.state_dict()
+                for name, part in (("mixup", self.mixup), ("running_norm", self.running_norm))}
+
+    def load_state_dict(self, sd: dict) -> None:
+        for name, part in (("mixup", self.mixup), ("running_norm", self.running_norm)):
+            if (part is None) != (sd[name] is None):
+                raise ValueError(f"augmentation state {name!r}: the checkpoint has "
+                                 f"{'none' if sd[name] is None else 'one'}, this run "
+                                 f"{'none' if part is None else 'one'}")
+            if part is not None:
+                part.load_state_dict(sd[name])
+
 
 def init_augment_state(cfg, sample_shape: Tuple[int, ...] = None,
                        device=None) -> AugmentState:

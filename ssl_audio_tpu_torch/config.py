@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import json
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -34,7 +36,7 @@ OPTIMIZERS = ["Adam", "AdamW", "SGD", "LARS"]
 
 PORTED_MODELS = ("audiontt", "vit_base", "vit_small", "vit_tiny",
                  "vitc_base", "vitc_small", "vitc_tiny")
-PORTED_DATASETS = ("synthetic", "synthetic_wav")
+PORTED_DATASETS = ("synthetic", "synthetic_wav", "synthetic_multicue")
 
 
 @dataclass
@@ -215,8 +217,6 @@ def unsupported_settings(cfg: Config) -> List[str]:
             ("--use_fp16_eval", cfg.use_fp16_eval, "bf16 embedding extraction"),
             ("--squeeze_excitation", cfg.squeeze_excitation, "SE blocks"),
             ("--steps_per_dispatch > 1", cfg.steps_per_dispatch != 1, "multi-step dispatch"),
-            ("--resume_path", bool(cfg.resume_path), "checkpoints and resume"),
-            ("--save_base_dir", bool(cfg.save_base_dir), "checkpoints"),
             ("--profile_dir", bool(cfg.profile_dir), "the loop's profiler trace"),
             ("--distributed", cfg.distributed, "data-parallel training"),
             ("--data_axis_size", cfg.data_axis_size not in (0, 1), "data-parallel training"),
@@ -234,6 +234,14 @@ def require_supported(cfg: Config) -> None:
     bad = unsupported_settings(cfg)
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(bad))
+
+
+def config_fingerprint(cfg: Config):
+    """(resolved-config dict, short sha256): stamped into the learning
+    proof's record, so a record made under another configuration shows."""
+    d = dataclasses.asdict(cfg)
+    blob = json.dumps(d, sort_keys=True, default=str)
+    return d, hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
 def _add_bool_pair(parser, name, default, negative=None):

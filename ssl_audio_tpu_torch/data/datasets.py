@@ -1,6 +1,6 @@
-"""Datasets of the port (the synthetic ones of ssl_audio_tpu/data/datasets.py
-and its normalisation statistics).  The on-disk datasets (FSD50K, AudioSet,
-LibriSpeech, NSynth) are not ported yet."""
+"""Datasets of the port (the synthetic ones of ssl_audio_tpu/data/datasets.py,
+calculate_norm_stats and the normalisation statistics).  The on-disk
+datasets (FSD50K, AudioSet, LibriSpeech, NSynth) are not ported yet."""
 from __future__ import annotations
 
 from typing import Optional
@@ -42,6 +42,56 @@ class SyntheticLMS:
             -0.5 * ((mel_axis - (cls + 0.5) / self.n_classes) / self.env_width) ** 2)
         lms = rng.standard_normal((1, self.cfg.n_mels, self.cfg.crop_frames)).astype(np.float32)
         lms = lms * self.noise + self.env_gain * env[None].astype(np.float32)
+        y = np.zeros(self.n_classes, np.float32)
+        y[cls] = 1.0
+        return lms, y
+
+
+class SyntheticMultiCue:
+    """Random log-mel clips whose class survives the augmentations
+    (--dataset synthetic_multicue, the learning proof's task).
+
+    A class is a pair of cues: a spectral envelope position (n_env bands)
+    and a temporal amplitude-modulation rate (n_rate geometric rates).  The
+    random resize crop warps each axis by U(0.6, 1.5) per view, which
+    jitters the band position and the rate but cannot erase both at once
+    (band spacing 1 / n_env and the rate ratio are wider than the warp);
+    mixup and the linear fader leave the dominant envelope and modulation
+    in place.  Item idx draws from np.random.default_rng(seed * 1_000_003 +
+    idx), as the JAX dataset does, so both give the same bits."""
+
+    def __init__(self, cfg, length: Optional[int] = None, n_env=4, n_rate=5,
+                 seed=0, gain=1.2, env_width=0.09, noise=1.0,
+                 rate_min=2.0, rate_ratio=2.2, am_depth=0.9):
+        self.cfg = cfg
+        self.length = length if length is not None else cfg.synthetic_len
+        self.n_env = n_env
+        self.n_rate = n_rate
+        self.n_classes = n_env * n_rate
+        self.label_num = self.n_classes
+        self.seed = seed
+        self.gain = gain
+        self.env_width = env_width
+        self.noise = noise
+        self.rate_min = rate_min
+        self.rate_ratio = rate_ratio
+        self.am_depth = am_depth
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(self.seed * 1_000_003 + idx)
+        cls = idx % self.n_classes
+        e, r = cls % self.n_env, cls // self.n_env
+        F, T = self.cfg.n_mels, self.cfg.crop_frames
+        mel = np.linspace(0, 1, F)[:, None]
+        env = np.exp(-0.5 * ((mel - (e + 0.5) / self.n_env) / self.env_width) ** 2)
+        rate = self.rate_min * self.rate_ratio ** r          # cycles per clip
+        t = np.linspace(0, 1, T)[None, :]
+        am = 1.0 + self.am_depth * np.sin(2 * np.pi * rate * t + rng.uniform(0, 2 * np.pi))
+        lms = rng.standard_normal((1, F, T)).astype(np.float32) * self.noise
+        lms += (self.gain * env * am)[None].astype(np.float32)
         y = np.zeros(self.n_classes, np.float32)
         y[cls] = 1.0
         return lms, y

@@ -4,7 +4,7 @@ linear.py and main.py:198-237 eval_linear).
 Embeddings for train / val / test (ViTs through the batched unit splitter
 of encode.py), the MLP probe fit on them and scored (accuracy or mAP), and
 the 5-per-class low-shot protocol.  The FSD50K loaders and the per-epoch
-hook wait for the on-disk datasets and checkpoints, and raise.
+FSD50K hook wait for the on-disk datasets, and raise.
 """
 from __future__ import annotations
 
@@ -87,5 +87,5 @@ def get_fsd50k_eval_loaders(cfg, data_dir="data", crop_frames=711):
 
 
 def make_epoch_eval_fn(cfg, data_dir="data", wandb_run=None):
-    raise NotImplementedError("the per-epoch FSD50K probe needs the on-disk datasets "
-                              "and checkpoints, which are not ported yet")
+    raise NotImplementedError("the per-epoch FSD50K probe needs the on-disk datasets, "
+                              "which are not ported yet")

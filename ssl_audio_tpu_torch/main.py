@@ -6,23 +6,60 @@ JAX package).
 
 Same CLI flags.  Runs on the card; without one it raises unless
 `--device cpu` is given (the plain PyTorch path, for checks at small sizes).
-Nothing is saved and nothing is evaluated yet: checkpoints, resume and the
-per-epoch evaluation are not ported, and the synthetic datasets have
-nothing to evaluate on.
+
+As in JAX, a run writes its checkpoints to
+`{--save_base_dir}/results/{dataset}/{save_name}/model_{epoch}.pt` (every
+`--epoch_save_f` epochs and at the last one) and its CSV log to
+`logs/training/{dataset}/{save_name}/log.csv` under the working directory;
+`--resume_path <model_{e}.pt>` continues a run from the epoch after e with
+its generators, bit for bit where the device is deterministic.  A
+checkpoint's encoder serves through `hear.conv.load_model(path)` (AudioNTT)
+and `hear.vit.load_model(path, model_type, ...)` (the ViT family).  The
+per-epoch probe needs the FSD50K data, which is not ported: without it the
+run says "Epoch eval disabled" and trains on.
 """
 from __future__ import annotations
 
-from ssl_audio_tpu_torch.config import config_from_args
+import datetime
+import os
+
+from ssl_audio_tpu_torch.config import config_from_args, require_supported
 from ssl_audio_tpu_torch.train.loop import Trainer
+from ssl_audio_tpu_torch.utils.logging_utils import WandbRun
 
 
 def main(argv=None):
     cfg = config_from_args(argv)
-    trainer = Trainer(cfg)
+    require_supported(cfg)          # before anything is written
+    if cfg.resume_path and not os.path.isfile(cfg.resume_path):
+        raise FileNotFoundError(f"--resume_path {cfg.resume_path}: no such checkpoint file")
+
+    timestamp = datetime.datetime.now().strftime("%H:%M_%h%d")
+    save_name = (
+        f"{cfg.model_type}_{cfg.epochs}_epochs" if cfg.name == ""
+        else f"{cfg.model_type}_{cfg.name}"
+    ) + timestamp
+    wandb_run = WandbRun(project=f"Pre-training {cfg.dataset}", config=cfg, name=save_name)
+    log_dir = f"logs/training/{cfg.dataset}/{save_name}/"
+    ckpt_path = os.path.join(cfg.save_base_dir, f"results/{cfg.dataset}/{save_name}")
+    os.makedirs(ckpt_path, exist_ok=True)
+
+    eval_fn = None
+    if not cfg.no_eval and cfg.dataset not in ("synthetic",):
+        from ssl_audio_tpu_torch.eval.linear import make_epoch_eval_fn
+
+        try:
+            eval_fn = make_epoch_eval_fn(cfg, wandb_run=wandb_run)
+        except (FileNotFoundError, NotImplementedError) as e:
+            print(f"Epoch eval disabled: {e}")
+
+    trainer = Trainer(cfg, log_dir=log_dir, wandb_run=wandb_run)
     print(f"training {cfg.model_type} on {cfg.dataset}: {cfg.epochs} epochs x "
           f"{trainer.niter_per_ep} steps, batch {cfg.batch_size}, {cfg.optimizer}, "
-          f"device {trainer.device}; no checkpoints, no per-epoch evaluation")
-    trainer.fit()
+          f"device {trainer.device}; checkpoints in {ckpt_path}, log in {log_dir}")
+    trainer.fit(ckpt_path=ckpt_path, resume_path=cfg.resume_path, eval_fn=eval_fn)
+    wandb_run.finish()
+    return trainer
 
 
 if __name__ == "__main__":

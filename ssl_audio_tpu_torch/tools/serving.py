@@ -210,7 +210,9 @@ def per_launch_ms(fn) -> dict:
 
 def profile(fn) -> dict:
     """Wall ms of one call of fn (ending in a synchronise), device ms by
-    kernel name and the device's idle share, from torch.profiler."""
+    kernel name, the device's idle share and the host's own ms by operation
+    (CPU self time: where the host spends a host-bound call), from
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -219,8 +221,10 @@ def profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel = {}
+    by_kernel, host = {}, {}
     for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0:
+            host[e.key] = e.self_cpu_time_total / 1e3
         dev_us = getattr(e, "self_device_time_total", 0.0)
         # a user annotation (Optimizer.step#...) repeats its kernels' time
         if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA \
@@ -228,9 +232,11 @@ def profile(fn) -> dict:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + dev_us / 1e3
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    top_host = sorted(host.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
-            "device_ms_by_kernel": dict(top[:15])}
+            "device_ms_by_kernel": dict(top[:15]),
+            "host_self_ms_by_op": dict(top_host[:12])}
 
 
 def main() -> int:

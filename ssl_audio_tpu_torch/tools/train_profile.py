@@ -3,6 +3,7 @@ of its step on the card.
 
     python3 -m ssl_audio_tpu_torch.tools.train_profile [--seed 0] [--steps 10]
         [--model_type vit_base [--fused_attention] [--mask_ratio 0.75 [--token_drop]]]
+        [--dataset synthetic_multicue] [--optimizer Adam --lr 1e-3] [--loop 30]
 
 Builds a pretraining configuration at full width with weights drawn from a
 seed, and one batch of 128 seeded 10-s clips resident on the card: by
@@ -24,6 +25,7 @@ import json
 import statistics
 import time
 
+import numpy as np
 import torch
 
 from ssl_audio_tpu_torch.ops import launch_counts, zero_launch_counts
@@ -42,16 +44,32 @@ def train_config(**overrides):
 
 def seeded_training(seed: int, device, **overrides):
     """-> (cfg, state, train_step, gen): the train state with weights drawn
-    from `seed`, the step over the device frontend, and the generator on
-    `device` the step's random numbers come from."""
+    from `seed`, the step (over the device frontend for a wav dataset), and
+    the generator on `device` the step's random numbers come from."""
     from ssl_audio_tpu_torch.train.state import init_train_state
     from ssl_audio_tpu_torch.train.steps import make_device_frontend, make_train_step
 
     cfg = train_config(seed=seed, **overrides)
     state = init_train_state(cfg, torch.Generator().manual_seed(seed), device=device)
-    step = make_train_step(cfg, frontend=make_device_frontend(cfg, (0.0, 1.0)))
+    frontend = make_device_frontend(cfg, (0.0, 1.0)) if cfg.dataset.endswith("_wav") else None
+    step = make_train_step(cfg, frontend=frontend)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     return cfg, state, step, gen
+
+
+class CachedItems:
+    """A dataset's items, made once: __getitem__ is a list lookup."""
+
+    def __init__(self, dataset):
+        self.items = [dataset[i] for i in range(len(dataset))]
+        self.label_num = dataset.label_num
+        self.returns_wav = getattr(dataset, "returns_wav", False)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, idx):
+        return self.items[idx]
 
 
 def step_wall_ms(run_step, steps: int) -> list[float]:
@@ -74,17 +92,29 @@ def main() -> int:
     ap.add_argument("--fused_attention", action="store_true")
     ap.add_argument("--mask_ratio", type=float, default=0.0)
     ap.add_argument("--token_drop", action="store_true")
+    ap.add_argument("--dataset", default="synthetic_wav",
+                    choices=["synthetic_wav", "synthetic_multicue"])
+    ap.add_argument("--optimizer", default=None, choices=["LARS", "Adam", "AdamW", "SGD"])
+    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--loop", type=int, default=0)
+    ap.add_argument("--loop_cached", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile is a device measurement")
     dev = torch.device("cuda")
     smi = smi_line()
-    overrides = {}
+    overrides = dict(dataset=args.dataset, optimizer=args.optimizer, lr=args.lr)
     if args.model_type != "audiontt":
-        overrides = dict(model_type=args.model_type, fused_attention=args.fused_attention)
+        overrides.update(model_type=args.model_type, fused_attention=args.fused_attention)
     cfg, state, step, gen = seeded_training(args.seed, dev, **overrides)
-    wavs = seeded_clips(torch.Generator().manual_seed(args.seed), cfg.batch_size,
-                        CLIP_SECONDS * SAMPLE_RATE).to(dev)
+    if args.dataset == "synthetic_wav":
+        wavs = seeded_clips(torch.Generator().manual_seed(args.seed), cfg.batch_size,
+                            CLIP_SECONDS * SAMPLE_RATE).to(dev)
+    else:
+        from ssl_audio_tpu_torch.data.datasets import SyntheticMultiCue
+
+        ds = SyntheticMultiCue(cfg, length=cfg.batch_size, seed=args.seed)
+        wavs = torch.from_numpy(np.stack([ds[i][0] for i in range(len(ds))])).to(dev)
     masking = {}
     if args.mask_ratio > 0:
         gh, gw = state.modules["encoder"].grid_size()
@@ -99,6 +129,7 @@ def main() -> int:
     times = step_wall_ms(run_step, args.steps)
     median = statistics.median(times)
     print(json.dumps({"what": "train step", "model_type": cfg.model_type,
+                      "dataset": cfg.dataset, "optimizer": cfg.optimizer,
                       "fused_attention": bool(cfg.fused_attention), **masking,
                       "batch": cfg.batch_size, "card": smi,
                       "steps": args.steps, "ms_per_step_median": median,
@@ -108,6 +139,24 @@ def main() -> int:
     prof = profile(run_step)
     print(json.dumps({"what": "train step profile", "card": smi,
                       "launches": launch_counts(), **prof}))
+    if args.loop:
+        from ssl_audio_tpu_torch.train.loop import Trainer
+
+        from ssl_audio_tpu_torch.train.loop import get_train_dataset
+
+        loop_cfg = cfg.replace(epochs=2, synthetic_steps_per_epoch=args.loop)
+        dataset = get_train_dataset(loop_cfg)
+        if args.loop_cached:
+            dataset = CachedItems(dataset)
+        trainer = Trainer(loop_cfg, dataset=dataset, log=lambda line: None)
+        trainer.train_one_epoch(1)                # warm-up epoch
+        prof = profile(lambda: trainer.train_one_epoch(2))
+        print(json.dumps({"what": f"{args.loop}-step epoch through the Trainer profile",
+                          "items": "made before the epoch" if args.loop_cached
+                          else "made by the loader's threads beside the steps",
+                          "dataset": cfg.dataset, "optimizer": cfg.optimizer,
+                          "num_workers": cfg.num_workers, "card": smi,
+                          "ms_per_step": prof["wall_ms"] / args.loop, **prof}))
     return 0
 
 

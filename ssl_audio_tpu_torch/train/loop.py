@@ -1,18 +1,22 @@
-"""The training loop: dataset selection, the epoch loop and logging (port of
+"""The training loop: dataset selection, the epoch loop, checkpoints and
+resume, the per-epoch evaluation hook and logging (port of
 ssl_audio_tpu/train/loop.py around the eager step of train/steps.py).
 
-Ported: the synthetic datasets, Trainer, train_one_epoch, fit, and the ViT
+Ported: the synthetic datasets, Trainer, train_one_epoch, fit (checkpoints
+every epoch_save_f epochs and at the last, deterministic resume, eval_fn
+every epoch_eval_f epochs and at the last), the CSV log, and the ViT
 teacher's masking per step (mask_ratio_for_step: a fixed ratio, a random
 one, or the sine schedule; token drop with a static len_keep).  Not yet:
-checkpoints and resume, the per-epoch evaluation hook, the profiler trace,
-multi-step dispatch and the on-disk datasets; their settings raise
-NotImplementedError (config.require_supported) when the Trainer is built.
+the profiler trace, multi-step dispatch and the on-disk datasets; their
+settings raise NotImplementedError (config.require_supported) when the
+Trainer is built.
 """
 from __future__ import annotations
 
+import os
 import sys
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -26,7 +30,9 @@ from ssl_audio_tpu_torch.train.steps import (
     make_device_frontend,
     make_train_step,
 )
+from ssl_audio_tpu_torch.utils import checkpoint as ckpt_lib
 from ssl_audio_tpu_torch.utils import resolve_device
+from ssl_audio_tpu_torch.utils.logging_utils import make_csv_logger
 from ssl_audio_tpu_torch.utils.schedules import sine_scheduler_increase
 
 LOG_EVERY = 50          # steps between fetches of the device-side monitor
@@ -36,10 +42,13 @@ def get_train_dataset(cfg):
     length = cfg.synthetic_steps_per_epoch * cfg.batch_size
     if cfg.dataset == "synthetic":
         return D.SyntheticLMS(cfg, length=length, seed=cfg.seed)
+    if cfg.dataset == "synthetic_multicue":
+        return D.SyntheticMultiCue(cfg, length=length, seed=cfg.seed)
     if cfg.dataset == "synthetic_wav":
         return D.SyntheticWav(cfg, length=length, seed=cfg.seed)
     raise NotImplementedError(
-        f"dataset {cfg.dataset!r} is not ported yet (synthetic, synthetic_wav)")
+        f"dataset {cfg.dataset!r} is not ported yet (synthetic, synthetic_multicue, "
+        "synthetic_wav)")
 
 
 def mask_ratio_for_step(cfg, schedule, iteration: int, rng: np.random.Generator) -> float:
@@ -69,12 +78,19 @@ def token_drop_len_keep(n_tokens: int, mask_ratio: float) -> Optional[int]:
 
 class Trainer:
     """cfg.device None = the card: without one the Trainer raises unless
-    cfg.device is "cpu"."""
+    cfg.device is "cpu".  `log` takes every log line (stdout by default);
+    with `log_dir` the step and score lines also go to log_dir/log.csv, and
+    with `wandb_run` (utils.logging_utils.WandbRun) the losses to wandb.
+    epoch_losses maps each epoch this Trainer ran to its mean loss."""
 
-    def __init__(self, cfg, dataset=None, log=print):
+    def __init__(self, cfg, dataset=None, log=print, log_dir: Optional[str] = None,
+                 wandb_run=None):
         require_supported(cfg)
         self.cfg = cfg
         self.log = log
+        self.logger = make_csv_logger(log_dir) if log_dir else None
+        self.wandb_run = wandb_run
+        self.epoch_losses: dict[int, float] = {}
         self.device = resolve_device(cfg.device)
         self.dataset = dataset if dataset is not None else get_train_dataset(cfg)
         self.loader = DataLoader(self.dataset, cfg.batch_size, shuffle=True,
@@ -139,9 +155,12 @@ class Trainer:
             if it % LOG_EVERY == 0:
                 # sampled sync point: one fetch covers every step since the last
                 self._check_monitor(monitor)
-                self.log("epoch,{},step,{},loss,{},data_time,{:.4f},step_time,{:.4f}".format(
+                loss_val = float(metrics["loss"])
+                self._record("epoch,{},step,{},loss,{},data_time,{:.4f},step_time,{:.4f}".format(
                     epoch, self.niter_per_ep * (epoch - 1) + it,
-                    float(metrics["loss"]), dt_i, time.time() - tflag))
+                    loss_val, dt_i, time.time() - tflag))
+                if self.wandb_run is not None:
+                    self.wandb_run.log({"Loss": loss_val})
             t_step += time.time() - tflag
             tflag = time.time()
         loss_sum = self._check_monitor(monitor)
@@ -150,9 +169,48 @@ class Trainer:
                  f"data_time={t_data:.1f}s step_time={t_step:.1f}s "
                  f"({self.niter_per_ep * cfg.batch_size / max(t_data + t_step, 1e-9):.0f} "
                  f"samples/s) on {self.device}")
+        self.epoch_losses[epoch] = avg
         return avg
 
-    def fit(self):
-        for epoch in range(1, self.cfg.epochs + 1):
+    def _record(self, line: str) -> None:
+        """A metrics line: to the log, and to the CSV log where there is one."""
+        self.log(line)
+        if self.logger is not None:
+            self.logger.info(line)
+
+    def fit(self, ckpt_path: Optional[str] = None, resume_path: Optional[str] = None,
+            eval_fn: Optional[Callable] = None):
+        """Epochs 1..cfg.epochs, or from the epoch a checkpoint at
+        `resume_path` names.  With `ckpt_path`, writes
+        ckpt_path/model_{epoch}.pt every epoch_save_f epochs and at the last
+        one; unless cfg.no_eval, calls eval_fn(state, epoch) every
+        epoch_eval_f epochs and at the last one and logs what it returns.
+
+        A resume restores the train state, then the device generator and the
+        host generator (after the modules were built, which drew from a
+        generator of their own); the loader's shuffle is seeded by the epoch,
+        so the resumed epochs replay an uninterrupted run's randomness."""
+        cfg = self.cfg
+        start_epoch = 1
+        if resume_path:
+            _, start_epoch, rng = ckpt_lib.load_checkpoint(resume_path, self.state)
+            if rng is None:
+                raise ValueError(f"{resume_path} holds no generator states: it is not "
+                                 "a training checkpoint")
+            self.gen, self.host_rng = ckpt_lib.decode_rng(rng, self.device)
+            self.log(f"Resumed from {resume_path} at epoch {start_epoch}")
+
+        for epoch in range(start_epoch, cfg.epochs + 1):
             self.train_one_epoch(epoch)
+            last = epoch == cfg.epochs
+            if ckpt_path and (epoch % cfg.epoch_save_f == 0 or last):
+                path = os.path.join(ckpt_path, f"model_{epoch}.pt")
+                ckpt_lib.save_checkpoint(path, self.state, epoch + 1,
+                                         ckpt_lib.encode_rng(self.gen, self.host_rng))
+                self.log(f"Saved checkpoint {path}")
+            if eval_fn and not cfg.no_eval and (epoch % cfg.epoch_eval_f == 0 or last):
+                scores = eval_fn(self.state, epoch)
+                if scores:
+                    self._record("epoch,{},step,{},linear_score,{}".format(
+                        epoch, self.niter_per_ep * epoch, scores))
         return self.state

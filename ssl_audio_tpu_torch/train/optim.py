@@ -44,7 +44,9 @@ class LARS(torch.optim.Optimizer):
         mu = momentum * mu + dp
         p -= lr(p) * factor(step) * mu
 
-    factor_fn maps the number of steps taken so far to the LR factor."""
+    factor_fn maps the number of steps taken so far to the LR factor.  The
+    count travels in state_dict() beside the momentum, so a resumed run
+    continues its schedule where it stopped."""
 
     def __init__(self, params: Iterable, lr_weights: float, lr_biases: float,
                  factor_fn: Callable[[int], float] = lambda step: 1.0,
@@ -80,6 +82,16 @@ class LARS(torch.optim.Optimizer):
                 lr = group["lr_biases"] if is_bias else group["lr_weights"]
                 p.add_(mu, alpha=-lr * f)
         self.count += 1
+
+    def state_dict(self) -> dict:
+        sd = super().state_dict()
+        sd["count"] = self.count
+        return sd
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
 
 
 def frozen_param_names(cfg, named_params) -> set[str]:

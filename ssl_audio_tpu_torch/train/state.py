@@ -5,8 +5,10 @@ The JAX package threads parameters, batch statistics, optimizer state and
 the augmentation state through a pure step function as one pytree.  Here
 the modules own their parameters and running statistics, the optimizer its
 momentum, and a step updates all of them in place; TrainState is the one
-handle on them.  The teacher/student step only: the BYOL variant's target
-network is not ported yet.
+handle on them, and state_dict() / load_state_dict() carry all of it
+through a checkpoint.  The teacher/student step only: the BYOL variant's
+target network is not ported yet (its modules would travel under a key of
+their own beside "model").
 """
 from __future__ import annotations
 
@@ -36,6 +38,34 @@ class TrainState:
     @property
     def device(self) -> torch.device:
         return next(self.modules.parameters()).device
+
+    def state_dict(self) -> dict:
+        """Everything a step reads and updates: "model" (the modules under
+        the reference's parameter names: encoder.*, head.*, predictor.*),
+        "optimizer" (momentum or moments, and LARS's step count),
+        "scheduler" (None for LARS), "augment" (the mixup bank with its
+        count and position, the running norm) and "step".  Tensors, ints,
+        floats and containers only; the tensors are this state's own, on its
+        device."""
+        return {"model": self.modules.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": None if self.scheduler is None else self.scheduler.state_dict(),
+                "augment": self.aug.state_dict(),
+                "step": self.step}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Copies a state_dict() into this state, in place, on its device.
+        Raises where the checkpoint was written by another configuration
+        (names, shapes, optimizer groups or augmentation parts differ)."""
+        self.modules.load_state_dict(sd["model"], strict=True)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        if (self.scheduler is None) != (sd["scheduler"] is None):
+            raise ValueError("the checkpoint's LR scheduler does not match this "
+                             f"run's ({self.cfg.optimizer})")
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(sd["scheduler"])
+        self.aug.load_state_dict(sd["augment"])
+        self.step = int(sd["step"])
 
 
 def is_vit(cfg) -> bool:

@@ -323,10 +323,12 @@ def test_deferred_flags_raise():
 
     assert unsupported_settings(default_config(dataset="synthetic_wav")) == []
     for kw in (dict(model_type="vit_base", fused_attention=True), dict(masked_recon=True),
-               dict(model_type="vitc_small", mask=True, mask_ratio=0.75)):
-        assert unsupported_settings(default_config(dataset="synthetic_wav", **kw)) == []
+               dict(model_type="vitc_small", mask=True, mask_ratio=0.75),
+               dict(resume_path="x"), dict(save_base_dir="x"),
+               dict(dataset="synthetic_multicue")):
+        assert unsupported_settings(default_config(**{"dataset": "synthetic_wav", **kw})) == []
     for kw in (dict(use_fp16=True), dict(squeeze_excitation=True), dict(steps_per_dispatch=4),
-               dict(resume_path="x"), dict(save_base_dir="x"), dict(profile_dir="x"),
+               dict(profile_dir="x"),
                dict(model_type="resnet18"), dict(dataset="fsd50k"), dict(distributed=True),
                dict(model_type="vit_base", remat=True),
                dict(model_type="vit_base", layout_barrier=True), dict(fsdp=True),
