@@ -77,7 +77,27 @@ Phases, each of which exits non-zero on failure:
      learning proof (tools/prove_learning.py: SyntheticMultiCue, batch 128,
      100 steps per epoch, Adam 1e-3, the probe at init and after each epoch
      through Trainer.fit's eval_fn hook), its losses finite and its scores
-     in [0, 1], launches counted per step and per probe.
+     in [0, 1], launches counted per step and per probe;
+ 10. the on-disk data path, in a temporary directory with `data/` in it, as
+     a user runs it: an FSD50K tree (768 train and 128 val rows in dev.csv,
+     128 in eval.csv, 200 classes, 1-3 labels a clip, `.npy` log-mels of
+     30-3000 frames and a wav of each) and an AudioSet wav tree (512 + 256
+     10-s clips, every 8th stereo, every 16th 2.5, 5 or 7.5 s) are written;
+     (a) tools/wav_to_lms over the 256 balanced wavs, one log-mel launch per
+     length group, outputs held against the plain version on the CPU, and the
+     kernel timed at the converter's group shape; (b) main at the defaults
+     on FSD50K (C++ npy reader, pinned batches) for 2 epochs with the
+     per-epoch probe on: launches per step and per probe, the probe's
+     seconds and mAP, epochs through the Trainer timed by CUDA events with
+     pinned and pageable batches (A B B A) and one profiled (data_time /
+     step_time, idle share) beside the step on a resident batch and an
+     epoch of the loader alone, and the pinned ring's batches against host
+     ones bit for bit; (c) main on
+     audioset_wav (C++ wav reader, the device frontend), then the same A B
+     B A and profile; (d) main with
+     --load_wav (one log-mel launch a batch, held against the CPU); (e) the
+     resume check of phase 9 on FSD50K, bit-identical; (f) the linear CLI on
+     (b)'s last checkpoint.
 The `kernels` JSON line lists every ported kernel; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -95,6 +115,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM data sheet (dense, no sparsity): fp32 outside the tensor cores,
@@ -166,6 +187,15 @@ PROOF_FLAGS = ["--dataset", "synthetic_multicue", "--model_type", "audiontt", "-
                "--optimizer", "Adam", "--lr", "1e-3"]
 PROOF_STEP = {"fused_conv1_fwd": 2, "fused_conv1_bwd": 2}     # log-mels in: no frontend
 PROOF_PROBE = {"fused_conv1_fwd": 8}   # eval batches of 128: 400 + 200 + 200 clips
+# phase 10: FSD50K-layout trees (dev.csv train / val rows, eval.csv rows; the
+# 200-class vocabulary, 1-3 labels a clip, 0.3-30 s clips as 30-3000 frames)
+DISK_SPLITS = {"train": 768, "val": 128, "test": 128}
+DISK_CLASSES, DISK_MAX_LABELS, DISK_FRAMES = 200, 3, (30, 3000)
+AUDIOSET_FILES = (512, 256)       # unbalanced, balanced 10-s 16-kHz wavs
+AUDIOSET_SHORT = (2.5, 5.0, 7.5)  # the seconds of every 16th wav (every 8th is stereo)
+RESUME_TRAIN = 256                # (e): clips of the resume tree, 2 steps an epoch
+STEP_LAUNCHES = {"fused_conv1_fwd": 2, "fused_conv1_bwd": 2}       # log-mels in
+WAV_STEP_LAUNCHES = {"log_mel_folded": 1, **STEP_LAUNCHES}         # one log-mel a batch
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
@@ -1322,13 +1352,13 @@ def state_gap(a, b) -> tuple[float, str]:
     return gaps[name], name
 
 
-def resume_check(path: str, seed: int):
-    """Two uninterrupted RESUME_EPOCHS-epoch runs of main and one resumed
+def resume_check(path: str, seed: int, flags: list[str], steps: int, per_step: dict):
+    """Two uninterrupted RESUME_EPOCHS-epoch runs of main with `flags` (of
+    `steps` steps per epoch, each launching `per_step`) and one resumed
     from the first run's model_2.pt (in the working directory) -> (the
     record, the first run's trainer, its last checkpoint)."""
     from ssl_audio_tpu_torch.utils import checkpoint as ckpt_lib
 
-    flags, steps, per_step = PRETRAIN[path]
     base = flags + ["--epochs", str(RESUME_EPOCHS), "--synthetic_steps_per_epoch", str(steps),
                     "--seed", str(seed)]
     runs = {}
@@ -1390,7 +1420,7 @@ def phase_pretraining(seed: int, dev: torch.device, smi: str) -> dict:
     out = {"card": smi, "launches": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, contextlib.chdir(tmp):
         for path in PRETRAIN:
-            out[path], trainer, ckpt_last = resume_check(path, seed)
+            out[path], trainer, ckpt_last = resume_check(path, seed, *PRETRAIN[path])
             out["launches"][path] = out[path]["launches_per_step"]
             if path != "pretrain_audiontt":
                 continue
@@ -1445,6 +1475,298 @@ def phase_pretraining(seed: int, dev: torch.device, smi: str) -> dict:
     return out
 
 
+def counts_minus(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def epoch_through_trainer(trainer, epoch: int, profiled: bool = False) -> dict:
+    """One epoch of trainer.train_one_epoch with a CUDA event recorded after
+    each step: ms per step as the device's time from one step's end to the
+    next (median over the epoch, the first step's loader start left out),
+    wall ms per step, the Trainer's own data_time / step_time; with
+    `profiled`, the device's idle share and the host's largest self times
+    (torch.profiler over the epoch)."""
+    from ssl_audio_tpu_torch.tools.serving import profile
+
+    step, ends = trainer.train_step, []
+
+    def timed_step(*args, **kwargs):
+        out = step(*args, **kwargs)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    trainer.train_step = timed_step
+    prof = None
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profiled:
+            prof = profile(lambda: trainer.train_one_epoch(epoch))
+        else:
+            trainer.train_one_epoch(epoch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        trainer.train_step = step
+    gaps = [a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+    data_s, step_s = trainer.epoch_times[epoch]
+    rec = {"steps": len(ends), "ms_per_step_median": statistics.median(gaps),
+           "ms_per_step_min": min(gaps), "ms_per_step_max": max(gaps),
+           "wall_ms_per_step": wall_s * 1e3 / len(ends), "data_s": data_s, "step_s": step_s,
+           "mean_loss": trainer.epoch_losses[epoch]}
+    if prof is not None:
+        rec.update(idle_share=prof["idle_share"],
+                   device_busy_ms_per_step=prof["device_busy_ms"] / len(ends),
+                   host_self_ms_by_op=dict(list(prof["host_self_ms_by_op"].items())[:6]))
+    return rec
+
+
+def resident_step_ms(trainer, dev: torch.device) -> dict:
+    """The trainer's step on one of its batches resident on the card: host
+    ms of TRAIN_STEPS steps after two warm-ups."""
+    from ssl_audio_tpu_torch.data.pipeline import DataLoader
+
+    x, _ = next(iter(DataLoader(trainer.dataset, TRAIN_BATCH, num_workers=8, seed=1,
+                                log=lambda line: None)))
+    times, _ = timed_steps(trainer.train_step, trainer.state, torch.from_numpy(x).to(dev),
+                           trainer.gen)
+    return {"ms_per_step_median": statistics.median(times), "ms_per_step_min": min(times),
+            "ms_per_step_max": max(times)}
+
+
+def loader_alone(trainer, dev: torch.device) -> dict:
+    """An epoch of the trainer's loader with no step: each pinned batch
+    copied to the card as the Trainer copies it; ms from one batch to the
+    next (median, the first batch's start-up left out).  Beside the step
+    through the Trainer, it says whether the loader holds the step back."""
+    ends = [time.perf_counter()]
+    for x, _ in trainer.loader:
+        x.to(dev, non_blocking=True)
+        ends.append(time.perf_counter())
+    torch.cuda.synchronize()
+    gaps = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+    return {"batches": len(gaps), "first_ms": gaps[0],
+            "ms_per_batch_median": statistics.median(gaps[1:])}
+
+
+def pinned_ring_check(dataset, dev: torch.device) -> dict:
+    """An epoch of the loader's pinned batches, each copied to the card with
+    non_blocking=True behind ~25 ms of queued device work (so copies are in
+    flight while the producer refills the ring), against the same epoch as
+    host arrays: bit-identical."""
+    from ssl_audio_tpu_torch.data.pipeline import DataLoader
+
+    def loader(device):
+        return DataLoader(dataset, TRAIN_BATCH, num_workers=8, seed=3, device=device,
+                          log=lambda line: None)
+
+    got = []
+    for x, _ in loader(dev):
+        if not x.is_pinned():
+            raise SystemExit("the loader gave a batch that is not pinned for the card")
+        torch.cuda._sleep(50_000_000)
+        got.append(x.to(dev, non_blocking=True))
+    want = [x for x, _ in loader(None)]
+    torch.cuda.synchronize()
+    same = len(got) == len(want) and all(
+        np.array_equal(g.cpu().numpy(), w) for g, w in zip(got, want))
+    if not same:
+        raise SystemExit("pinned batches copied with non_blocking differ from host batches")
+    return {"batches": len(got), "bit_identical": same}
+
+
+def pinned_vs_pageable(trainer, first_epoch: int) -> list[dict]:
+    """Four epochs through the Trainer, its loader's batches pinned (A) or
+    host arrays copied from pageable memory (B), A B B A."""
+    from ssl_audio_tpu_torch.data.pipeline import DataLoader
+
+    pinned = trainer.loader
+    pageable = DataLoader(trainer.dataset, TRAIN_BATCH, num_workers=trainer.cfg.num_workers,
+                          seed=trainer.cfg.seed, log=lambda line: None)
+    runs = []
+    try:
+        for epoch, (copy, loader) in enumerate((("pinned", pinned), ("pageable", pageable),
+                                                ("pageable", pageable), ("pinned", pinned)),
+                                               start=first_epoch):
+            trainer.loader = loader
+            runs.append({"copy": copy, **epoch_through_trainer(trainer, epoch)})
+    finally:
+        trainer.loader = pinned
+    return runs
+
+
+def run_main_lines(argv: list[str], what: str, want_path: str):
+    """run_main, and the loader's line must name the path it took."""
+    trainer, seconds, counts, lines = run_main(argv)
+    said = [line for line in lines if line.startswith("DataLoader(")]
+    if not said or want_path not in said[0] or "pinned for cuda" not in said[0]:
+        raise SystemExit(f"{what}: the loader said {said}, expected {want_path!r}, pinned")
+    return trainer, seconds, counts, said[0]
+
+
+def phase_disk(seed: int, dev: torch.device, smi: str, resident_wav_ms: float) -> dict:
+    from ssl_audio_tpu_torch import linear as linear_cli
+    from ssl_audio_tpu_torch.data import datasets as D
+    from ssl_audio_tpu_torch.eval import linear as linear_mod
+    from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_plain
+    from ssl_audio_tpu_torch.tools import wav_to_lms
+    from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_audioset_wav, fabricate_fsd50k
+    from ssl_audio_tpu_torch.tools.serving import seeded_clips
+
+    print("phase 10: on-disk data: wav_to_lms, main at the defaults on FSD50K with the per-epoch "
+          "probe, audioset_wav (pinned vs pageable), --load_wav, resume, the linear CLI")
+    out = {"card": smi, "launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_") as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        fabricate_fsd50k("data", DISK_SPLITS["train"], DISK_FRAMES, seed,
+                         n_val=DISK_SPLITS["val"], n_test=DISK_SPLITS["test"],
+                         n_classes=DISK_CLASSES, max_labels=DISK_MAX_LABELS, wavs=True)
+        fabricate_audioset_wav("data", AUDIOSET_FILES[0], n_balanced=AUDIOSET_FILES[1],
+                               seed=seed, stereo_every=8, short_every=16,
+                               short_seconds=AUDIOSET_SHORT)
+        out["trees"] = {"seconds": time.perf_counter() - t0, "bytes": sum(
+            os.path.getsize(os.path.join(r, f)) for r, _d, fs in os.walk("data") for f in fs)}
+        print("  trees: " + json.dumps(out["trees"]))
+
+        # (a) the converter over the balanced segments: 10-s, 2.5, 5 and 7.5-s wavs
+        in_dir = "data/audioset/balanced_train_segments"
+        zero_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            conv = wav_to_lms.main(["--in_dir", in_dir, "--out_dir", "lms_out"])
+        torch.cuda.synchronize()
+        out["launches"]["convert_group"] = expect(launch_counts(), {"log_mel_folded": 1},
+                                                  conv["groups"], "wav_to_lms")
+        spec, errs, seen = MelSpec(), {}, set()
+        for name in sorted(os.listdir(in_dir)):
+            wav = D.load_wav(os.path.join(in_dir, name), spec.sample_rate)
+            if len(wav) in seen:
+                continue
+            seen.add(len(wav))
+            got = np.load(os.path.join("lms_out", name[:-4] + ".npy"))
+            ref = log_mel_spectrogram_plain(torch.from_numpy(wav)[None], spec)[0].numpy()
+            errs[len(wav)] = float(np.abs(got - ref).max())
+            check(f"wav_to_lms {len(wav)} samples vs the plain version on the CPU",
+                  errs[len(wav)], MEL_ATOL, "three TF32 passes, sums in another order")
+        out["convert"] = {**conv, "max_abs_err_by_length": errs}
+        print("  (a) wav_to_lms: " + json.dumps(out["convert"]))
+        out["convert_mel_row"] = mel_row(seeded_clips(torch.Generator().manual_seed(seed), 64,
+                                                      CLIP).to(dev), spec, None,
+                                         "folded, converter group")
+
+        # (b) main at the defaults on FSD50K, the per-epoch probe on; each
+        # probe's launches are the counters' difference around eval_linear
+        probes, real_eval_linear = [], linear_mod.eval_linear
+
+        def counted_eval_linear(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t = launch_counts(), time.perf_counter()
+            scores = real_eval_linear(*args, **kwargs)
+            torch.cuda.synchronize()
+            probes.append((counts_minus(launch_counts(), before), time.perf_counter() - t,
+                           scores))
+            return scores
+
+        linear_mod.eval_linear = counted_eval_linear
+        try:
+            trainer, run_s, counts, said = run_main_lines(
+                ["--dataset", "fsd50k", "--epochs", "2", "--epoch_eval_f", "1",
+                 "--save_base_dir", "b", "--seed", str(seed)], "fsd50k", "NativeBatchReader")
+        finally:
+            linear_mod.eval_linear = real_eval_linear
+        if len(probes) != 2 or any(p[0] != probes[0][0] for p in probes):
+            raise SystemExit(f"fsd50k: the probes launched {[p[0] for p in probes]}")
+        for _c, _s, scores in probes:
+            if not 0.0 < scores["score_all"] <= 1.0:
+                raise SystemExit(f"fsd50k probe: mAP {scores['score_all']} not in (0, 1]")
+        out["launches"]["fsd50k_probe"] = probes[0][0]
+        steps = 2 * trainer.niter_per_ep
+        out["launches"]["fsd50k_step"] = expect(
+            counts_minus(counts, {k: 2 * v for k, v in probes[0][0].items()}),
+            STEP_LAUNCHES, steps, "fsd50k steps")
+        out["fsd50k"] = {
+            "flags": "--dataset fsd50k --epochs 2 --epoch_eval_f 1", "loader": said,
+            "steps_per_epoch": trainer.niter_per_ep, "run_s": run_s,
+            "epoch_losses": trainer.epoch_losses,
+            "probe_s": [p[1] for p in probes], "probe_map": [p[2]["score_all"] for p in probes],
+            "probe_map_5": [p[2]["score_5"] for p in probes],
+            "pinned_ring": pinned_ring_check(trainer.dataset, dev),
+            "abba": pinned_vs_pageable(trainer, 3),
+            "loader_alone": loader_alone(trainer, dev),
+            "through_trainer_profiled": epoch_through_trainer(trainer, 7, profiled=True),
+            "resident": resident_step_ms(trainer, dev),
+            "resident_wav_step_phase5_ms": resident_wav_ms}
+        print("  (b) fsd50k: " + json.dumps(out["fsd50k"]))
+        del trainer
+
+        # (c) audioset_wav: the C++ wav reader and the device frontend; then
+        # epochs with the batches pinned (A) and pageable (B), A B B A
+        trainer, run_s, counts, said = run_main_lines(
+            ["--dataset", "audioset_wav", "--epochs", "1", "--no_eval", "--seed", str(seed)],
+            "audioset_wav", "NativeWavReader")
+        out["launches"]["audioset_wav_step"] = expect(counts, WAV_STEP_LAUNCHES,
+                                                      trainer.niter_per_ep, "audioset_wav steps")
+        out["audioset_wav"] = {"loader": said, "steps_per_epoch": trainer.niter_per_ep,
+                               "run_s": run_s, "abba": pinned_vs_pageable(trainer, 2),
+                               "loader_alone": loader_alone(trainer, dev),
+                               "pinned_profiled": epoch_through_trainer(trainer, 6, profiled=True),
+                               "resident_wav_step_phase5_ms": resident_wav_ms}
+        print("  (c) audioset_wav: " + json.dumps(out["audioset_wav"]))
+        del trainer
+
+        # (d) --load_wav on FSD50K: the log-mel of each batch in the loader
+        trainer, run_s, counts, said = run_main_lines(
+            ["--dataset", "fsd50k", "--load_wav", "--epochs", "1", "--no_eval",
+             "--seed", str(seed)], "--load_wav", "load_batch")
+        out["launches"]["load_wav_step"] = expect(counts, WAV_STEP_LAUNCHES,
+                                                  trainer.niter_per_ep, "--load_wav steps")
+        rows = np.arange(16)
+        card_x, _ = D.FSD50K(trainer.cfg, split="train", data_dir="data", seed=seed,
+                             norm_stats=D.NORM_STATS["fsd50k"]).load_batch(rows)
+        cpu_x, _ = D.FSD50K(trainer.cfg.replace(device="cpu"), split="train", data_dir="data",
+                            seed=seed, norm_stats=D.NORM_STATS["fsd50k"]).load_batch(rows)
+        err = float(np.abs(card_x - cpu_x).max())
+        check("--load_wav batch, card vs CPU", err, MEL_ATOL,
+              "the log-mel kernel's three TF32 passes, then / std")
+        out["load_wav"] = {"loader": said, "steps_per_epoch": trainer.niter_per_ep,
+                           "run_s": run_s, "max_abs_err_vs_cpu": err,
+                           "through_trainer": epoch_through_trainer(trainer, 2),
+                           "loader_alone": loader_alone(trainer, dev),
+                           "through_trainer_profiled": epoch_through_trainer(trainer, 3,
+                                                                             profiled=True)}
+        print("  (d) --load_wav: " + json.dumps(out["load_wav"]))
+        del trainer
+
+        # (e) resume on (b)'s path, on a tree of RESUME_TRAIN clips
+        os.makedirs("resume")
+        with contextlib.chdir("resume"):
+            fabricate_fsd50k("data", RESUME_TRAIN, DISK_FRAMES, seed + 1,
+                             n_classes=DISK_CLASSES, max_labels=DISK_MAX_LABELS)
+            out["resume"], trainer, _ = resume_check(
+                "resume_fsd50k", seed, ["--dataset", "fsd50k", "--no_eval"],
+                RESUME_TRAIN // TRAIN_BATCH, STEP_LAUNCHES)
+            out["launches"]["resume_fsd50k_step"] = out["resume"]["launches_per_step"]
+            del trainer
+        torch.cuda.empty_cache()
+
+        # (f) the linear CLI on (b)'s last checkpoint
+        (ckpt,) = glob.glob("b/results/fsd50k/*/model_2.pt")
+        zero_launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            scores = linear_cli.main(["--model_file_path", ckpt, "--model_name", "chip_smoke",
+                                      "--model_epoch", "2", "--seed", str(seed)])
+        torch.cuda.synchronize()
+        out["launches"]["linear_cli"] = launch_counts()
+        (log,) = glob.glob("logs/linear_eval/fsd50k/chip_smoke/log.csv")
+        if not 0.0 < scores["score_all"] <= 1.0 or "linear_score" not in open(log).read():
+            raise SystemExit(f"linear CLI: score {scores}, log {open(log).read()!r}")
+        out["linear_cli"] = {"checkpoint": os.path.basename(ckpt), "s": time.perf_counter() - t,
+                             "map": scores["score_all"], "map_5": scores["score_5"]}
+        print("  (f) linear CLI: " + json.dumps(out["linear_cli"]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1481,14 +1803,22 @@ def main() -> int:
     t9 = time.perf_counter()
     pretraining = phase_pretraining(args.seed, dev, smi)
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s")
+    t10 = time.perf_counter()
+    disk = phase_disk(args.seed, dev, smi, training["ms_per_step_median"])
+    print(f"  phase 10: {time.perf_counter() - t10:.1f} s")
+    next(k for k in kernels if k["name"] == "log_mel_folded")["converter_shape"] = \
+        disk["convert_mel_row"]
     # launches on the main paths, per path (timestamp request, scene request,
     # one AudioNTT train step, one ViT-B train step, the ViT timestamp and
     # scene requests, eval_linear with each encoder; phase 9: one step of
     # each pretraining run, the timestamp request from a checkpoint, one
-    # step and one probe of the learning proof) and in all
+    # step and one probe of the learning proof; phase 10: one wav_to_lms
+    # group, one step and one probe of main on FSD50K, one audioset_wav step,
+    # one --load_wav step, one step of the resumed FSD50K run, the linear
+    # CLI's probe) and in all
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
-               **evaluation["launches"], **pretraining["launches"]}
+               **evaluation["launches"], **pretraining["launches"], **disk["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

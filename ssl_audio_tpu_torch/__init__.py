@@ -4,10 +4,11 @@ The JAX package `ssl_audio_tpu` stays the reference; this package imports
 torch and never jax, and nothing of `ssl_audio_tpu`.  Subpackages mirror the
 JAX ones: `ops` (log-mel frontend, fused conv block forward and backward,
 the nvcc build of the kernels), `models` (AudioNTT2022, heads), `objectives`,
-`augment`, `train` (optimizers, state, step, loop), `data`, `hear` (the HEAR
-2021 serving API) and `utils` (weight conversion); `main` is the pretraining
-entry point.  Kernel sources live in `csrc/` and are built with nvcc on
-first use (`ops/_build.py`).
+`augment`, `train` (optimizers, state, step, loop), `data` (datasets, the
+C++ batch readers of the repository's `native/`, the loader), `hear` (the
+HEAR 2021 serving API), `eval` and `utils`; `main` is the pretraining entry
+point and `linear` the probe of a checkpoint.  Kernel sources live in
+`csrc/` and are built with nvcc on first use (`ops/_build.py`).
 
 Entry points run on "cuda" unless the caller passes device="cpu"; with no
 card and no explicit CPU request they raise.

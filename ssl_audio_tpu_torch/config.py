@@ -36,7 +36,9 @@ OPTIMIZERS = ["Adam", "AdamW", "SGD", "LARS"]
 
 PORTED_MODELS = ("audiontt", "vit_base", "vit_small", "vit_tiny",
                  "vitc_base", "vitc_small", "vitc_tiny")
-PORTED_DATASETS = ("synthetic", "synthetic_wav", "synthetic_multicue")
+PORTED_DATASETS = ("fsd50k", "audioset", "librispeech", "fsd50k+librispeech",
+                   "audioset+librispeech", "nsynth", "audioset_wav",
+                   "synthetic", "synthetic_wav", "synthetic_multicue")
 
 
 @dataclass
@@ -210,8 +212,7 @@ def unsupported_settings(cfg: Config) -> List[str]:
     if cfg.model_type not in PORTED_MODELS:
         bad.append(f"--model_type {cfg.model_type} (ported: {', '.join(PORTED_MODELS)})")
     if cfg.dataset not in PORTED_DATASETS:
-        bad.append(f"--dataset {cfg.dataset} (ported: {', '.join(PORTED_DATASETS)}; "
-                   "the on-disk datasets and their loaders wait)")
+        bad.append(f"--dataset {cfg.dataset} (ported: {', '.join(PORTED_DATASETS)})")
     for flag, on, what in (
             ("--use_fp16", cfg.use_fp16, "bf16 autocast of the encoder"),
             ("--use_fp16_eval", cfg.use_fp16_eval, "bf16 embedding extraction"),
@@ -223,8 +224,7 @@ def unsupported_settings(cfg: Config) -> List[str]:
             ("--model_parallel > 1", cfg.model_parallel != 1, "tensor parallelism"),
             ("--fsdp", cfg.fsdp, "sharded parameters"),
             ("--remat", cfg.remat, "gradient checkpointing of ViT blocks"),
-            ("--layout_barrier", bool(cfg.layout_barrier), "an XLA layout option"),
-            ("--load_wav", not cfg.load_lms, "host-side wav loading of the on-disk datasets")):
+            ("--layout_barrier", bool(cfg.layout_barrier), "an XLA layout option")):
         if on:
             bad.append(f"{flag} ({what} not ported yet)")
     return bad

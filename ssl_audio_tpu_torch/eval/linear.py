@@ -3,17 +3,20 @@ linear.py and main.py:198-237 eval_linear).
 
 Embeddings for train / val / test (ViTs through the batched unit splitter
 of encode.py), the MLP probe fit on them and scored (accuracy or mAP), and
-the 5-per-class low-shot protocol.  The FSD50K loaders and the per-epoch
-FSD50K hook wait for the on-disk datasets, and raise.
+the 5-per-class low-shot protocol; the FSD50K eval loaders and the
+per-epoch FSD50K probe of main.py.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable
 
 import torch
 from torch import nn
 
+from ssl_audio_tpu_torch.data import datasets as D
+from ssl_audio_tpu_torch.data.pipeline import DataLoader
 from ssl_audio_tpu_torch.eval.encode import encode_vit, extract_embeddings
 from ssl_audio_tpu_torch.eval.low_shot import eval_linear_low_shot
 from ssl_audio_tpu_torch.eval.mlp_clf import MLPClassifier
@@ -82,10 +85,34 @@ def eval_linear(forward: Callable, train_loader, val_loader, test_loader,
 
 
 def get_fsd50k_eval_loaders(cfg, data_dir="data", crop_frames=711):
-    raise NotImplementedError("the FSD50K eval loaders need the on-disk datasets, "
-                              "which are not ported yet")
+    """(train, val, test) loaders of FSD50K under `data_dir` with
+    `crop_frames`-frame crops and the FSD50K statistics (reference
+    main.py:240-254).  FileNotFoundError without the data."""
+    norm = D.NORM_STATS["fsd50k"]
+    mk = functools.partial(DataLoader, batch_size=cfg.batch_size, shuffle=False,
+                           drop_last=False, num_workers=cfg.num_workers)
+    return tuple(mk(D.FSD50K(cfg, split=split, norm_stats=norm, crop_frames=crop_frames,
+                             data_dir=data_dir))
+                 for split in ("train", "val", "test"))
 
 
 def make_epoch_eval_fn(cfg, data_dir="data", wandb_run=None):
-    raise NotImplementedError("the per-epoch FSD50K probe needs the on-disk datasets, "
-                              "which are not ported yet")
+    """The per-epoch FSD50K probe (reference main.py:497-519): eval_fn(state,
+    epoch) -> eval_linear's scores for the state's encoder, on the
+    encoder's device.  The loaders are built here, so a missing FSD50K
+    raises FileNotFoundError before training starts.  A state with a target
+    encoder (the BYOL variant, not ported) raises NotImplementedError."""
+    loaders = get_fsd50k_eval_loaders(cfg, data_dir)
+
+    def eval_fn(state, epoch):
+        if any(name.startswith("target") for name in state.modules):
+            raise NotImplementedError("probing the BYOL target encoder is not ported yet")
+        encoder = state.modules["encoder"]
+        scores = eval_linear(make_embedding_forward(cfg, encoder), *loaders,
+                             device=next(encoder.parameters()).device)
+        if wandb_run is not None:
+            wandb_run.log({"FSD50K score (100%)": scores["score_all"],
+                           "FSD50K score (5pC) (mean)": scores.get("score_5", (None,))[0]})
+        return scores
+
+    return eval_fn

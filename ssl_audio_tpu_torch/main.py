@@ -1,11 +1,13 @@
 """Barlow Twins pretraining entry point of the port (the root main.py of the
 JAX package).
 
-    python -m ssl_audio_tpu_torch.main --dataset synthetic_wav \\
-        --model_type audiontt --epochs 1 --synthetic_steps_per_epoch 20
+    python -m ssl_audio_tpu_torch.main --dataset fsd50k --epochs 100
 
-Same CLI flags.  Runs on the card; without one it raises unless
-`--device cpu` is given (the plain PyTorch path, for checks at small sizes).
+Same CLI flags and defaults (AudioNTT2022 on FSD50K, LARS, fp32).  Runs on
+the card; without one it raises unless `--device cpu` is given (the plain
+PyTorch path, for checks at small sizes).  The on-disk datasets are read
+under `data/` in the working directory, as in JAX; `--dataset
+synthetic_wav` needs no data.
 
 As in JAX, a run writes its checkpoints to
 `{--save_base_dir}/results/{dataset}/{save_name}/model_{epoch}.pt` (every
@@ -14,9 +16,11 @@ As in JAX, a run writes its checkpoints to
 `--resume_path <model_{e}.pt>` continues a run from the epoch after e with
 its generators, bit for bit where the device is deterministic.  A
 checkpoint's encoder serves through `hear.conv.load_model(path)` (AudioNTT)
-and `hear.vit.load_model(path, model_type, ...)` (the ViT family).  The
-per-epoch probe needs the FSD50K data, which is not ported: without it the
-run says "Epoch eval disabled" and trains on.
+and `hear.vit.load_model(path, model_type, ...)` (the ViT family), and is
+probed by `python -m ssl_audio_tpu_torch.linear`.  The per-epoch FSD50K
+probe (every `--epoch_eval_f` epochs and at the last one) reads
+`data/FSD50K`: without it the run says "Epoch eval disabled" and trains on,
+as the JAX main does.
 """
 from __future__ import annotations
 

@@ -26,16 +26,22 @@ CLASSES = dict(fsd50k=200, nsynth=88, synthetic=8)
 
 
 def get_eval_loaders(cfg, data_dir="data"):
-    """Transform-free (train, val, test) loaders of the probe data.  Only
-    the no-data `synthetic` splits are ported; NSynth and FSD50K wait for
-    the on-disk datasets."""
-    if cfg.dataset in ("nsynth", "fsd50k"):
-        raise NotImplementedError(f"the {cfg.dataset} eval splits need the on-disk "
-                                  "datasets, which are not ported yet")
-    if cfg.dataset != "synthetic":
-        raise ValueError(f"sweep does not support --dataset {cfg.dataset}")
+    """Transform-free (train, val, test) loaders of the probe data
+    (reference get_nsynth_50h / get_fsd50k, sweep.py:369-437): NSynth's
+    train / valid / test, FSD50K's train / val / test under `data_dir`, or
+    the no-data `synthetic` splits."""
     mk = functools.partial(DataLoader, batch_size=cfg.batch_size, shuffle=False,
                            drop_last=False, num_workers=cfg.num_workers)
+    if cfg.dataset == "nsynth":
+        norm = D.NORM_STATS["nsynth"]
+        return tuple(mk(D.NSynthHEAR(cfg, split=s, norm_stats=norm, data_dir=data_dir))
+                     for s in ("train", "valid", "test"))
+    if cfg.dataset == "fsd50k":
+        norm = D.NORM_STATS["fsd50k"]
+        return tuple(mk(D.FSD50K(cfg, split=s, norm_stats=norm, data_dir=data_dir))
+                     for s in ("train", "val", "test"))
+    if cfg.dataset != "synthetic":
+        raise ValueError(f"sweep does not support --dataset {cfg.dataset}")
     n = CLASSES["synthetic"]
     return tuple(mk(D.SyntheticLMS(cfg, length=ln, n_classes=n, seed=sd))
                  for ln, sd in ((96, 990), (48, 991), (48, 992)))

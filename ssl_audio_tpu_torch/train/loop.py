@@ -2,14 +2,16 @@
 resume, the per-epoch evaluation hook and logging (port of
 ssl_audio_tpu/train/loop.py around the eager step of train/steps.py).
 
-Ported: the synthetic datasets, Trainer, train_one_epoch, fit (checkpoints
-every epoch_save_f epochs and at the last, deterministic resume, eval_fn
-every epoch_eval_f epochs and at the last), the CSV log, and the ViT
-teacher's masking per step (mask_ratio_for_step: a fixed ratio, a random
-one, or the sine schedule; token drop with a static len_keep).  Not yet:
-the profiler trace, multi-step dispatch and the on-disk datasets; their
-settings raise NotImplementedError (config.require_supported) when the
-Trainer is built.
+Ported: every dataset of the JAX loop but cifar10 (get_train_dataset, read
+under `data_dir` as the JAX Trainer does), Trainer, train_one_epoch (each
+batch copied to the card from the loader's pinned slots with
+non_blocking=True), fit (checkpoints every epoch_save_f epochs and at the
+last, deterministic resume, eval_fn every epoch_eval_f epochs and at the
+last), the CSV log, and the ViT teacher's masking per step
+(mask_ratio_for_step: a fixed ratio, a random one, or the sine schedule;
+token drop with a static len_keep).  Not yet: the profiler trace and
+multi-step dispatch; their settings raise NotImplementedError
+(config.require_supported) when the Trainer is built.
 """
 from __future__ import annotations
 
@@ -38,17 +40,66 @@ from ssl_audio_tpu_torch.utils.schedules import sine_scheduler_increase
 LOG_EVERY = 50          # steps between fetches of the device-side monitor
 
 
-def get_train_dataset(cfg):
+class _ConcatDataset:
+    """The items of `parts` one after the other (the label size the largest
+    part's)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+        self.offsets = np.cumsum([0] + [len(p) for p in parts])
+        self.label_num = max(getattr(p, "label_num", 0) for p in parts)
+
+    def __len__(self):
+        return int(self.offsets[-1])
+
+    def __getitem__(self, idx):
+        part = int(np.searchsorted(self.offsets, idx, side="right")) - 1
+        return self.parts[part][idx - int(self.offsets[part])]
+
+
+def get_train_dataset(cfg, data_dir: str = "data"):
+    """The training set of cfg.dataset (reference get_data, main.py:257-311),
+    the on-disk ones under `data_dir`.  --load_wav's log-mel runs on
+    cfg.device (None = the card)."""
+    ds, seed = cfg.dataset, cfg.seed
     length = cfg.synthetic_steps_per_epoch * cfg.batch_size
-    if cfg.dataset == "synthetic":
-        return D.SyntheticLMS(cfg, length=length, seed=cfg.seed)
-    if cfg.dataset == "synthetic_multicue":
-        return D.SyntheticMultiCue(cfg, length=length, seed=cfg.seed)
-    if cfg.dataset == "synthetic_wav":
-        return D.SyntheticWav(cfg, length=length, seed=cfg.seed)
-    raise NotImplementedError(
-        f"dataset {cfg.dataset!r} is not ported yet (synthetic, synthetic_multicue, "
-        "synthetic_wav)")
+
+    def fsd50k(norm=D.NORM_STATS["fsd50k"]):
+        return D.FSD50K(cfg, split="train_val", norm_stats=norm, data_dir=data_dir, seed=seed)
+
+    def librispeech(**kw):
+        return D.LibriSpeech(cfg, norm_stats=D.NORM_STATS["librispeech"], data_dir=data_dir,
+                             seed=seed, **kw)
+
+    def audioset():
+        return D.AudioSet(cfg, norm_stats=D.NORM_STATS["audioset"], data_dir=data_dir, seed=seed)
+
+    if ds == "fsd50k":
+        return fsd50k(None if cfg.pre_norm else D.NORM_STATS["fsd50k"])
+    if ds == "librispeech":
+        return librispeech()
+    if ds == "fsd50k+librispeech":
+        return _ConcatDataset([fsd50k(), librispeech()])
+    if ds == "audioset":
+        return audioset()
+    if ds == "audioset+librispeech":
+        return _ConcatDataset([audioset(), librispeech(n_dummy=527)])
+    if ds == "audioset_wav":
+        return D.AudioSetWav(cfg, base_dir=os.path.join(data_dir, "audioset"),
+                             balanced_only=cfg.audioset_balanced_only,
+                             twohundredk_only=cfg.audioset_200k_only, seed=seed)
+    if ds == "nsynth":
+        return D.NSynthHEAR(cfg, split="train", norm_stats=D.NORM_STATS["nsynth"],
+                            data_dir=data_dir, seed=seed)
+    if ds == "synthetic":
+        return D.SyntheticLMS(cfg, length=length, seed=seed)
+    if ds == "synthetic_multicue":
+        return D.SyntheticMultiCue(cfg, length=length, seed=seed)
+    if ds == "synthetic_wav":
+        return D.SyntheticWav(cfg, length=length, seed=seed)
+    if ds == "cifar10":
+        raise NotImplementedError("dataset 'cifar10' is not ported yet")
+    raise ValueError(f"Unsupported dataset {ds}")
 
 
 def mask_ratio_for_step(cfg, schedule, iteration: int, rng: np.random.Generator) -> float:
@@ -81,21 +132,24 @@ class Trainer:
     cfg.device is "cpu".  `log` takes every log line (stdout by default);
     with `log_dir` the step and score lines also go to log_dir/log.csv, and
     with `wandb_run` (utils.logging_utils.WandbRun) the losses to wandb.
-    epoch_losses maps each epoch this Trainer ran to its mean loss."""
+    An on-disk dataset is read under `data_dir`.  epoch_losses maps each
+    epoch this Trainer ran to its mean loss, epoch_times to its seconds
+    waiting for batches and its seconds in steps."""
 
     def __init__(self, cfg, dataset=None, log=print, log_dir: Optional[str] = None,
-                 wandb_run=None):
+                 wandb_run=None, data_dir: str = "data"):
         require_supported(cfg)
         self.cfg = cfg
         self.log = log
         self.logger = make_csv_logger(log_dir) if log_dir else None
         self.wandb_run = wandb_run
         self.epoch_losses: dict[int, float] = {}
+        self.epoch_times: dict[int, tuple[float, float]] = {}
         self.device = resolve_device(cfg.device)
-        self.dataset = dataset if dataset is not None else get_train_dataset(cfg)
+        self.dataset = dataset if dataset is not None else get_train_dataset(cfg, data_dir)
         self.loader = DataLoader(self.dataset, cfg.batch_size, shuffle=True,
                                  drop_last=True, num_workers=cfg.num_workers,
-                                 seed=cfg.seed)
+                                 seed=cfg.seed, device=self.device, log=log)
         self.niter_per_ep = len(self.loader)
         self.state = init_train_state(
             cfg, torch.Generator().manual_seed(cfg.seed),
@@ -146,7 +200,8 @@ class Trainer:
             dt_i = time.time() - tflag
             t_data += dt_i
             tflag = time.time()
-            batch = torch.from_numpy(batch).to(self.device)
+            # from the loader's pinned slot on the card: queued, not waited for
+            batch = torch.as_tensor(batch).to(self.device, non_blocking=True)
             mask_ratio = mask_ratio_for_step(cfg, self.mask_schedule,
                                              self.niter_per_ep * (epoch - 1) + it, self.host_rng)
             metrics, monitor = self.train_step(self.state, batch, gen=self.gen,
@@ -170,6 +225,7 @@ class Trainer:
                  f"({self.niter_per_ep * cfg.batch_size / max(t_data + t_step, 1e-9):.0f} "
                  f"samples/s) on {self.device}")
         self.epoch_losses[epoch] = avg
+        self.epoch_times[epoch] = (t_data, t_step)
         return avg
 
     def _record(self, line: str) -> None:

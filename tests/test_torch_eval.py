@@ -304,7 +304,12 @@ def test_eval_linear_on_the_synthetic_loader(audiontt_pair):
     assert len(res["score_5"]) == 2 and 0.0 <= res["score_5"][0] <= 1.0
 
 
-def test_deferred_eval_options_raise(audiontt_pair):
+def test_deferred_eval_options_raise(audiontt_pair, tmp_path):
+    """--use_fp16_eval, and the per-epoch FSD50K probe of a state with a
+    BYOL target encoder, are not ported.  Without FSD50K the probe's
+    loaders raise FileNotFoundError (main then disables the hook)."""
+    from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
+
     _, enc = audiontt_pair
     cfg = tconfig.config_from_args(["--dataset", "synthetic", "--use_fp16_eval"])
     assert any("--use_fp16_eval" in s for s in tconfig.unsupported_settings(cfg))
@@ -312,10 +317,17 @@ def test_deferred_eval_options_raise(audiontt_pair):
         tconfig.require_supported(cfg)
     with pytest.raises(NotImplementedError):
         linear.make_embedding_forward(cfg, enc)
-    with pytest.raises(NotImplementedError):
-        linear.get_fsd50k_eval_loaders(cfg)
-    with pytest.raises(NotImplementedError):
-        linear.make_epoch_eval_fn(cfg)
+    cfg = tconfig.default_config(dataset="fsd50k", device="cpu")
+    with pytest.raises(FileNotFoundError):
+        linear.get_fsd50k_eval_loaders(cfg, data_dir=str(tmp_path / "none"))
+    with pytest.raises(FileNotFoundError):
+        linear.make_epoch_eval_fn(cfg, data_dir=str(tmp_path / "none"))
+    fabricate_fsd50k(str(tmp_path / "data"), 2, 50, n_val=1, n_test=1)
+    eval_fn = linear.make_epoch_eval_fn(cfg, data_dir=str(tmp_path / "data"))
+    byol = types.SimpleNamespace(modules=torch.nn.ModuleDict({"encoder": enc,
+                                                              "target_encoder": enc}))
+    with pytest.raises(NotImplementedError, match="BYOL"):
+        eval_fn(byol, 1)
 
 
 # ---------------------------------------------------------------- mlp_clf.py

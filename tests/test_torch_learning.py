@@ -145,14 +145,34 @@ def test_probe_score_matches_jax(monkeypatch):
     assert score == pytest.approx(want_score, abs=SCORE_TOL)
 
 
-def test_sweep_eval_loaders():
+def test_sweep_eval_loaders(tmp_path, monkeypatch):
+    """The synthetic splits; FSD50K's train / val / test and NSynth's train /
+    valid / test on trees written here, the same batches as the JAX sweep's
+    loaders."""
+    from tests.test_torch_datasets import write_nsynth_tree
+    from tests.test_torch_native_loader import load_jax_readers
+    from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
+
+    load_jax_readers()
+
     cfg = tconfig.default_config(dataset="synthetic", batch_size=16, num_workers=1)
     train, val, test = sweep.get_eval_loaders(cfg)
     assert [len(ld.dataset) for ld in (train, val, test)] == [96, 48, 48]
     assert train.dataset.n_classes == sweep.CLASSES["synthetic"] == 8
-    for name in ("nsynth", "fsd50k"):
-        with pytest.raises(NotImplementedError):
-            sweep.get_eval_loaders(cfg.replace(dataset=name))
+    fabricate_fsd50k(str(tmp_path / "data"), 5, (40, 200), n_val=3, n_test=2)
+    write_nsynth_tree(str(tmp_path / "data"), str(tmp_path / "hear"), np.random.default_rng(0))
+    monkeypatch.chdir(tmp_path)
+    for name, splits in (("fsd50k", ("train", "val", "test")),
+                         ("nsynth", ("train", "valid", "test"))):
+        kw = dict(dataset=name, batch_size=2, num_workers=1)
+        loaders = sweep.get_eval_loaders(tconfig.default_config(device="cpu", **kw))
+        jloaders = jsweep.get_eval_loaders(jconfig.default_config(**kw))
+        assert [ld.dataset.split for ld in loaders] == list(splits)
+        for ld, jld in zip(loaders, jloaders):
+            got, want = list(ld), list(jld)
+            assert len(got) == len(want) > 0
+            for (x, y), (jx, jy) in zip(got, want):
+                assert np.array_equal(x, jx) and np.array_equal(y, jy)
     with pytest.raises(ValueError):
         sweep.get_eval_loaders(cfg.replace(dataset="synthetic_wav"))
 

@@ -69,7 +69,7 @@ def test_without_a_card_it_fails_and_prints_no_result(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--use_fp16"], ["--steps_per_dispatch", "4"],
                                    ["--squeeze_excitation"],
-                                   ["--dataset", "fsd50k"], ["--model_type", "resnet18"],
+                                   ["--dataset", "cifar10"], ["--model_type", "resnet18"],
                                    ["--model_type", "vit_tiny", "--remat"]])
 def test_deferred_flags_parse_and_raise(flags, tmp_path):
     out = run(tmp_path, "--device", "cpu", *SMALL, *flags)

@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from ssl_audio_tpu.config import default_config as jax_config
+from ssl_audio_tpu.data.pipeline import DataLoader as JaxDataLoader
+from ssl_audio_tpu.train.loop import get_train_dataset as jax_get_train_dataset
 from ssl_audio_tpu.objectives.barlow import barlow_twins_loss as jax_barlow_twins_loss
 from ssl_audio_tpu.train.state import init_train_state as jax_init_train_state
 from ssl_audio_tpu.train.steps import _split_rngs, _view_rngs
@@ -29,6 +31,9 @@ from ssl_audio_tpu.train.steps import make_device_frontend as jax_frontend
 from ssl_audio_tpu.train.steps import make_train_step as jax_make_train_step
 from ssl_audio_tpu_torch.augment.transforms import apply_pair_views
 from ssl_audio_tpu_torch.config import default_config
+from ssl_audio_tpu_torch.data.pipeline import DataLoader
+from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
+from ssl_audio_tpu_torch.train.loop import get_train_dataset
 from ssl_audio_tpu_torch.objectives.barlow import barlow_twins_loss
 from ssl_audio_tpu_torch.train.state import init_train_state
 from ssl_audio_tpu_torch.train.steps import (
@@ -67,6 +72,7 @@ B, L = 4, 8000
 STATS = (-4.95, 5.855)
 KW = dict(dataset="synthetic_wav", batch_size=B, crop_frames=32, projector_hidden_dim=256,
           mixup_n_memory=8, fused_conv=True, pool_reorder=True, seed=0)
+FSD50K_KW = {**KW, "dataset": "fsd50k"}
 
 
 def close(a, b, what, tol=TOL):
@@ -153,6 +159,48 @@ def test_two_train_steps_match_jax(monkeypatch, options):
         compare_states(state, jstate, before, jbefore)
     assert bool(mon["finite"]) and int(mon["count"]) == int(jmon["count"]) == 2
     np.testing.assert_allclose(float(mon["loss_sum"]), float(jmon["loss_sum"]), rtol=TOL)
+
+
+def test_one_fsd50k_epoch_matches_jax(tmp_path, monkeypatch):
+    """The on-disk slice as a whole: an epoch over a tiny FSD50K tree (dev.csv
+    with 4 train and 4 val rows, log-mels of 30-900 frames), each package's
+    get_train_dataset and loader (the C++ reader; bit-identical batches),
+    each package's step from the same parameters and draws (JAX's keys,
+    dropout out on both sides): the per-step losses and the epoch's mean
+    within TOL relative."""
+    from tests.test_torch_native_loader import load_jax_readers
+
+    load_jax_readers()
+    fabricate_fsd50k(str(tmp_path / "data"), 4, (30, 900), seed=3, n_val=4, n_classes=5,
+                     max_labels=2)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(flax.linen.Dropout, "__call__",
+                        lambda self, inputs, deterministic=None, rng=None: inputs)
+    jcfg, cfg = jax_config(**FSD50K_KW), default_config(**FSD50K_KW, device="cpu")
+    jloader = JaxDataLoader(jax_get_train_dataset(jcfg), 4, num_workers=2, seed=0)
+    loader = DataLoader(get_train_dataset(cfg), 4, num_workers=2, seed=0,
+                        log=lambda line: None)
+    mods, jstate = jax_init_train_state(jcfg, jax.random.key(0), niter_per_ep=len(loader))
+    jstep = jax_make_train_step(mods, raw=True)
+    state = init_train_state(cfg, torch.Generator().manual_seed(0), niter_per_ep=len(loader),
+                             device="cpu")
+    sds = jax_state_dicts(jstate)
+    for name, module in state.modules.items():
+        module.load_state_dict(sds[name], strict=True)
+    step = make_train_step(cfg)
+    jmon, mon = jax_init_monitor(), init_monitor("cpu")
+    batches = list(zip(loader, jloader))
+    assert len(batches) == 2
+    for i, ((x, _), (jx, _)) in enumerate(batches):
+        assert np.array_equal(x, jx)
+        key = jax.random.key(200 + i)
+        jstate, jmetrics, jmon = jstep(jstate, jnp.asarray(jx), key, np.float32(0.0), jmon)
+        metrics, mon = step(state, torch.from_numpy(x), draws=port_draws(key, cfg),
+                            monitor=mon)
+        np.testing.assert_allclose(float(metrics["loss"]), float(jmetrics["loss"]),
+                                   rtol=TOL, err_msg=f"loss of step {i}")
+    np.testing.assert_allclose(float(mon["loss_sum"]) / int(mon["count"]),
+                               float(jmon["loss_sum"]) / int(jmon["count"]), rtol=TOL)
 
 
 def jax_loss_and_grads(mods, jcfg, jstate, views, ks, dtype):
@@ -325,11 +373,13 @@ def test_deferred_flags_raise():
     for kw in (dict(model_type="vit_base", fused_attention=True), dict(masked_recon=True),
                dict(model_type="vitc_small", mask=True, mask_ratio=0.75),
                dict(resume_path="x"), dict(save_base_dir="x"),
-               dict(dataset="synthetic_multicue")):
+               dict(dataset="synthetic_multicue"), dict(dataset="fsd50k"),
+               dict(dataset="fsd50k", load_lms=False), dict(dataset="audioset_wav"),
+               dict(dataset="audioset+librispeech"), dict(dataset="nsynth")):
         assert unsupported_settings(default_config(**{"dataset": "synthetic_wav", **kw})) == []
     for kw in (dict(use_fp16=True), dict(squeeze_excitation=True), dict(steps_per_dispatch=4),
                dict(profile_dir="x"),
-               dict(model_type="resnet18"), dict(dataset="fsd50k"), dict(distributed=True),
+               dict(model_type="resnet18"), dict(dataset="cifar10"), dict(distributed=True),
                dict(model_type="vit_base", remat=True),
                dict(model_type="vit_base", layout_barrier=True), dict(fsdp=True),
                dict(model_parallel=2)):
