@@ -97,8 +97,26 @@ Phases, each of which exits non-zero on failure:
      B A and profile; (d) main with
      --load_wav (one log-mel launch a batch, held against the CPU); (e) the
      resume check of phase 9 on FSD50K, bit-identical; (f) the linear CLI on
-     (b)'s last checkpoint.
-The `kernels` JSON line lists every ported kernel; the last line is
+     (b)'s last checkpoint; (g) main --use_fp16 --use_fp16_eval on FSD50K for
+     an epoch with the per-epoch probe in bf16 (bf16 kernels only in its
+     steps), and the linear CLI --use_fp16_eval on its checkpoint;
+ 11. bf16 compute: the bf16 instantiations of the fused conv (eval at the
+     serving chunk, statistics mode and backward at a view of the step) and
+     of the attention kernels (ViT-B's qkv at N = 25, masked and not, and
+     N = 7) against their plain versions in bf16, timed beside their bf16
+     bounds and the library's bf16 calls; main --use_fp16 for 3 steps of
+     AudioNTT2022 at the defaults and of ViT-B --fused_attention (each step
+     must launch the bf16 kernels and no fp32 one); 14 steps of each on a
+     resident batch of 128 beside the fp32 step (fp32, bf16, bf16, fp32),
+     each profiled once (device busy, idle); a batch-16 bf16 step against the
+     CPU's and against the card's fp32 step (AudioNTT2022, vit_tiny fused);
+     HEAR serving with compute_dtype="bfloat16" of AudioNTT2022
+     (fused_conv=True) and vitc_base 16x8 beside the same weights in fp32:
+     per-request launches (the bf16 fused conv only; the ViT, as in JAX, runs
+     no attention kernel), medians in turns, the timestamp request profiled,
+     a small request against the CPU.
+The `kernels` JSON line lists every ported kernel, the bf16 instantiations
+as entries of their own; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
 """
@@ -159,6 +177,26 @@ ATTN_REL_L2 = 1e-4        # ... and only a few do: relative L2 (a left-out round
 VIT_FP32_GRAD_RTOL = 1e-3
 VIT_FUSED_GRAD_RTOL = 0.3        # worst tensor
 VIT_FUSED_GLOBAL_RTOL = 0.1      # all gradients as one vector
+# bf16 (phase 11).  A bf16 kernel against its plain version in bf16: sel and
+# the eval output within one bf16 spacing of each element (a value rounded to
+# the other neighbour: the fp32 sums before the rounding run in other orders)
+# beside CONV_ATOL (near 0 the values' own spacing is far below the fp32
+# sums' difference); s1 / s2 and the backward's sums as in fp32 (fp32 sums of
+# exact bf16 products); attention as in fp32 (ATTN_SPACING, ATTN_REL_L2): in
+# bf16 the output and dq take one more rounding, to bf16, on both sides.
+# In bf16 dq / dk / dv may take one more bf16 rounding than in fp32 (dq is
+# stored in bf16; a P rounded the other way moves a dK / dV sum over a
+# rounding boundary as in fp32): relative L2 ATTN_REL_L2_BF16 for them (dv at
+# N = 7 read 1.04e-4 against the fp32 bound of 1e-4, PR 10 call 3)
+ATTN_REL_L2_BF16 = 2e-4
+BF16_STEP_LOSS_RTOL = 1e-2   # a bf16 step (batch 16), card vs CPU: the loss, relative
+# ... and its gradients per tensor (relative L2), and the card's bf16 step
+# against its fp32 step: recorded as measured, held only to this loose limit.
+# bf16 rounds every activation at 2^-9 and the batch-16 Barlow Twins loss
+# amplifies it: JAX's own bf16 step is 0.1-0.29 from its fp32 step at batch
+# 4-16 (tests/test_torch_bf16_train.py)
+BF16_STEP_GRAD_RTOL = 0.6
+BF16_EMB_REL_L2 = 2e-2       # bf16 embeddings, card vs CPU, relative L2 (the CPU tests' ceiling)
 
 CHUNK = 512          # the HEAR pipeline's BATCH_SIZE: one kernel launch's batch
 WINDOW = 15200       # 0.95 s at 16 kHz: one timestamp window
@@ -235,18 +273,20 @@ def device_times(fn) -> dict:
             "cuda_events_ms": cuda_ms(fn)}
 
 
-def conv_grid(B: int, H: int, W: int, backward: bool, eval_mode: bool = False) -> dict:
-    """The fused conv kernels' grid, resident blocks per SM and waves."""
+def conv_grid(B: int, H: int, W: int, backward: bool, eval_mode: bool = False,
+              dtype: int = 0) -> dict:
+    """The fused conv kernels' grid, resident blocks per SM and waves
+    (dtype: 0 the fp32 instantiation, 1 the bf16 one)."""
     from ssl_audio_tpu_torch.ops import _build
     from ssl_audio_tpu_torch.ops import fused_conv as fc
 
     blocks = fc.launch_plan(B, H, W).blocks
     if backward:
         per_sm = _build.load("fused_conv_bwd.cu", fc._BWD_SIGNATURES) \
-            .fused_conv1_bwd_blocks_per_sm()
+            .fused_conv1_bwd_blocks_per_sm(dtype)
     else:
         per_sm = _build.load("fused_conv_fwd.cu", fc._SIGNATURES) \
-            .fused_conv1_fwd_blocks_per_sm(int(eval_mode))
+            .fused_conv1_fwd_blocks_per_sm(int(eval_mode), dtype)
     return {"blocks": blocks, "blocks_per_sm": per_sm, "waves": fc.waves(blocks, per_sm)}
 
 
@@ -272,6 +312,11 @@ def zero_launch_counts() -> None:
     from ssl_audio_tpu_torch.ops import zero_launch_counts as zero
 
     zero()
+
+
+def counts_with(**nonzero) -> dict:
+    """Every kernel counter at 0 (fp32 and bf16 instantiations), but those given."""
+    return {**{k: 0 for k in launch_counts()}, **nonzero}
 
 
 def mel_row(wav: torch.Tensor, spec, fold, label: str) -> dict:
@@ -547,17 +592,18 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
              "replaces": "ssl_audio_tpu/ops/fused_conv.py:344", **dx_row}], fwd_row
 
 
-def attention_check(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+def attention_check(name: str, got: torch.Tensor, ref: torch.Tensor,
+                    rel_l2_limit: float = ATTN_REL_L2) -> float:
     """Hold one output of an attention kernel against its plain version:
     max abs error within ATTN_SPACING of max|ref|, relative L2 within
-    ATTN_REL_L2.  -> the max abs error."""
+    rel_l2_limit.  -> the max abs error."""
     err = max_err(got, ref)
     scale = float(ref.abs().max())
     rel_l2 = float((got.double() - ref.double()).norm() / ref.double().norm())
     check(f"{name} / max|ref| ({scale:.3g}); relative L2 {rel_l2:.1e}", err / scale,
           ATTN_SPACING, "one bf16 spacing: an operand rounded the other way")
-    if rel_l2 > ATTN_REL_L2:
-        raise SystemExit(f"{name}: relative L2 {rel_l2} above {ATTN_REL_L2}")
+    if rel_l2 > rel_l2_limit:
+        raise SystemExit(f"{name}: relative L2 {rel_l2} above {rel_l2_limit}")
     return err
 
 
@@ -839,6 +885,469 @@ def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
     ]
 
 
+def bf16_close(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """got within one bf16 spacing of ref at each element (at the larger
+    magnitude of the two), beside CONV_ATOL -> the max abs error."""
+    g, r = got.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), r.abs()))
+    tol = torch.ldexp(torch.ones_like(g), e - 8) + CONV_ATOL
+    beyond = int(((g - r).abs() > tol).sum())
+    err = max_err(g, r)
+    flipped = int((g != r).sum())
+    print(f"  {name}: max_abs_err {err:.3e}; {flipped} of {g.numel()} elements differ, "
+          f"{beyond} by more than one bf16 spacing + {CONV_ATOL:.0e} "
+          f"{'ok' if not beyond else 'FAIL'}")
+    if beyond:
+        raise SystemExit(f"{name}: {beyond} elements beyond one bf16 spacing")
+    return err
+
+
+def bf16_conv_inputs(gen: torch.Generator, dev: torch.device, B: int):
+    """(B, 64, 96) log-mel-like x quantised to 0.5 (windows tie; bf16 values),
+    the conv and BN parameters in bf16 (a quarter of the gammas negative, one
+    exactly 0), running statistics fp32."""
+    C, bf = 64, torch.bfloat16
+    x = torch.round(torch.randn(B, 64, TRAIN_FRAMES, generator=gen) * 2) / 2
+    wk = 0.3 * torch.randn(9, C, generator=gen)
+    bias = 0.1 * torch.randn(C, generator=gen)
+    gamma = 1.0 + 0.3 * torch.randn(C, generator=gen)
+    gamma[: C // 4] *= -1.0
+    gamma[C // 2] = 0.0
+    beta = 0.2 * torch.randn(C, generator=gen)
+    mean = 0.5 * torch.randn(C, generator=gen)
+    var = 0.5 + torch.rand(C, generator=gen)
+    return ([t.to(dev).to(bf) for t in (x, wk, bias, gamma, beta)]
+            + [t.to(dev) for t in (mean, var)])
+
+
+def bf16_kernel_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
+    """The bf16 instantiations of B1 (eval at the serving chunk, statistics
+    mode at a view of the step), B4 (the step's view) and B6 / B7 (ViT-B's
+    qkv, N = 25 with masked keys and unmasked, N = 7) against their plain
+    versions in bf16 on the card, timed cold and warm beside the plain
+    version, the bound (bf16 bytes; operations at the bf16 tensor-core rate)
+    and the library's bf16 yardstick."""
+    from ssl_audio_tpu_torch.ops import fused_attention as fa
+    from ssl_audio_tpu_torch.ops import fused_conv as fc
+    from ssl_audio_tpu_torch.ops import no_tf32
+    from ssl_audio_tpu_torch.tools.serving import cuda_ms, device_ms, per_launch_ms
+
+    F, bf, C = torch.nn.functional, torch.bfloat16, 64
+    rows = []
+    # B1 eval at one chunk of timestamp windows
+    x, wk, bias, gamma, beta, mean, var = bf16_conv_inputs(gen, dev, CHUNK)
+    B, H, W = x.shape
+    stats = torch.stack([mean, torch.rsqrt(var + 1e-5), beta.float()]).contiguous()
+    ev = fc.fused_conv1_fwd_cuda(x, wk, bias, gamma, stats)
+
+    def plain_eval():
+        sp, _, _ = fc.fused_conv1_fwd_plain(x, wk, bias, gamma)
+        return torch.relu(gamma.float() * (sp.float() - mean) * torch.rsqrt(var + 1e-5)
+                          + beta.float()).to(bf)
+
+    w4 = wk.t().reshape(C, 1, 3, 3)
+
+    def library_eval():
+        y = F.conv2d(x[:, None], w4, bias, padding=1)
+        z = F.batch_norm(y, mean, var, gamma.float(), beta.float(), training=False, eps=1e-5)
+        return F.max_pool2d(torch.relu(z), 2)
+
+    if ev.dtype != bf:
+        raise SystemExit(f"fused_conv1_fwd_cuda on bf16 gave {ev.dtype}")
+    eval_err = bf16_close(f"fused_conv1_fwd_bf16 eval ({B} x {H} x {W})", ev, plain_eval())
+    cells = B * (H // 2) * (W // 2) * C
+    bound, by = bound_ms(19 * 4 * cells + 7 * cells,
+                         2 * (x.numel() + ev.numel() + 11 * C) + 4 * 3 * C, PEAK_BF16_FLOPS)
+    eval_row = {"max_abs_err": eval_err, "dtype": "bfloat16",
+                "shape": f"{(B, H, W)} bf16 -> {tuple(ev.shape)} bf16, eval epilogue fused",
+                **device_times(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma, stats)),
+                **conv_grid(B, H, W, backward=False, eval_mode=True, dtype=1),
+                "plain_ms": cuda_ms(plain_eval), "bound_ms": bound, "bound_by": by,
+                "library_ms": cuda_ms(library_eval),
+                "library_is": "cuDNN conv2d + batch_norm (fp32 running statistics) + relu + "
+                              "max_pool2d, bf16"}
+    print("  fused_conv1_fwd_bf16[eval]: " + json.dumps(eval_row))
+
+    # B1 statistics mode and B4 at one view of the step
+    x, wk, bias, gamma, beta, _, _ = bf16_conv_inputs(gen, dev, TRAIN_BATCH)
+    B = x.shape[0]
+    sel, s1, s2 = fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)
+    again = fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)
+    sel_p, s1_p, s2_p = fc.fused_conv1_fwd_plain(x, wk, bias, gamma)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((sel, s1, s2), again)):
+        raise SystemExit("fused_conv1_fwd_bf16: two launches gave different bits")
+    sel_err = bf16_close(f"fused_conv1_fwd_bf16 sel ({B} x {H} x {W})", sel, sel_p)
+    for name, a, b in (("s1", s1, s1_p), ("s2", s2, s2_p)):
+        check(f"fused_conv1_fwd_bf16 {name} / max|{name}|", max_err(a, b) / float(b.abs().max()),
+              STATS_RTOL, "fp32 sums of exact bf16 products in another order")
+    with torch.no_grad():
+        pooled, mean, var = fc.fused_conv1_bn_relu_pool(x[..., None], wk.reshape(3, 3, 1, C),
+                                                        bias, gamma, beta)
+    r = torch.rsqrt(var + 1e-5)
+    dp = torch.randn(B, C, H // 2, W // 2, generator=gen).to(dev).to(bf).permute(0, 2, 3, 1)
+    args = (x, wk, bias, gamma, mean, r, pooled, dp)
+    n = float(x.numel())
+    sums = fc.fused_conv1_bwd_cuda(*args, beta)
+    again = fc.fused_conv1_bwd_cuda(*args, beta)
+    sums_p = fc.fused_conv1_bwd_plain(*args, beta)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(sums, again)):
+        raise SystemExit("fused_conv1_bwd_bf16: two launches gave different bits")
+    bwd_err = 0.0
+    for name, a, b in zip(("T1", "T2", "Sx", "A1", "A2", "Gram"), sums, sums_p):
+        if name == "Sx":
+            check("fused_conv1_bwd_bf16 Sx / n",
+                  max(float(a.abs().max()), float(b.abs().max())) / n, SX_RTOL,
+                  "mathematically 0: float noise of 7.9e5 terms")
+            continue
+        rel = max_err(a, b) / float(b.abs().max())
+        bwd_err = max(bwd_err, rel)
+        check(f"fused_conv1_bwd_bf16 {name} / max|{name}|", rel, SUMS_RTOL,
+              "fp32 sums of exact bf16 products in another order")
+    grads = fc.param_grads_from_sums(wk, bias, gamma, mean, r, n, *sums)
+    grads_p = fc.param_grads_from_sums(wk, bias, gamma, mean, r, n, *sums_p)
+    check("fused_conv1_bwd_bf16 dW (absolute)", max_err(grads[0], grads_p[0]), GRAD_ATOL,
+          "assembled from the sums above")
+
+    def library_chain(train_grad: bool):
+        ts = [t.detach().clone().requires_grad_(train_grad) for t in (w4, bias)]
+        g32 = gamma.float().detach().clone().requires_grad_(train_grad)
+        b32 = beta.float().detach().clone().requires_grad_(train_grad)
+        y = F.conv2d(x[:, None], *ts, padding=1)
+        z = F.batch_norm(y, None, None, g32, b32, training=True, eps=1e-5)
+        out = F.max_pool2d(torch.relu(z), 2)
+        if train_grad:
+            out.backward(dp.permute(0, 3, 1, 2))
+        return out
+
+    def ours_fwd_bwd():
+        ts = [t.detach().clone().requires_grad_() for t in
+              (wk.reshape(3, 3, 1, C), bias, gamma, beta)]
+        out, _, _ = fc.fused_conv1_bn_relu_pool(x[..., None], *ts)
+        out.backward(dp)
+
+    cells = B * (H // 2) * (W // 2) * C
+    fwd_bound, fwd_by = bound_ms(19 * 4 * cells,
+                                 2 * (x.numel() + sel.numel() + 11 * C) + 4 * 2 * C,
+                                 PEAK_BF16_FLOPS)
+    stats_row = {"max_abs_err": sel_err, "dtype": "bfloat16",
+                 "shape": f"{(B, H, W)} bf16 -> sel {tuple(sel.shape)} bf16, s1, s2 fp32",
+                 **device_times(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
+                 "per_launch_ms": per_launch_ms(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
+                 **conv_grid(B, H, W, backward=False, dtype=1),
+                 "plain_ms": cuda_ms(lambda: fc.fused_conv1_fwd_plain(x, wk, bias, gamma)),
+                 "bound_ms": fwd_bound, "bound_by": fwd_by,
+                 "library_ms": cuda_ms(lambda: library_chain(False)),
+                 "library_is": "cuDNN conv2d + batch_norm(training=True) + relu + max_pool2d, "
+                               "forward, bf16"}
+    print("  fused_conv1_fwd_bf16[train shape, stats mode]: " + json.dumps(stats_row))
+    # the bf16 kernel reads x and dpooled (relu' from z, not from pooled)
+    bwd_bound, bwd_by = bound_ms(2 * 57 * cells + (2 * 45 + 9) * B * H * W,
+                                 2 * (x.numel() + dp.numel() + 12 * C) + 4 * (14 * C + 90),
+                                 PEAK_BF16_FLOPS)
+    bwd_fn = lambda: fc.fused_conv1_bwd_cuda(*args, beta)          # noqa: E731
+    bwd_row = {"max_abs_err": bwd_err, "dtype": "bfloat16",
+               "error_is": "largest sum error / that sum's largest value",
+               "shape": f"x {(B, H, W)}, dpooled {tuple(dp.shape)} bf16 -> fp32 sums",
+               **device_times(bwd_fn), "per_launch_ms": per_launch_ms(bwd_fn),
+               **conv_grid(B, H, W, backward=True, dtype=1),
+               "plain_ms": cuda_ms(lambda: fc.fused_conv1_bwd_plain(*args, beta), iters=5),
+               "bound_ms": bwd_bound, "bound_by": bwd_by,
+               "library_ms": cuda_ms(lambda: library_chain(True)),
+               "library_is": "autograd through cuDNN conv2d + batch_norm(training) + relu + "
+                             "max_pool2d in bf16, forward and backward",
+               "function_fwd_bwd_ms": cuda_ms(ours_fwd_bwd)}
+    print("  fused_conv1_bwd_bf16: " + json.dumps(bwd_row))
+    src_f, src_b = "ssl_audio_tpu_torch/csrc/fused_conv_fwd.cu", "ssl_audio_tpu_torch/csrc/fused_conv_bwd.cu"
+    rows.append({"name": "fused_conv1_fwd_bf16", "route": "cuda", "source": src_f,
+                 "replaces": "ssl_audio_tpu/ops/fused_conv.py:186",
+                 **eval_row, "max_abs_err": max(eval_err, sel_err), "train_shape": stats_row})
+    rows.append({"name": "fused_conv1_bwd_bf16", "route": "cuda", "source": src_b,
+                 "replaces": "ssl_audio_tpu/ops/fused_conv.py:257", **bwd_row})
+
+    # B6 / B7 at the ViT-B step's shapes
+    Bv, Cv, Hv = TRAIN_BATCH, VIT_DIM, VIT_HEADS
+    hd = Cv // Hv
+    errs, inputs = {"fwd": 0.0, "bwd": 0.0}, {}
+    for label, (N, drop) in {"N=25": (VIT_TOKENS, 0.0), "N=25, masked keys": (VIT_TOKENS, 0.75),
+                             "N=7, token drop": (7, 0.0)}.items():
+        qkv = torch.randn(Bv, N, 3 * Cv, generator=gen)
+        bias_k = torch.zeros(Bv, N)
+        if drop:
+            dead = torch.rand(Bv, N, generator=gen) < drop
+            dead[:, 0] = False
+            bias_k[dead] = -1e9
+        dout = torch.randn(Bv, N, Cv, generator=gen)
+        qkv, dout = qkv.to(dev).to(bf), dout.to(dev).to(bf)
+        bias_k = bias_k.to(dev)
+        inputs[label] = (qkv, bias_k, dout)
+        out = fa.fused_attention_fwd_cuda(qkv, bias_k, Hv)
+        dqkv, dbias = fa.fused_attention_bwd_cuda(qkv, bias_k, dout, Hv)
+        again = fa.fused_attention_bwd_cuda(qkv, bias_k, dout, Hv)
+        out_p = fa.fused_attention_fwd_plain(qkv, bias_k, Hv)
+        dqkv_p, dbias_p = fa.fused_attention_bwd_plain(qkv, bias_k, dout, Hv)
+        torch.cuda.synchronize()
+        if out.dtype != bf or dqkv.dtype != bf or dbias.dtype != torch.float32:
+            raise SystemExit(f"bf16 attention kernels gave {out.dtype} {dqkv.dtype} {dbias.dtype}")
+        if not (torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])):
+            raise SystemExit("fused_attention_bwd_bf16: two launches gave different bits")
+        errs["fwd"] = max(errs["fwd"], attention_check(
+            f"fused_attention_fwd_bf16 out [{label}]", out.float(), out_p.float()))
+        for i, name in enumerate(("dq", "dk", "dv")):
+            sl = slice(i * Cv, (i + 1) * Cv)
+            errs["bwd"] = max(errs["bwd"], attention_check(
+                f"fused_attention_bwd_bf16 {name} [{label}]", dqkv[..., sl].float(),
+                dqkv_p[..., sl].float(), ATTN_REL_L2_BF16))
+        errs["bwd"] = max(errs["bwd"], attention_check(
+            f"fused_attention_bwd_bf16 dbias [{label}]", dbias, dbias_p))
+
+    def split(t):
+        return [t[..., i * Cv:(i + 1) * Cv].reshape(t.shape[0], t.shape[1], Hv, hd)
+                .transpose(1, 2) for i in range(3)]
+
+    def library_fwd(t, b):
+        q, k, v = split(t)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=b[:, None, None, :].to(bf))
+
+    att = {"fwd": {}, "bwd": {}}
+    for label in ("N=25", "N=7, token drop"):
+        qkv, bias_k, dout = inputs[label]
+        N = qkv.shape[1]
+        xg = qkv.detach().requires_grad_()
+        lib_o = library_fwd(xg, bias_k)
+        lib_g = dout.reshape(Bv, N, Hv, hd).transpose(1, 2)
+
+        def library_bwd():
+            return torch.autograd.grad(lib_o, xg, lib_g, retain_graph=True)
+
+        fwd_bytes = 2 * 4 * Bv * N * Cv + 4 * Bv * N
+        bwd_bytes = 2 * 7 * Bv * N * Cv + 4 * 2 * Bv * N
+        for kind, fn, plain, nbytes, flops, library in (
+                ("fwd", lambda: fa.fused_attention_fwd_cuda(qkv, bias_k, Hv),
+                 lambda: fa.fused_attention_fwd_plain(qkv, bias_k, Hv), fwd_bytes,
+                 4 * Bv * N * N * Cv, lambda: library_fwd(qkv, bias_k)),
+                ("bwd", lambda: fa.fused_attention_bwd_cuda(qkv, bias_k, dout, Hv),
+                 lambda: fa.fused_attention_bwd_plain(qkv, bias_k, dout, Hv), bwd_bytes,
+                 10 * Bv * N * N * Cv, library_bwd)):
+            bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            att[kind][label] = {
+                "dtype": "bfloat16",
+                "shape": f"qkv {tuple(qkv.shape)} bf16, bias fp32"
+                         + (", dout bf16 -> dqkv bf16, dbias fp32" if kind == "bwd"
+                            else " -> out bf16"),
+                "ms": device_ms(fn, cold=True), "ms_warm": device_ms(fn),
+                "plain_ms": device_ms(plain, iters=5), "bound_ms": bound, "bound_by": by,
+                "library_ms": device_ms(library)}
+            print(f"  fused_attention_{kind}_bf16[{label}]: " + json.dumps(att[kind][label]))
+    src = "ssl_audio_tpu_torch/csrc/fused_attention.cu"
+    rows.append({"name": "fused_attention_fwd_bf16", "route": "cuda", "source": src,
+                 "replaces": "ssl_audio_tpu/ops/fused_attention.py:152",
+                 "max_abs_err": errs["fwd"], **att["fwd"]["N=25"],
+                 "library_is": "split + transpose of the raw bf16 qkv, "
+                               "scaled_dot_product_attention with the additive mask",
+                 "token_drop": att["fwd"]["N=7, token drop"]})
+    rows.append({"name": "fused_attention_bwd_bf16", "route": "cuda", "source": src,
+                 "replaces": "ssl_audio_tpu/ops/fused_attention.py:187",
+                 "max_abs_err": errs["bwd"], **att["bwd"]["N=25"],
+                 "library_is": "the same yardstick's backward alone",
+                 "token_drop": att["bwd"]["N=7, token drop"]})
+    return rows
+
+
+def bf16_serving(mod, model_fp32, bf16_model, cpu_model, audio, per_request: dict,
+                 width: int, small: tuple) -> dict:
+    """A HEAR model with compute_dtype="bfloat16" beside the same weights in
+    fp32 on the card: each request's launches (zeroed just before, read just
+    after; exactly per_request[path], every other counter 0), the median of
+    3 timed requests in turns (fp32, bf16, bf16, fp32), the bf16 timestamp
+    request profiled, the bf16 embeddings against the fp32 ones (recorded)
+    and against the bf16 model on the CPU on a small request.  mod: the
+    HEAR module (hear.conv or hear.vit); small: (clips, samples) of the
+    request held against the CPU."""
+    from ssl_audio_tpu_torch.tools.serving import profile
+
+    requests = {m: {"timestamp": (lambda mm=mm: mod.get_timestamp_embeddings(audio, mm)),
+                    "scene": (lambda mm=mm: mod.get_scene_embeddings(audio, mm))}
+                for m, mm in (("fp32", model_fp32), ("bf16", bf16_model))}
+    out = {"launches": {}, "ms": {}, "clips_per_s": {}}
+    for fn in requests["bf16"].values():
+        fn()                                      # warm-up: cuDNN and cuBLAS plans
+    embs = {}
+    for path in ("timestamp", "scene"):
+        zero_launch_counts()
+        embs[path] = requests["bf16"][path]()
+        torch.cuda.synchronize()
+        counts = out["launches"][path] = launch_counts()
+        print(f"  bf16 {path} request launches: {counts}")
+        if counts != counts_with(**per_request[path]):
+            raise SystemExit(f"bf16 {path} request launched {counts}, expected "
+                             f"{per_request[path]}")
+    ts_emb = embs["timestamp"][0]
+    if ts_emb.dtype != torch.float32 or ts_emb.shape[-1] != width \
+            or not (torch.isfinite(ts_emb).all() and torch.isfinite(embs["scene"]).all()):
+        raise SystemExit(f"bf16 embeddings: {ts_emb.dtype} {tuple(ts_emb.shape)}, finite?")
+    for path in ("timestamp", "scene"):
+        times = {"fp32": [], "bf16": []}
+        for m in ("fp32", "bf16", "bf16", "fp32"):
+            times[m] += wall_ms(requests[m][path], reps=3 if m == "bf16" else 2)
+        out["ms"][path] = {m: statistics.median(v) for m, v in times.items()}
+        out["clips_per_s"][path] = {m: N_CLIPS / v * 1e3 for m, v in out["ms"][path].items()}
+        ref = requests["fp32"][path]()
+        ref = ref[0] if path == "timestamp" else ref
+        got = embs[path][0] if path == "timestamp" else embs[path]
+        out.setdefault("bf16_vs_fp32_rel_l2", {})[path] = float(
+            (got.double() - ref.double()).norm() / ref.double().norm())
+    prof = profile(requests["bf16"]["timestamp"])
+    out["timestamp_profile"] = {
+        "wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+        "idle_share": prof["idle_share"],
+        "device_ms_by_kernel": {k[:90]: v for k, v in prof["device_ms_by_kernel"].items()}}
+    small = audio[: small[0], : small[1]]
+    out["cpu_check_rel_l2"] = {}
+    for name, fn in (("timestamp", lambda m: mod.get_timestamp_embeddings(small, m)[0]),
+                     ("scene", lambda m: mod.get_scene_embeddings(small, m))):
+        a, b = fn(bf16_model), fn(cpu_model)
+        rel = float((a.double() - b.double()).norm() / b.double().norm())
+        out["cpu_check_rel_l2"][name] = rel
+        check(f"bf16 {name} embeddings card vs CPU, relative L2", rel, BF16_EMB_REL_L2,
+              "bf16 roundings that fall on the other side (sums in other orders)")
+    return out
+
+
+def phase_bf16(seed: int, dev: torch.device, smi: str) -> tuple[list[dict], dict]:
+    """Phase 11: the bf16 compute mode.  -> (the bf16 kernels' rows, the
+    phase's record with its launches per path)."""
+    from ssl_audio_tpu_torch.hear import conv as hear_conv
+    from ssl_audio_tpu_torch.hear import vit as hear_vit
+    from ssl_audio_tpu_torch.hear.utils import frame_starts
+    from ssl_audio_tpu_torch.tools.serving import (profile, seeded_clips, seeded_serving_model,
+                                                   seeded_vit_serving_model)
+    from ssl_audio_tpu_torch.tools.train_profile import seeded_training
+
+    print("phase 11: bf16 compute (--use_fp16, HEAR compute_dtype=\"bfloat16\"): the bf16 "
+          "kernels against their plain versions, main --use_fp16, timed steps beside fp32, "
+          "card vs CPU, bf16 serving")
+    gen = torch.Generator().manual_seed(seed + 11)
+    rows = bf16_kernel_rows(gen, dev)
+    out = {"card": smi, "launches": {}}
+
+    # (b) the training entry point with --use_fp16, a few steps each
+    runs = {"bf16_main_audiontt": (
+                ["--dataset", "synthetic_wav", "--model_type", "audiontt", "--use_fp16"],
+                {"log_mel_folded": 1, "fused_conv1_fwd_bf16": 2, "fused_conv1_bwd_bf16": 2}),
+            "bf16_main_vit": (
+                VIT_FLAGS + ["--use_fp16"],
+                {"log_mel_folded": 1, "fused_attention_fwd_bf16": 2 * VIT_DEPTH,
+                 "fused_attention_bwd_bf16": 2 * VIT_DEPTH})}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bf16_") as tmp, contextlib.chdir(tmp):
+        for path, (flags, per_step) in runs.items():
+            steps = 3
+            trainer, seconds, counts, lines = run_main(
+                flags + ["--epochs", "1", "--synthetic_steps_per_epoch", str(steps),
+                         "--seed", str(seed)])
+            out["launches"][path] = expect(counts, per_step, steps, f"main {' '.join(flags)}")
+            said = [line for line in lines if "encoder compute" in line]
+            losses = list(trainer.epoch_losses.values())
+            dtypes = {p.dtype for p in trainer.state.modules.parameters()}
+            if not said or "encoder compute bfloat16" not in said[0] \
+                    or dtypes != {torch.float32} or not all(
+                        v == v and abs(v) != float("inf") for v in losses):
+                raise SystemExit(f"{path}: {said}, parameters {dtypes}, losses {losses}")
+            out[path] = {"flags": flags, "steps": steps, "run_s": seconds, "losses": losses,
+                         "launches_per_step": out["launches"][path]}
+            print(f"  {path}: " + json.dumps(out[path]))
+            del trainer
+    torch.cuda.empty_cache()
+
+    # (c) steps on a resident batch of 128 10-s clips, bf16 against fp32 in
+    # turns (fp32, bf16, bf16, fp32), each mode's step profiled once
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).to(dev)
+    out["steps"] = {}
+    for model, kw, kernels in (
+            ("audiontt", {}, ("fused_conv1_fwd", "fused_conv1_bwd")),
+            ("vit_base", dict(model_type="vit_base", fused_attention=True),
+             ("fused_attention_fwd", "fused_attention_bwd"))):
+        modes = {m: seeded_training(seed, dev, use_fp16=(m == "bf16"), **kw)
+                 for m in ("fp32", "bf16")}
+        times = {"fp32": [], "bf16": []}
+        for m in ("fp32", "bf16", "bf16", "fp32"):
+            _, st, step, g = modes[m]
+            times[m] += timed_steps(step, st, wavs, g)[0]
+        rec = {"batch": TRAIN_BATCH, "order": "fp32, bf16, bf16, fp32", "launches": {},
+               "ms_per_step_median": {m: statistics.median(v) for m, v in times.items()},
+               "ms_per_step_min": {m: min(v) for m, v in times.items()}}
+        rec["clips_per_s"] = {m: TRAIN_BATCH / v * 1e3
+                              for m, v in rec["ms_per_step_median"].items()}
+        for m, (_, st, step, g) in modes.items():
+            zero_launch_counts()
+            step(st, wavs, gen=g)
+            torch.cuda.synchronize()
+            counts = rec["launches"][m] = launch_counts()
+            suffix = "_bf16" if m == "bf16" else ""
+            other = "" if m == "bf16" else "_bf16"
+            if any(counts[k + suffix] != (2 if model == "audiontt" else 2 * VIT_DEPTH)
+                   or counts[k + other] for k in kernels):
+                raise SystemExit(f"{model} {m} step launched {counts}")
+            prof = profile(lambda: step(st, wavs, gen=g))
+            rec[f"profile_{m}"] = {
+                "wall_ms": prof["wall_ms"], "device_busy_ms": prof["device_busy_ms"],
+                "idle_share": prof["idle_share"],
+                "device_ms_by_kernel": {k[:90]: v for k, v in
+                                        list(prof["device_ms_by_kernel"].items())[:10]}}
+        out["steps"][model] = rec
+        print(f"  {model} step, bf16 vs fp32: " + json.dumps(rec))
+        del modes
+        torch.cuda.empty_cache()
+
+    # (d) a small bf16 step on the card against the same step on the CPU, and
+    # against the card's fp32 step
+    out["step_checks"] = {}
+    for name, overrides, step_kw, zero in (
+            ("audiontt", {}, {}, ("encoder.features.0.bias", "encoder.features.4.bias")),
+            ("vit_tiny_fused", dict(model_type="vit_tiny", fused_attention=True),
+             dict(mask_ratio=0.75), ("encoder.norm.bias",))):
+        kw = dict(batch_size=16, use_fp16=True, **overrides)
+        why = "bf16 roundings on other sides, amplified by the batch-16 loss"
+        out["step_checks"][name] = {
+            "card_vs_cpu": card_vs_cpu_step(seed, dev, kw, step_kw, zero, BF16_STEP_LOSS_RTOL,
+                                            BF16_STEP_GRAD_RTOL, why),
+            "card_bf16_vs_card_fp32": card_vs_cpu_step(
+                seed, dev, kw, step_kw, zero, 1.0, 10.0, "recorded, not limited",
+                ref=(dev, {"use_fp16": False}), label="card bf16 vs card fp32")}
+
+    # (e) HEAR serving with compute_dtype="bfloat16"
+    audio = seeded_clips(torch.Generator().manual_seed(seed + 3), N_CLIPS, CLIP)
+    g = torch.Generator().manual_seed(seed + 4)
+    fp32 = seeded_serving_model(g, dev)
+    kw = dict(fused_conv=True, compute_dtype="bfloat16")
+    bf16, cpu = (hear_conv.load_model("", "audiontt", device=d, **kw) for d in (dev, "cpu"))
+    for m in (bf16, cpu):
+        m.model.load_state_dict(fp32.model.state_dict())
+    windows = N_CLIPS * len(frame_starts(CLIP, WINDOW, 50, 16000)[0])
+    chunks = -(-windows // CHUNK)
+    out["hear_conv"] = bf16_serving(hear_conv, fp32, bf16, cpu, audio, {
+        "timestamp": {"log_mel_folded": chunks, "fused_conv1_fwd_bf16": chunks},
+        "scene": {"log_mel_folded": 1}}, 3072, (2, 2 * 16000))
+    out["launches"].update({f"bf16_hear_{k}": v for k, v in out["hear_conv"]["launches"].items()})
+    print("  bf16 HEAR AudioNTT2022: " + json.dumps(out["hear_conv"]))
+    del fp32, bf16, cpu
+    g = torch.Generator().manual_seed(seed + 5)
+    fp32 = seeded_vit_serving_model(g, dev)
+    bf16, cpu = (hear_vit.load_model("", "vitc_base", "16x8", compute_dtype="bfloat16", device=d)
+                 for d in (dev, "cpu"))
+    for m in (bf16, cpu):
+        m.model.load_state_dict(fp32.model.state_dict())
+    out["hear_vit"] = bf16_serving(hear_vit, fp32, bf16, cpu, audio, {
+        "timestamp": {"log_mel_folded": chunks}, "scene": {"log_mel_folded": 1}}, 768,
+        (1, 16000))
+    out["launches"].update({f"bf16_hear_vit_{k}": v for k, v in out["hear_vit"]["launches"].items()})
+    print("  bf16 HEAR vitc_base 16x8: " + json.dumps(out["hear_vit"]))
+    del fp32, bf16, cpu
+    torch.cuda.empty_cache()
+    return rows, out
+
+
 def phase_serving(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
     from ssl_audio_tpu_torch.hear import conv as hear_conv
     from ssl_audio_tpu_torch.ops.mel_kernel import kernel_operands
@@ -951,9 +1460,12 @@ def entry_epoch(argv: list[str], want: dict, seed: int):
 
 def card_vs_cpu_step(seed: int, dev: torch.device, overrides: dict, step_kwargs: dict,
                      zero_grad: tuple, loss_rtol: float, grad_rtol: float, why: str,
-                     global_rtol: float | None = None) -> dict:
+                     global_rtol: float | None = None, ref: tuple = ("cpu", {}),
+                     label: str = "card vs CPU") -> dict:
     """One small step on the card against the same step on the CPU (plain
     versions): the same seeded weights, the same 16 wavs, the same draws.
+    ref: where the reference step runs and the settings it changes (the
+    card's fp32 step against its bf16 one: (dev, {"use_fp16": False})).
     zero_grad: parameters whose gradient is mathematically 0 (float noise).
     Limits: the loss (relative), the worst tensor's gradient (relative L2)
     and, if given, all gradients as one vector (relative L2)."""
@@ -962,17 +1474,17 @@ def card_vs_cpu_step(seed: int, dev: torch.device, overrides: dict, step_kwargs:
     from ssl_audio_tpu_torch.train.steps import draw_step
 
     wav_small = seeded_clips(torch.Generator().manual_seed(seed + 7), 16, 2 * 16000)
-    runs = {}
-    for where in ("cpu", dev):
-        cfg_s, state_s, step_s, _ = seeded_training(seed, where, **overrides)
+    runs = []
+    for where, kw in ((ref[0], {**overrides, **ref[1]}), (dev, overrides)):
+        cfg_s, state_s, step_s, _ = seeded_training(seed, where, **kw)
         draws = draw_step(torch.Generator().manual_seed(seed + 9), cfg_s,
                           tuple(wav_small.shape), state_s.modules["encoder"], wav=True)
         loss = float(step_s(state_s, wav_small.to(where), draws=draws.to(where),
                             **step_kwargs)["loss"])
         grads = {k: p.grad.detach().cpu() for k, p in state_s.modules.named_parameters()
                  if p.grad is not None}
-        runs[str(where)] = (loss, grads)
-    (loss_c, grads_c), (loss_d, grads_d) = runs["cpu"], runs[str(dev)]
+        runs.append((loss, grads))
+    (loss_c, grads_c), (loss_d, grads_d) = runs
     loss_err = abs(loss_d - loss_c) / abs(loss_c)
     worst, worst_name, worst_max, sq_diff, sq_ref = 0.0, "", 0.0, 0.0, 0.0
     for k, g in grads_c.items():
@@ -986,13 +1498,14 @@ def card_vs_cpu_step(seed: int, dev: torch.device, overrides: dict, step_kwargs:
         if rel > worst:
             worst, worst_name = rel, k
     overall = (sq_diff / sq_ref) ** 0.5
-    print(f"  small step (batch 16, {overrides}), card vs CPU: loss {loss_d!r} vs {loss_c!r}; "
+    print(f"  small step (batch 16, {overrides}), {label}: loss {loss_d!r} vs {loss_c!r}; "
           f"gradients worst relative L2 {worst:.2e} ({worst_name}), all at once {overall:.2e}, "
           f"largest single element {worst_max:.1e} of its tensor's largest")
-    check("train step loss, card vs CPU, relative", loss_err, loss_rtol, why)
-    check("train step gradients, |card - CPU| / |CPU| per tensor", worst, grad_rtol, why)
+    check(f"train step loss, {label}, relative", loss_err, loss_rtol, why)
+    check(f"train step gradients, {label}, relative L2 per tensor", worst, grad_rtol, why)
     if global_rtol is not None:
-        check("train step gradients, |card - CPU| / |CPU| all at once", overall, global_rtol, why)
+        check(f"train step gradients, {label}, relative L2 all at once", overall, global_rtol,
+              why)
     return {"loss_rel_err": loss_err, "grad_rel_l2_err": worst, "worst_grad": worst_name,
             "grad_rel_l2_err_all": overall, "grad_max_elem_err": worst_max}
 
@@ -1017,9 +1530,7 @@ def phase_training(seed: int, dev: torch.device, smi: str) -> dict:
 
     print("phase 5: Barlow Twins training, AudioNTT2022 (64 mels, d=3072, projector "
           "3072-8192-256, batch 128, crop 96, fp32, LARS), raw 10-s clips in")
-    want = {"log_mel_folded": 1, "log_mel_unfolded": 0, "fused_conv1_fwd": 2,
-            "fused_conv1_bwd": 2, "fused_conv1_dx": 0, "fused_attention_fwd": 0,
-            "fused_attention_bwd": 0}
+    want = counts_with(log_mel_folded=1, fused_conv1_fwd=2, fused_conv1_bwd=2)
     trainer, launches, entry = entry_epoch(
         ["--dataset", "synthetic_wav", "--model_type", "audiontt"], want, seed)
     state, step, gen = trainer.state, trainer.train_step, trainer.gen
@@ -1060,9 +1571,8 @@ def phase_training_vit(seed: int, dev: torch.device, smi: str) -> dict:
     print("phase 6: Barlow Twins training, ViT-B (embed 768, depth 12, 12 heads, 24 patches "
           "+ CLS, projector 768-8192-256, batch 128, crop 96, fp32 with bf16-operand "
           "attention kernels, AdamW), raw 10-s clips in")
-    want = {"log_mel_folded": 1, "log_mel_unfolded": 0, "fused_conv1_fwd": 0,
-            "fused_conv1_bwd": 0, "fused_conv1_dx": 0,
-            "fused_attention_fwd": 2 * VIT_DEPTH, "fused_attention_bwd": 2 * VIT_DEPTH}
+    want = counts_with(log_mel_folded=1, fused_attention_fwd=2 * VIT_DEPTH,
+                       fused_attention_bwd=2 * VIT_DEPTH)
     trainer, launches, entry = entry_epoch(VIT_FLAGS, want, seed)
     state = trainer.state
     before = {k: v.clone() for k, v in state.modules.state_dict().items()}
@@ -1764,6 +2274,46 @@ def phase_disk(seed: int, dev: torch.device, smi: str, resident_wav_ms: float) -
         out["linear_cli"] = {"checkpoint": os.path.basename(ckpt), "s": time.perf_counter() - t,
                              "map": scores["score_all"], "map_5": scores["score_5"]}
         print("  (f) linear CLI: " + json.dumps(out["linear_cli"]))
+
+        # (g) the bf16 modes on FSD50K: main --use_fp16 --use_fp16_eval with the
+        # per-epoch probe in bf16, then the linear CLI --use_fp16_eval on its
+        # checkpoint (the probe's 711-frame crops are odd: block 1 is cuDNN's)
+        probes.clear()
+        linear_mod.eval_linear = counted_eval_linear
+        try:
+            trainer, run_s, counts, said = run_main_lines(
+                ["--dataset", "fsd50k", "--epochs", "1", "--epoch_eval_f", "1", "--use_fp16",
+                 "--use_fp16_eval", "--save_base_dir", "g", "--seed", str(seed)],
+                "fsd50k bf16", "NativeBatchReader")
+        finally:
+            linear_mod.eval_linear = real_eval_linear
+        if len(probes) != 1 or not 0.0 < probes[0][2]["score_all"] <= 1.0:
+            raise SystemExit(f"fsd50k bf16 probe: {[(p[0], p[2]) for p in probes]}")
+        out["launches"]["fsd50k_bf16_probe"] = probes[0][0]
+        out["launches"]["fsd50k_bf16_step"] = expect(
+            counts_minus(counts, probes[0][0]),
+            {"fused_conv1_fwd_bf16": 2, "fused_conv1_bwd_bf16": 2}, trainer.niter_per_ep,
+            "fsd50k --use_fp16 steps")
+        (ckpt,) = glob.glob("g/results/fsd50k/*/model_1.pt")
+        zero_launch_counts()
+        t = time.perf_counter()
+        cli_log = io.StringIO()
+        with contextlib.redirect_stdout(cli_log):
+            scores = linear_cli.main(["--model_file_path", ckpt, "--model_name", "chip_smoke_bf16",
+                                      "--model_epoch", "1", "--use_fp16_eval",
+                                      "--seed", str(seed)])
+        torch.cuda.synchronize()
+        out["launches"]["linear_cli_bf16"] = launch_counts()
+        if not 0.0 < scores["score_all"] <= 1.0 or "encoder compute bfloat16" not in \
+                cli_log.getvalue():
+            raise SystemExit(f"linear CLI --use_fp16_eval: {scores}, {cli_log.getvalue()!r}")
+        out["bf16"] = {"flags": "--dataset fsd50k --epochs 1 --use_fp16 --use_fp16_eval",
+                       "run_s": run_s, "epoch_losses": trainer.epoch_losses,
+                       "probe_s": probes[0][1], "probe_map": probes[0][2]["score_all"],
+                       "linear_cli_s": time.perf_counter() - t,
+                       "linear_cli_map": scores["score_all"]}
+        print("  (g) bf16 on FSD50K: " + json.dumps(out["bf16"]))
+        del trainer
     return out
 
 
@@ -1800,6 +2350,9 @@ def main() -> int:
     training_vit = phase_training_vit(args.seed, dev, smi)
     serving_vit = phase_serving_vit(gen, dev, smi)
     evaluation = phase_eval(args.seed, dev, smi)
+    t11 = time.perf_counter()
+    bf16_rows, bf16 = phase_bf16(args.seed, dev, smi)
+    print(f"  phase 11: {time.perf_counter() - t11:.1f} s")
     t9 = time.perf_counter()
     pretraining = phase_pretraining(args.seed, dev, smi)
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s")
@@ -1815,10 +2368,15 @@ def main() -> int:
     # step and one probe of the learning proof; phase 10: one wav_to_lms
     # group, one step and one probe of main on FSD50K, one audioset_wav step,
     # one --load_wav step, one step of the resumed FSD50K run, the linear
-    # CLI's probe) and in all
+    # CLI's probe, (g) one --use_fp16 step and its bf16 probe, the linear
+    # CLI --use_fp16_eval; phase 11: one step of main --use_fp16 for
+    # AudioNTT2022 and for ViT-B, the bf16 HEAR requests of both models) and
+    # in all
+    kernels += bf16_rows
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
-               **evaluation["launches"], **pretraining["launches"], **disk["launches"]}
+               **evaluation["launches"], **pretraining["launches"], **disk["launches"],
+               **bf16["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

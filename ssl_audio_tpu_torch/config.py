@@ -94,7 +94,7 @@ class Config:
 
     load_lms: bool = True
     distributed: bool = False
-    use_fp16: bool = False          # bf16 autocast of the encoder (not ported yet)
+    use_fp16: bool = False          # the encoder in bf16, fp32 masters (models/precision.py)
     use_fp16_eval: bool = False
     name: str = ""
     squeeze_excitation: bool = False
@@ -214,8 +214,6 @@ def unsupported_settings(cfg: Config) -> List[str]:
     if cfg.dataset not in PORTED_DATASETS:
         bad.append(f"--dataset {cfg.dataset} (ported: {', '.join(PORTED_DATASETS)})")
     for flag, on, what in (
-            ("--use_fp16", cfg.use_fp16, "bf16 autocast of the encoder"),
-            ("--use_fp16_eval", cfg.use_fp16_eval, "bf16 embedding extraction"),
             ("--squeeze_excitation", cfg.squeeze_excitation, "SE blocks"),
             ("--steps_per_dispatch > 1", cfg.steps_per_dispatch != 1, "multi-step dispatch"),
             ("--profile_dir", bool(cfg.profile_dir), "the loop's profiler trace"),

@@ -74,6 +74,18 @@
 //     two launches give the same bits.
 // Not used: TMA, clusters, warp specialisation: ~19 KB per head do not
 // need them.
+//
+// Element types.  Both kernels are templates over T, the type of the tensors
+// they read and write (qkv, dO, O, dqkv): float, or __nv_bfloat16 for the
+// bf16 compute mode (JAX: O and dq / dk / dv in qkv's dtype,
+// fused_attention.py:178, :230-232; the bias and its cotangent fp32, :233).
+// A bf16 qkv is read as it is: its 16-byte chunks go by cp.async straight
+// into the row-padded tiles, half the bytes and no conversion pass (the
+// ring is the fp32 path's).  Every product and sum is as in fp32; what
+// differs is the stores: O and dq are rounded to bf16 once (the fp32
+// contract leaves them fp32), dK and dV round as they do in fp32.  With
+// several rounds of query tiles (N above 64) the running dK / dV sums go to
+// an fp32 scratch the size of dqkv, since the bf16 output cannot hold them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -226,60 +238,80 @@ __device__ __forceinline__ const bf16* bk_addr(const bf16* t, int lds, int lane)
 // ---------------------------------------------------------------------------
 
 // rows [row0, row0 + rows) of G heads' hd columns starting at column col0 of
-// a (N, stride) fp32 matrix, to dst[g][r][d] (bf16, row stride lds, G blocks
+// a (N, stride) matrix of T, to dst[g][r][d] (bf16, row stride lds, G blocks
 // of rows_alloc rows)
+template <typename T>
 struct Part {
-  const float* src;
+  const T* src;
   int stride, col0, row0, rows, rows_alloc;
   bf16* dst;
 };
 
+// elements of T in a 16-byte chunk
+template <typename T>
+__host__ __device__ constexpr int chunk_elems() { return 16 / (int)sizeof(T); }
+
 // The thread's share of the 16-byte chunks of the staged parts: thread t
-// takes chunks t, t + T, ... of a part (4 columns each; consecutive threads
-// read consecutive bytes) and copies them by cp.async into its own slots of
-// the ring (slot i of thread t at ring[i T + t]), so it converts only what
-// it copied itself and needs no barrier between copy and conversion.  Where
-// every part's chunks fit the ring at once (the ViT shapes) they are all in
-// flight together; otherwise each part goes in batches of `slots`.
+// takes chunks t, t + T, ... of a part (4 fp32 or 8 bf16 columns each;
+// consecutive threads read consecutive bytes).  fp32: it copies them by
+// cp.async into its own slots of the ring (slot i of thread t at
+// ring[i T + t]), so it converts only what it copied itself and needs no
+// barrier between copy and conversion; where every part's chunks fit the
+// ring at once (the ViT shapes) they are all in flight together, otherwise
+// each part goes in batches of `slots`.  bf16: straight into the tiles, all
+// at once.
 struct Stage {
   float4* ring;
-  int T, tid, slots, cpr, hd4, lds;
+  int T, tid, slots, cpr, hd4, lds;  // cpr, hd4: chunks per row of G heads, of one head
   float inv_cpr, inv_hd4;          // exact quotients of the small ints involved
 };
 
 __device__ __forceinline__ int quot(int a, float inv) { return (int)(((float)a + 0.5f) * inv); }
 
-__device__ __forceinline__ int chunks_of(const Stage& st, const Part& P) {
+template <typename T>
+__device__ __forceinline__ int chunks_of(const Stage& st, const Part<T>& P) {
   const int total = P.rows * st.cpr;
   return total > st.tid ? (total - st.tid + st.T - 1) / st.T : 0;
 }
 
 // the thread's chunks [from, from + n) of P into ring slots [slot0, slot0 + n)
-__device__ __forceinline__ void copy_chunks(const Stage& st, const Part& P, int from, int n,
+// (fp32), or into P's tiles (bf16)
+template <typename T>
+__device__ __forceinline__ void copy_chunks(const Stage& st, const Part<T>& P, int from, int n,
                                             int slot0) {
+  constexpr int E = chunk_elems<T>();
   for (int i = 0; i < n; ++i) {
     const int c = st.tid + (from + i) * st.T, r = quot(c, st.inv_cpr), col = c - r * st.cpr;
-    cp_async16(st.ring + (slot0 + i) * st.T + st.tid,
-               P.src + (size_t)(P.row0 + r) * P.stride + P.col0 + 4 * col);
+    const T* src = P.src + (size_t)(P.row0 + r) * P.stride + P.col0 + E * col;
+    if constexpr (sizeof(T) == sizeof(bf16)) {
+      const int g = quot(col, st.inv_hd4), d = E * (col - g * st.hd4);
+      cp_async16(P.dst + ((size_t)g * P.rows_alloc + r) * st.lds + d, src);
+    } else {
+      cp_async16(st.ring + (slot0 + i) * st.T + st.tid, src);
+    }
   }
 }
 
-// ... and from the ring, as bf16, into P's tiles
-__device__ __forceinline__ void convert_chunks(const Stage& st, const Part& P, int from, int n,
+// ... and from the ring, as bf16, into P's tiles (fp32; bf16 chunks landed there)
+template <typename T>
+__device__ __forceinline__ void convert_chunks(const Stage& st, const Part<T>& P, int from, int n,
                                                int slot0) {
-  for (int i = 0; i < n; ++i) {
-    const int c = st.tid + (from + i) * st.T, r = quot(c, st.inv_cpr), col = c - r * st.cpr;
-    const int g = quot(col, st.inv_hd4), d = 4 * (col - g * st.hd4);
-    const float4 x = st.ring[(slot0 + i) * st.T + st.tid];
-    uint2 packed;
-    packed.x = pack_bf16(x.x, x.y);
-    packed.y = pack_bf16(x.z, x.w);
-    *reinterpret_cast<uint2*>(P.dst + ((size_t)g * P.rows_alloc + r) * st.lds + d) = packed;
+  if constexpr (sizeof(T) == sizeof(float)) {
+    for (int i = 0; i < n; ++i) {
+      const int c = st.tid + (from + i) * st.T, r = quot(c, st.inv_cpr), col = c - r * st.cpr;
+      const int g = quot(col, st.inv_hd4), d = 4 * (col - g * st.hd4);
+      const float4 x = st.ring[(slot0 + i) * st.T + st.tid];
+      uint2 packed;
+      packed.x = pack_bf16(x.x, x.y);
+      packed.y = pack_bf16(x.z, x.w);
+      *reinterpret_cast<uint2*>(P.dst + ((size_t)g * P.rows_alloc + r) * st.lds + d) = packed;
+    }
   }
 }
 
 // one part in batches of `slots`, each waited for
-__device__ __forceinline__ void stage_part(const Stage& st, const Part& P) {
+template <typename T>
+__device__ __forceinline__ void stage_part(const Stage& st, const Part<T>& P) {
   const int n = chunks_of(st, P);
   for (int from = 0; from < n; from += st.slots) {
     const int m = min(st.slots, n - from);
@@ -291,12 +323,13 @@ __device__ __forceinline__ void stage_part(const Stage& st, const Part& P) {
 }
 
 // parts a (, b, c, d): all in flight at once if the ring holds them
-// (`all`), else one after another; `between` runs while the copies are in
-// flight
-template <typename F>
-__device__ __forceinline__ void stage(const Stage& st, bool all, int nparts, const Part& a,
-                                      const Part& b, const Part& c, const Part& d, F between) {
-  if (all) {
+// (`all`; always for bf16), else one after another; `between` runs while
+// the copies are in flight
+template <typename T, typename F>
+__device__ __forceinline__ void stage(const Stage& st, bool all, int nparts, const Part<T>& a,
+                                      const Part<T>& b, const Part<T>& c, const Part<T>& d,
+                                      F between) {
+  if (all || sizeof(T) == sizeof(bf16)) {
     const int na = chunks_of(st, a), nb = nparts > 1 ? chunks_of(st, b) : 0;
     const int nc = nparts > 2 ? chunks_of(st, c) : 0, nd = nparts > 3 ? chunks_of(st, d) : 0;
     copy_chunks(st, a, 0, na, 0);
@@ -529,10 +562,29 @@ __device__ __forceinline__ void mma_rows(float (&acc)[HDP / 8][4], const uint32_
   }
 }
 
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  uint2 u;
+  u.x = pack_bf16(v[0], v[1]);
+  u.y = pack_bf16(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 // rows [0, rows) and columns [0, hd) of acc (n8 tiles over hd) times `mul`,
-// rounded to bf16 if `bf`, to dst (row stride ld)
-template <int HDP>
-__device__ __forceinline__ void store_rows(float* dst, int ld, const float (&acc)[HDP / 8][4],
+// rounded to bf16 if `bf`, to dst (row stride ld; a bf16 dst rounds anyway)
+template <int HDP, typename T>
+__device__ __forceinline__ void store_rows(T* dst, int ld, const float (&acc)[HDP / 8][4],
                                            int rows, int hd, int lane, float mul, bool bf) {
   const int g = lane >> 2, q4 = lane & 3;
 #pragma unroll
@@ -548,7 +600,7 @@ __device__ __forceinline__ void store_rows(float* dst, int ld, const float (&acc
         a = round_bf16(a);
         b = round_bf16(b);
       }
-      *reinterpret_cast<float2*>(dst + (size_t)r * ld + col) = make_float2(a, b);
+      store2(dst + (size_t)r * ld + col, a, b);
     }
   }
 }
@@ -561,14 +613,16 @@ __device__ __forceinline__ void store_rows(float* dst, int ld, const float (&acc
 // rounded to the other bf16 neighbour was 1.1e-4 of dk's norm at N = 256,
 // B = 2 (PERF.md).  Lane (kq, cq) = (lane / 8, lane % 8) owns keys
 // 4 kq .. 4 kq + 3 and columns c0 + 4 cq .. + 3 of each 32-column chunk c0.
-// With several rounds the running sums go to the output in device memory
-// after each round, exactly, and the next round continues from them; after
-// the last, dK is scaled and both are rounded to bf16.
+// With several rounds the running sums go to `run` in device memory after
+// each round, exactly, and the next round continues from them (fp32: run is
+// the output; bf16: an fp32 scratch of the output's layout); after the last,
+// dK is scaled and both are rounded to bf16 and stored to dst.
+template <typename T>
 __device__ __forceinline__ void bwd_keys(const bf16* q, const bf16* dout, int lds, int hd,
                                          int lane, int kt, const bf16* p_rows,
                                          const bf16* ds_rows, int ls, int q_valid, int keys,
-                                         float* dst, int ld, int C, float scale, bool first,
-                                         bool last) {
+                                         T* dst, float* run, int ld, int C, float scale,
+                                         bool first, bool last) {
   const int kq = lane >> 3, cq = lane & 7;
   const bf16* pr = p_rows + kt * QT + 4 * kq;
   const bf16* sr = ds_rows + kt * QT + 4 * kq;
@@ -580,7 +634,7 @@ __device__ __forceinline__ void bwd_keys(const bf16* q, const bf16* dout, int ld
     for (int a = 0; a < 4; ++a) {
       float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = k4;
       if (!first && 4 * kq + a < keys) {
-        const float* o = dst + (size_t)(4 * kq + a) * ld + col;
+        const float* o = run + (size_t)(4 * kq + a) * ld + col;
         k4 = *reinterpret_cast<const float4*>(o);
         v4 = *reinterpret_cast<const float4*>(o + C);
       }
@@ -611,9 +665,14 @@ __device__ __forceinline__ void bwd_keys(const bf16* q, const bf16* dout, int ld
           dv[a][e] = round_bf16(dv[a][e]);
         }
       }
-      float* o = dst + (size_t)(4 * kq + a) * ld + col;
-      *reinterpret_cast<float4*>(o) = make_float4(dk[a][0], dk[a][1], dk[a][2], dk[a][3]);
-      *reinterpret_cast<float4*>(o + C) = make_float4(dv[a][0], dv[a][1], dv[a][2], dv[a][3]);
+      const size_t at = (size_t)(4 * kq + a) * ld + col;
+      if (last) {
+        store4(dst + at, dk[a]);
+        store4(dst + at + C, dv[a]);
+      } else {
+        store4(run + at, dk[a]);
+        store4(run + at + C, dv[a]);
+      }
     }
   }
 }
@@ -624,8 +683,9 @@ struct Block {
   Stage st;
 };
 
+// E: elements of the staged type in a 16-byte chunk
 __device__ __forceinline__ Block block_of(unsigned char* smem, int N, int H, int hd, int G,
-                                          int R, bool backward) {
+                                          int R, bool backward, int E) {
   Block k;
   k.L = layout(N, hd, G, R, backward);
   k.W = blockDim.x / 32;
@@ -641,8 +701,8 @@ __device__ __forceinline__ Block block_of(unsigned char* smem, int N, int H, int
   k.st.T = blockDim.x;
   k.st.tid = threadIdx.x;
   k.st.slots = k.L.slots;
-  k.st.cpr = G * hd / 4;
-  k.st.hd4 = hd / 4;
+  k.st.cpr = G * hd / E;
+  k.st.hd4 = hd / E;
   k.st.lds = k.L.lds;
   k.st.inv_cpr = 1.f / k.st.cpr;
   k.st.inv_hd4 = 1.f / k.st.hd4;
@@ -655,14 +715,14 @@ __device__ __forceinline__ void bias_row(float* sb, const float* bias, int b, in
     sb[j] = j < N ? bias[(size_t)b * N + j] : -INFINITY;
 }
 
-template <int HDP>
+template <int HDP, typename T>
 __global__ void __launch_bounds__(MAX_WARPS * 32, HDP == 128 ? 1 : 2)
-fused_attention_fwd_kernel(const float* __restrict__ qkv,   // (B, N, 3C)
+fused_attention_fwd_kernel(const T* __restrict__ qkv,       // (B, N, 3C)
                            const float* __restrict__ bias,  // (B, N)
-                           float* __restrict__ out,         // (B, N, C)
+                           T* __restrict__ out,             // (B, N, C)
                            int N, int H, int hd, int G, int R, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Block k = block_of(smem, N, H, hd, G, R, false);
+  const Block k = block_of(smem, N, H, hd, G, R, false, chunk_elems<T>());
   const Layout& L = k.L;
   bf16* sk = reinterpret_cast<bf16*>(smem + L.k);
   bf16* sv = reinterpret_cast<bf16*>(smem + L.v);
@@ -671,14 +731,14 @@ fused_attention_fwd_kernel(const float* __restrict__ qkv,   // (B, N, 3C)
   bf16* sp = reinterpret_cast<bf16*>(smem + L.p);
   float* sb = reinterpret_cast<float*>(smem + L.bias);
   const int C = k.C, C3 = 3 * C;
-  const float* x = qkv + (size_t)k.b * N * C3;
+  const T* x = qkv + (size_t)k.b * N * C3;
 
   for (int round = 0; round < k.rounds; ++round) {
     const int qrow0 = round * L.rq, q_valid = min(L.rq, N - qrow0);
-    const Part pq = {x, C3, k.h0 * hd, qrow0, q_valid, L.rq, sq};
+    const Part<T> pq = {x, C3, k.h0 * hd, qrow0, q_valid, L.rq, sq};
     if (round == 0) {
-      const Part pk = {x, C3, C + k.h0 * hd, 0, N, L.np, sk};
-      const Part pv = {x, C3, 2 * C + k.h0 * hd, 0, N, L.np, sv};
+      const Part<T> pk = {x, C3, C + k.h0 * hd, 0, N, L.np, sk};
+      const Part<T> pv = {x, C3, 2 * C + k.h0 * hd, 0, N, L.np, sv};
       stage(k.st, staged_chunks(N, hd, G, R, false, k.st.T) <= L.slots, 3, pk, pq, pv, pv, [&] {
         bias_row(sb, bias, k.b, N, L.np);
         zero_rows(sk, G, N, L.np, L.lds);
@@ -707,16 +767,17 @@ fused_attention_fwd_kernel(const float* __restrict__ qkv,   // (B, N, 3C)
   }
 }
 
-template <int HDP>
+template <int HDP, typename T>
 __global__ void __launch_bounds__(MAX_WARPS * 32, HDP == 128 ? 1 : 2)
-fused_attention_bwd_kernel(const float* __restrict__ qkv,    // (B, N, 3C)
+fused_attention_bwd_kernel(const T* __restrict__ qkv,        // (B, N, 3C)
                            const float* __restrict__ bias,   // (B, N)
-                           const float* __restrict__ dout,   // (B, N, C)
-                           float* __restrict__ dqkv,         // (B, N, 3C)
+                           const T* __restrict__ dout,       // (B, N, C)
+                           T* __restrict__ dqkv,             // (B, N, 3C)
                            float* __restrict__ dbias,        // (B, H / G, N)
+                           float* run,                       // bf16, rounds > 1: (B, N, 3C) scratch
                            int N, int H, int hd, int G, int R, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Block k = block_of(smem, N, H, hd, G, R, true);
+  const Block k = block_of(smem, N, H, hd, G, R, true, chunk_elems<T>());
   const Layout& L = k.L;
   bf16* sk = reinterpret_cast<bf16*>(smem + L.k);
   bf16* sv = reinterpret_cast<bf16*>(smem + L.v);
@@ -730,18 +791,22 @@ fused_attention_bwd_kernel(const float* __restrict__ qkv,    // (B, N, 3C)
   float* scs = reinterpret_cast<float*>(smem + L.colsum);
   float* sdb = reinterpret_cast<float*>(smem + L.dbias);
   const int C = k.C, C3 = 3 * C, nkt = L.np / QT;
-  const float* x = qkv + (size_t)k.b * N * C3;
-  const float* dy = dout + (size_t)k.b * N * C;
-  float* dx = dqkv + (size_t)k.b * N * C3;
+  const T* x = qkv + (size_t)k.b * N * C3;
+  const T* dy = dout + (size_t)k.b * N * C;
+  T* dx = dqkv + (size_t)k.b * N * C3;
+  // dK / dV running sums between rounds: the fp32 output itself, or the scratch
+  float* dxr = nullptr;
+  if constexpr (sizeof(T) == sizeof(float)) dxr = reinterpret_cast<float*>(dx);
+  else if (run != nullptr) dxr = run + (size_t)k.b * N * C3;
 
   for (int round = 0; round < k.rounds; ++round) {
     const int qrow0 = round * L.rq, q_valid = min(L.rq, N - qrow0);
     const bool first = round == 0, last = round == k.rounds - 1;
-    const Part pq = {x, C3, k.h0 * hd, qrow0, q_valid, L.rq, sq};
-    const Part pd = {dy, C, k.h0 * hd, qrow0, q_valid, L.rq, sd};
+    const Part<T> pq = {x, C3, k.h0 * hd, qrow0, q_valid, L.rq, sq};
+    const Part<T> pd = {dy, C, k.h0 * hd, qrow0, q_valid, L.rq, sd};
     if (first) {
-      const Part pk = {x, C3, C + k.h0 * hd, 0, N, L.np, sk};
-      const Part pv = {x, C3, 2 * C + k.h0 * hd, 0, N, L.np, sv};
+      const Part<T> pk = {x, C3, C + k.h0 * hd, 0, N, L.np, sk};
+      const Part<T> pv = {x, C3, 2 * C + k.h0 * hd, 0, N, L.np, sv};
       stage(k.st, staged_chunks(N, hd, G, R, true, k.st.T) <= L.slots, 4, pk, pq, pv, pd, [&] {
         bias_row(sb, bias, k.b, N, L.np);
         zero_rows(sk, G, N, L.np, L.lds);
@@ -782,10 +847,11 @@ fused_attention_bwd_kernel(const float* __restrict__ qkv,    // (B, N, 3C)
     // phase B: dK, dV per (head, key tile)
     for (int t = k.warp; t < G * nkt; t += k.W) {
       const int gl = t / nkt, kt = t - gl * nkt;
+      const size_t at = (size_t)(kt * QT) * C3 + C + (k.h0 + gl) * hd;
       bwd_keys(sq + gl * L.rq * L.lds, sd + gl * L.rq * L.lds, L.lds, hd, k.lane, kt,
                sp + gl * L.rq * L.lsb, sds + gl * L.rq * L.lsb, L.lsb, q_valid,
-               min(QT, N - kt * QT), dx + (size_t)(kt * QT) * C3 + C + (k.h0 + gl) * hd, C3,
-               C, scale, first, last);
+               min(QT, N - kt * QT), dx + at, dxr == nullptr ? nullptr : dxr + at, C3, C,
+               scale, first, last);
     }
   }
   __syncthreads();
@@ -817,57 +883,81 @@ bool valid(int B, int N, int H, int hd, int G, int R, bool backward) {
          layout(N, hd, G, R, backward).bytes <= 232448;
 }
 
-template <int HDP>
+template <int HDP, typename T>
 cudaError_t fwd(const void* qkv, const void* bias, void* out, int B, int N, int H, int hd,
                 float scale, int G, int R, cudaStream_t stream) {
   static bool prepared = false;
-  auto kernel = fused_attention_fwd_kernel<HDP>;
+  auto kernel = fused_attention_fwd_kernel<HDP, T>;
   cudaError_t err = prepare(kernel, prepared);
   if (err != cudaSuccess) return err;
   kernel<<<B * (H / G), 32 * warps_of(N, G, R, false), layout(N, hd, G, R, false).bytes,
-           stream>>>((const float*)qkv, (const float*)bias, (float*)out, N, H, hd, G, R, scale);
+           stream>>>((const T*)qkv, (const float*)bias, (T*)out, N, H, hd, G, R, scale);
   return cudaGetLastError();
 }
 
-template <int HDP>
+template <int HDP, typename T>
 cudaError_t bwd(const void* qkv, const void* bias, const void* dout, void* dqkv, void* dbias,
-                int B, int N, int H, int hd, float scale, int G, int R, cudaStream_t stream) {
+                void* run, int B, int N, int H, int hd, float scale, int G, int R,
+                cudaStream_t stream) {
   static bool prepared = false;
-  auto kernel = fused_attention_bwd_kernel<HDP>;
+  auto kernel = fused_attention_bwd_kernel<HDP, T>;
   cudaError_t err = prepare(kernel, prepared);
   if (err != cudaSuccess) return err;
   kernel<<<B * (H / G), 32 * warps_of(N, G, R, true), layout(N, hd, G, R, true).bytes,
-           stream>>>((const float*)qkv, (const float*)bias, (const float*)dout, (float*)dqkv,
-                     (float*)dbias, N, H, hd, G, R, scale);
+           stream>>>((const T*)qkv, (const float*)bias, (const T*)dout, (T*)dqkv,
+                     (float*)dbias, (float*)run, N, H, hd, G, R, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t fwd_t(const void* qkv, const void* bias, void* out, int B, int N, int H, int hd,
+                  float scale, int G, int R, cudaStream_t s) {
+  switch (hdp_of(hd)) {
+    case 32: return fwd<32, T>(qkv, bias, out, B, N, H, hd, scale, G, R, s);
+    case 64: return fwd<64, T>(qkv, bias, out, B, N, H, hd, scale, G, R, s);
+    default: return fwd<128, T>(qkv, bias, out, B, N, H, hd, scale, G, R, s);
+  }
+}
+
+template <typename T>
+cudaError_t bwd_t(const void* qkv, const void* bias, const void* dout, void* dqkv, void* dbias,
+                  void* run, int B, int N, int H, int hd, float scale, int G, int R,
+                  cudaStream_t s) {
+  switch (hdp_of(hd)) {
+    case 32: return bwd<32, T>(qkv, bias, dout, dqkv, dbias, run, B, N, H, hd, scale, G, R, s);
+    case 64: return bwd<64, T>(qkv, bias, dout, dqkv, dbias, run, B, N, H, hd, scale, G, R, s);
+    default: return bwd<128, T>(qkv, bias, dout, dqkv, dbias, run, B, N, H, hd, scale, G, R, s);
+  }
 }
 
 }  // namespace
 
-// G heads per block, R query tiles of 16 per round: ops/fused_attention.py plan()
+// G heads per block, R query tiles of 16 per round: ops/fused_attention.py
+// plan().  qkv and out of element type dtype (0 float, 1 bf16); bias float.
 extern "C" int fused_attention_fwd_launch(const void* qkv, const void* bias, void* out,
                                           int B, int N, int H, int hd, float scale, int G,
-                                          int R, void* stream) {
-  if (!valid(B, N, H, hd, G, R, false)) return (int)cudaErrorInvalidValue;
+                                          int R, int dtype, void* stream) {
+  if (!valid(B, N, H, hd, G, R, false) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hdp_of(hd)) {
-    case 32: return (int)fwd<32>(qkv, bias, out, B, N, H, hd, scale, G, R, s);
-    case 64: return (int)fwd<64>(qkv, bias, out, B, N, H, hd, scale, G, R, s);
-    default: return (int)fwd<128>(qkv, bias, out, B, N, H, hd, scale, G, R, s);
-  }
+  return (int)(dtype ? fwd_t<bf16>(qkv, bias, out, B, N, H, hd, scale, G, R, s)
+                     : fwd_t<float>(qkv, bias, out, B, N, H, hd, scale, G, R, s));
 }
 
+// qkv, dout and dqkv of element type dtype; bias and dbias float.  run: for
+// bf16 with more than one round of query tiles, an fp32 (B, N, 3C) scratch
+// for the running dK / dV sums; else unused (may be null).
 extern "C" int fused_attention_bwd_launch(const void* qkv, const void* bias,
                                           const void* dout, void* dqkv, void* dbias,
-                                          int B, int N, int H, int hd, float scale, int G,
-                                          int R, void* stream) {
-  if (!valid(B, N, H, hd, G, R, true)) return (int)cudaErrorInvalidValue;
+                                          void* run, int B, int N, int H, int hd, float scale,
+                                          int G, int R, int dtype, void* stream) {
+  if (!valid(B, N, H, hd, G, R, true) || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype && R < pad16(N) / QT && run == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hdp_of(hd)) {
-    case 32: return (int)bwd<32>(qkv, bias, dout, dqkv, dbias, B, N, H, hd, scale, G, R, s);
-    case 64: return (int)bwd<64>(qkv, bias, dout, dqkv, dbias, B, N, H, hd, scale, G, R, s);
-    default: return (int)bwd<128>(qkv, bias, dout, dqkv, dbias, B, N, H, hd, scale, G, R, s);
-  }
+  return (int)(dtype ? bwd_t<bf16>(qkv, bias, dout, dqkv, dbias, run, B, N, H, hd, scale, G, R, s)
+                     : bwd_t<float>(qkv, bias, dout, dqkv, dbias, run, B, N, H, hd, scale, G, R,
+                                    s));
 }
 
 // the launch geometry the kernels take for (N, hd, G, R): shared-memory

@@ -1,5 +1,7 @@
 // Backward of the fused Conv3x3(Cin=1) + BatchNorm + ReLU + MaxPool2x2 block
-// for Hopper, fp32.
+// for Hopper: the reduction kernel in fp32 or bf16 (the element type T of
+// the common header: x, the weights, bias, gamma, pooled and dpooled), the
+// dx kernel in fp32 only.
 //
 // Replaces the two Pallas backward bodies of ssl_audio_tpu/ops/fused_conv.py:
 // _bwd_kernel behind _bwd_call (fused_conv1_bwd_kernel) and _dx_kernel
@@ -59,6 +61,17 @@
 // keeps its own map: a thread per channel and row group over a staged input
 // tile, so that dy (B, H, W, C) is written in contiguous 128-byte segments;
 // it reads pooled and dpooled in the forward's layout.
+//
+// bf16 (the --use_fp16 step; JAX fused_conv.py:283, every sum fp32): the
+// inputs widen exactly as they are loaded, so y, the routing and every sum
+// are what the fp32 kernel computes from the same values, but for relu':
+// pooled holds z of the rounded sel, which near 0 differs in sign from z of
+// the fp32 y, so the bf16 kernel takes the JAX rule (_corners_dz: z =
+// gamma * xhat + beta > 0 in fp32 at the selected corner, a multiply and an
+// add, unfused) and reads no pooled: x and dpooled, half the fp32 bytes or
+// less (bound 0.0083 ms at a view of the step).  In fp32 the two rules
+// agree but for last-bit cases, and the fp32 kernel keeps pooled > 0.  The
+// dx kernel (B5) stays fp32: no bf16 path needs the input's gradient.
 #include "fused_conv_common.cuh"
 
 namespace {
@@ -105,50 +118,57 @@ __device__ __forceinline__ void tap_sums(const float (&p)[4][PW], int n, int lan
   tap_red[base + 1] = t[1];
 }
 
-// pooled and dpooled of a thread's cells in one channel: 16-byte loads where
-// its group is whole and W/2 a multiple of 4; 0 past the valid cells.
-__device__ __forceinline__ void load_cells(const float* __restrict__ pooled,
-                                           const float* __restrict__ dpooled, size_t at,
+// pooled (fp32 only: the bf16 kernel's relu' does not read it) and dpooled
+// of a thread's cells in one channel, widened: 16-byte (float) or 8-byte
+// (bf16) loads where its group is whole and W/2 a multiple of 4; 0 past the
+// valid cells.
+template <typename T>
+__device__ __forceinline__ void load_cells(const T* __restrict__ pooled,
+                                           const T* __restrict__ dpooled, size_t at,
                                            bool vec, int n, float (&pl)[CELLS],
                                            float (&dl)[CELLS]) {
+  constexpr bool with_pooled = sizeof(T) == sizeof(float);
   if (vec) {
-    const float4 u = *reinterpret_cast<const float4*>(pooled + at);
-    const float4 d = *reinterpret_cast<const float4*>(dpooled + at);
-    pl[0] = u.x; pl[1] = u.y; pl[2] = u.z; pl[3] = u.w;
-    dl[0] = d.x; dl[1] = d.y; dl[2] = d.z; dl[3] = d.w;
+    if (with_pooled) load4(pooled + at, pl);
+    load4(dpooled + at, dl);
     return;
   }
 #pragma unroll
   for (int k = 0; k < CELLS; ++k) {
-    pl[k] = k < n ? pooled[at + k] : 0.f;
-    dl[k] = k < n ? dpooled[at + k] : 0.f;
+    if (with_pooled) pl[k] = k < n ? widen(pooled[at + k]) : 0.f;
+    dl[k] = k < n ? widen(dpooled[at + k]) : 0.f;
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(TPB)
-fused_conv1_bwd_kernel(const float* __restrict__ x, int B, int H, int W,
-                       const float* __restrict__ wk,       // (9, C)
-                       const float* __restrict__ bias,     // (C,)
-                       const float* __restrict__ gamma,    // (C,)
+fused_conv1_bwd_kernel(const T* __restrict__ x, int B, int H, int W,
+                       const T* __restrict__ wk,           // (9, C)
+                       const T* __restrict__ bias,         // (C,)
+                       const T* __restrict__ gamma,        // (C,)
+                       const T* __restrict__ beta,         // (C,): bf16 only (relu')
                        const float* __restrict__ mean,     // (C,)
                        const float* __restrict__ rstd,     // (C,): rsqrt(var + eps)
-                       const float* __restrict__ pooled,   // (B, C, H/2, W/2)
-                       const float* __restrict__ dpooled,  // (B, C, H/2, W/2)
+                       const T* __restrict__ pooled,       // (B, C, H/2, W/2): fp32 only
+                       const T* __restrict__ dpooled,      // (B, C, H/2, W/2)
                        float* __restrict__ partials) {     // (n_blocks, NPART)
+  constexpr bool z_rule = sizeof(T) == sizeof(bf16);    // relu' from z, not from pooled
   // per channel, times its sign s (common header): s w0-3, s w4-7,
-  // (s w8, s bias, s, 0), (mean, r, 0, 0)
+  // (s w8, s bias, s, 0), (mean, r, gamma, beta) (the last two bf16 only)
   __shared__ float4 cw[C][4];
   __shared__ float red[WARPS][NSUM][C];
   __shared__ float tap_red[WARPS][64];
 
   for (int c = threadIdx.x; c < C; c += TPB) {
-    const float s = channel_sign(gamma[c]);
-    cw[c][0] = make_float4(s * wk[0 * C + c], s * wk[1 * C + c], s * wk[2 * C + c],
-                           s * wk[3 * C + c]);
-    cw[c][1] = make_float4(s * wk[4 * C + c], s * wk[5 * C + c], s * wk[6 * C + c],
-                           s * wk[7 * C + c]);
-    cw[c][2] = make_float4(s * wk[8 * C + c], s * bias[c], s, 0.f);
-    cw[c][3] = make_float4(mean[c], rstd[c], 0.f, 0.f);
+    const float s = channel_sign(widen(gamma[c]));
+    float wc[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wc[t] = s * widen(wk[t * C + c]);
+    cw[c][0] = make_float4(wc[0], wc[1], wc[2], wc[3]);
+    cw[c][1] = make_float4(wc[4], wc[5], wc[6], wc[7]);
+    cw[c][2] = make_float4(wc[8], s * widen(bias[c]), s, 0.f);
+    cw[c][3] = make_float4(mean[c], rstd[c], z_rule ? widen(gamma[c]) : 0.f,
+                           z_rule ? widen(beta[c]) : 0.f);
   }
   const Group gr = group_of(B, H, W);
   float p[4][PW];
@@ -160,7 +180,7 @@ fused_conv1_bwd_kernel(const float* __restrict__ x, int B, int H, int W,
   const bool vec = gr.n == CELLS && w2 % 4 == 0;
   // pooled and dpooled of the next channel, loaded one channel ahead so that
   // their latency passes under the work on this one (first under the taps)
-  float pn[CELLS], dn[CELLS];
+  float pn[CELLS] = {}, dn[CELLS];
   load_cells(pooled, dpooled, cell0, vec, gr.n, pn, dn);
 
   tap_sums(p, gr.n, lane, tap_red[warp]);
@@ -170,7 +190,7 @@ fused_conv1_bwd_kernel(const float* __restrict__ x, int B, int H, int W,
   for (int c = 0; c < C; ++c) {
     const float4 q0 = cw[c][0], q1 = cw[c][1], q2 = cw[c][2], q3 = cw[c][3];
     const float w[9] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w, q2.x};
-    const float bc = q2.y, sgn = q2.z, mc = q3.x, r = q3.y;
+    const float bc = q2.y, sgn = q2.z, mc = q3.x, r = q3.y, gc = q3.z, bec = q3.w;
     float pl[CELLS], dl[CELLS];
 #pragma unroll
     for (int k = 0; k < CELLS; ++k) {
@@ -191,9 +211,11 @@ fused_conv1_bwd_kernel(const float* __restrict__ x, int B, int H, int W,
       const float ext = corners_max(v);     // of s y: the extreme is s ext
       // first corner, in select-and-scatter order, that holds the extreme
       const int qsel = v[0] == ext ? 0 : v[1] == ext ? 1 : v[2] == ext ? 2 : 3;
-      const float dz = pl[k] > 0.f ? dl[k] : 0.f;
+      const float xh = (sgn * ext - mc) * r;   // xhat of the selected corner
+      const bool on = z_rule ? __fadd_rn(__fmul_rn(gc, xh), bec) > 0.f : pl[k] > 0.f;
+      const float dz = on ? dl[k] : 0.f;
       v16[0] += dz;
-      v16[1] = fmaf(dz, (sgn * ext - mc) * r, v16[1]);
+      v16[1] = fmaf(dz, xh, v16[1]);
       sv += (v[0] + v[1]) + (v[2] + v[3]);
       // the selected corner's 3 x 3 neighbourhood: rows pi .. pi + 2, then
       // columns 2k + pj .. 2k + pj + 2 of the patch
@@ -340,28 +362,46 @@ extern "C" {
 // partial-sum scratch (n_blocks, 12 C + 90) with it.
 int fused_conv1_bwd_blocks(int B, int H, int W) { return n_blocks(B, H, W); }
 
-// Resident blocks per SM of fused_conv1_bwd_kernel.
-int fused_conv1_bwd_blocks_per_sm() {
+// Resident blocks per SM of fused_conv1_bwd_kernel of element type dtype
+// (0 float, 1 bf16).
+int fused_conv1_bwd_blocks_per_sm(int dtype) {
   int n = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_conv1_bwd_kernel, TPB, 0);
+  if (dtype)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_conv1_bwd_kernel<bf16>, TPB, 0);
+  else
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_conv1_bwd_kernel<float>, TPB, 0);
   return n;
 }
 
 // sums (12 C + 90): rows T1, T2, Sx, A1[0..8] of C values, then Gram (9 x 9)
-// and A2 (9).  c_out must equal C.
+// and A2 (9).  c_out must equal C.  x, wk, bias, gamma, beta, pooled and
+// dpooled of element type dtype (0 float, 1 bf16); mean, rstd, partials and
+// sums float.  fp32 reads pooled (relu' = pooled > 0) and not beta; bf16
+// reads beta (relu' = gamma xhat + beta > 0) and not pooled.
 int fused_conv1_bwd_launch(const void* x, int B, int H, int W, const void* wk,
-                           const void* bias, const void* gamma, const void* mean,
-                           const void* rstd, const void* pooled, const void* dpooled,
-                           void* partials, void* sums, int c_out, void* stream) {
-  if (H % 2 || W % 2 || c_out != C || B < 1) return cudaErrorInvalidValue;
+                           const void* bias, const void* gamma, const void* beta,
+                           const void* mean, const void* rstd, const void* pooled,
+                           const void* dpooled, void* partials, void* sums, int c_out,
+                           int dtype, void* stream) {
+  if (H % 2 || W % 2 || c_out != C || B < 1 || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   const int blocks = n_blocks(B, H, W);
   auto pp = static_cast<float*>(partials);
-  fused_conv1_bwd_kernel<<<blocks, TPB, 0, s>>>(
-      static_cast<const float*>(x), B, H, W, static_cast<const float*>(wk),
-      static_cast<const float*>(bias), static_cast<const float*>(gamma),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<const float*>(pooled), static_cast<const float*>(dpooled), pp);
+  auto mp = static_cast<const float*>(mean);
+  auto rp = static_cast<const float*>(rstd);
+  if (dtype)
+    fused_conv1_bwd_kernel<bf16><<<blocks, TPB, 0, s>>>(
+        static_cast<const bf16*>(x), B, H, W, static_cast<const bf16*>(wk),
+        static_cast<const bf16*>(bias), static_cast<const bf16*>(gamma),
+        static_cast<const bf16*>(beta), mp, rp, static_cast<const bf16*>(pooled),
+        static_cast<const bf16*>(dpooled), pp);
+  else
+    fused_conv1_bwd_kernel<float><<<blocks, TPB, 0, s>>>(
+        static_cast<const float*>(x), B, H, W, static_cast<const float*>(wk),
+        static_cast<const float*>(bias), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), mp, rp, static_cast<const float*>(pooled),
+        static_cast<const float*>(dpooled), pp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return reduce_columns(pp, blocks, NPART, static_cast<float*>(sums), s);

@@ -16,8 +16,18 @@
 // so a warp holds 32 consecutive groups: 128 consecutive cells of one
 // channel plane of the (B, C, H/2, W/2) output, whose values it stores or
 // loads as 16-byte vectors, 512 contiguous bytes a warp.
+//
+// Element types: every kernel but dx is a template over T, the type of the
+// tensors it reads and writes (x, the weights, bias and gamma, sel / pooled
+// and its cotangent): float, or __nv_bfloat16 for the bf16 compute mode.
+// A bf16 value widens to fp32 exactly, and a product of two bf16 values is
+// exact in fp32, so y, every sum and every comparison are fp32 in both; a
+// bf16 kernel rounds only what it stores (sel, the eval output).  The
+// batch statistics and the eval epilogue's constants stay fp32.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace fused_conv {
 
@@ -27,6 +37,49 @@ constexpr int PW = 2 * CELLS + 2;    // input patch columns of a thread
 constexpr int TPB = 128;             // threads per block of the forward and backward
 constexpr int WARPS = TPB / 32;
 constexpr unsigned FULL = 0xffffffffu;
+
+typedef __nv_bfloat16 bf16;
+
+// One element widened to fp32, and an fp32 value rounded to T (nearest even).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// The low and high bf16 of a packed pair, widened.
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Four consecutive elements at p, widened: one 16-byte (float) or 8-byte
+// (bf16) load; p aligned to it.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = bf_lo(u.x); v[1] = bf_hi(u.x); v[2] = bf_lo(u.y); v[3] = bf_hi(u.y);
+}
+
+// ... and four values stored as T at p, rounded once each.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 // y at the conv output position whose 3x3 neighbourhood starts at row r,
 // column col of the patch p: bias + sum over taps, row-major, one fmaf each.
@@ -104,32 +157,34 @@ __device__ __forceinline__ Group group_of(int B, int H, int W) {
 
 // The group's zero-padded input patch: rows 2i-1 .. 2i+2, columns
 // 2 j0 - 1 .. 2 j0 + 2 CELLS; zeros outside the image and for no group.
-// Its 2 CELLS inner columns come as two 16-byte loads where W is a multiple
-// of 4 and they lie inside the row.
-__device__ __forceinline__ void load_patch(const float* __restrict__ x, int H, int W,
+// Its 2 CELLS inner columns come as two 16-byte (float) or two 8-byte
+// (bf16) loads where W is a multiple of 4 and they lie inside the row.
+template <typename T>
+__device__ __forceinline__ void load_patch(const T* __restrict__ x, int H, int W,
                                            const Group& gr, float (&p)[4][PW]) {
-  const float* xb = x + static_cast<size_t>(gr.b) * H * W;
+  const T* xb = x + static_cast<size_t>(gr.b) * H * W;
   const int c0 = 2 * gr.j0;
   const bool vec = gr.n == CELLS && W % 4 == 0;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int r = 2 * gr.i - 1 + a;
     const bool row_in = gr.n > 0 && r >= 0 && r < H;
-    const float* row = xb + static_cast<size_t>(row_in ? r : 0) * W;
+    const T* row = xb + static_cast<size_t>(row_in ? r : 0) * W;
     if (row_in && vec) {
-      const float4 u = *reinterpret_cast<const float4*>(row + c0);
-      const float4 t = *reinterpret_cast<const float4*>(row + c0 + 4);
-      p[a][1] = u.x; p[a][2] = u.y; p[a][3] = u.z; p[a][4] = u.w;
-      p[a][5] = t.x; p[a][6] = t.y; p[a][7] = t.z; p[a][8] = t.w;
+      float u[4], t[4];
+      load4(row + c0, u);
+      load4(row + c0 + 4, t);
+      p[a][1] = u[0]; p[a][2] = u[1]; p[a][3] = u[2]; p[a][4] = u[3];
+      p[a][5] = t[0]; p[a][6] = t[1]; p[a][7] = t[2]; p[a][8] = t[3];
     } else {
 #pragma unroll
       for (int k = 1; k < PW - 1; ++k) {
         const int col = c0 - 1 + k;
-        p[a][k] = row_in && col < W ? row[col] : 0.f;
+        p[a][k] = row_in && col < W ? widen(row[col]) : 0.f;
       }
     }
-    p[a][0] = row_in && c0 > 0 ? row[c0 - 1] : 0.f;
-    p[a][PW - 1] = row_in && c0 + PW - 2 < W ? row[c0 + PW - 2] : 0.f;
+    p[a][0] = row_in && c0 > 0 ? widen(row[c0 - 1]) : 0.f;
+    p[a][PW - 1] = row_in && c0 + PW - 2 < W ? widen(row[c0 + PW - 2]) : 0.f;
   }
 }
 

@@ -1,5 +1,6 @@
 // Fused Conv3x3(Cin=1) + per-2x2-window extreme (+ eval BN/ReLU epilogue)
-// forward for Hopper, fp32.
+// forward for Hopper, fp32 or bf16 (the element type T of the common
+// header: x, the weights, bias, gamma and the output; sums fp32).
 //
 // Replaces the Pallas forward of ssl_audio_tpu/ops/fused_conv.py: _fwd_kernel
 // behind _fwd_call (sel, s1, s2) and, with the epilogue fused, the eval block
@@ -49,33 +50,43 @@
 // shape.  Four threads to a group, each with a quarter of the channels
 // (four times the warps), measured no faster (PERF.md).  The statistics
 // mode takes the extreme as a max of s y (common header).
+//
+// bf16 (T = __nv_bfloat16, the --use_fp16 step and HEAR compute_dtype
+// "bfloat16"; JAX: bf16 operands, fp32 accumulation, sel stored in x's
+// dtype, fused_conv.py:166-171, :221): x and the parameters widen exactly,
+// y and s1 / s2 are the fp32 values the fp32 kernel computes from the same
+// values; sel is rounded to bf16 as it is stored; the eval output is the
+// epilogue on the rounded sel, rounded again.  x and the output are half
+// the bytes: 0.0320 ms at the serving chunk, under the FMA's 0.0624 ms, so
+// the bf16 kernels are bound by their operations.
 #include "fused_conv_common.cuh"
 
 namespace {
 
 using namespace fused_conv;
 
-// A thread's outputs of one channel: one 16-byte store where its group is
-// whole and W/2 a multiple of 4, else one store per valid cell.
-__device__ __forceinline__ void store_cells(float* oc, const float (&sel)[CELLS], bool vec,
-                                            int n) {
+// A thread's outputs of one channel, rounded to T: one 16-byte (float) or
+// 8-byte (bf16) store where its group is whole and W/2 a multiple of 4, else
+// one store per valid cell.
+template <typename T>
+__device__ __forceinline__ void store_cells(T* oc, const float (&sel)[CELLS], bool vec, int n) {
   if (vec) {
-    *reinterpret_cast<float4*>(oc) = make_float4(sel[0], sel[1], sel[2], sel[3]);
+    store4(oc, sel);
     return;
   }
 #pragma unroll
   for (int k = 0; k < CELLS; ++k)
-    if (k < n) oc[k] = sel[k];
+    if (k < n) oc[k] = narrow<T>(sel[k]);
 }
 
-template <bool EVAL>
+template <bool EVAL, typename T>
 __global__ void __launch_bounds__(TPB)
-fused_conv1_fwd_kernel(const float* __restrict__ x, int B, int H, int W,
-                       const float* __restrict__ wk,      // (9, C)
-                       const float* __restrict__ bias,    // (C,)
-                       const float* __restrict__ gamma,   // (C,)
+fused_conv1_fwd_kernel(const T* __restrict__ x, int B, int H, int W,
+                       const T* __restrict__ wk,          // (9, C)
+                       const T* __restrict__ bias,        // (C,)
+                       const T* __restrict__ gamma,       // (C,)
                        const float* __restrict__ stats,   // EVAL: (3, C) mean, rsqrt(var+eps), beta
-                       float* __restrict__ out,           // (B, C, H/2, W/2)
+                       T* __restrict__ out,               // (B, C, H/2, W/2)
                        float* __restrict__ partials) {    // !EVAL: (n_blocks, 2, C)
   // per channel: w0-3, w4-7, (w8, bias, gamma, 0), (a, b, 0, 0); in the
   // statistics mode times the channel's sign s (common header), with s in
@@ -84,17 +95,18 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int B, int H, int W,
   __shared__ float red[2][WARPS][C];
 
   for (int c = threadIdx.x; c < C; c += TPB) {
-    const float g = gamma[c], s = EVAL ? 1.f : channel_sign(g);
+    const float g = widen(gamma[c]), s = EVAL ? 1.f : channel_sign(g);
     float a = 0.f, b = 0.f;
     if (EVAL) {
       a = g * stats[C + c];
       b = fmaf(-a, stats[c], stats[2 * C + c]);
     }
-    cw[c][0] = make_float4(s * wk[0 * C + c], s * wk[1 * C + c], s * wk[2 * C + c],
-                           s * wk[3 * C + c]);
-    cw[c][1] = make_float4(s * wk[4 * C + c], s * wk[5 * C + c], s * wk[6 * C + c],
-                           s * wk[7 * C + c]);
-    cw[c][2] = make_float4(s * wk[8 * C + c], s * bias[c], EVAL ? g : s, 0.f);
+    float wc[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wc[t] = s * widen(wk[t * C + c]);
+    cw[c][0] = make_float4(wc[0], wc[1], wc[2], wc[3]);
+    cw[c][1] = make_float4(wc[4], wc[5], wc[6], wc[7]);
+    cw[c][2] = make_float4(wc[8], s * widen(bias[c]), EVAL ? g : s, 0.f);
     cw[c][3] = make_float4(a, b, 0.f, 0.f);
   }
   const Group gr = group_of(B, H, W);
@@ -104,7 +116,7 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int B, int H, int W,
 
   const int h2 = H / 2, w2 = W / 2, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t plane = static_cast<size_t>(h2) * w2;
-  float* o = out + (static_cast<size_t>(gr.b) * C * h2 + gr.i) * w2 + gr.j0;
+  T* o = out + (static_cast<size_t>(gr.b) * C * h2 + gr.i) * w2 + gr.j0;
   const bool vec = gr.n == CELLS && w2 % 4 == 0;
 
 #pragma unroll 1
@@ -126,8 +138,11 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int B, int H, int W,
     }
     if (EVAL) {
       const float4 q3 = cw[c][3];
+      // bf16: the epilogue reads sel as stored, rounded (the JAX kernel's
+      // sel_ref in x's dtype); for float the rounding is the identity
 #pragma unroll
-      for (int k = 0; k < CELLS; ++k) sel[k] = fmaxf(fmaf(q3.x, sel[k], q3.y), 0.f);
+      for (int k = 0; k < CELLS; ++k)
+        sel[k] = fmaxf(fmaf(q3.x, widen(narrow<T>(sel[k])), q3.y), 0.f);
     } else {                            // s max(s y) and the sum of s y, negated back: exact
 #pragma unroll
       for (int k = 0; k < CELLS; ++k) sel[k] *= sgn;
@@ -155,6 +170,36 @@ fused_conv1_fwd_kernel(const float* __restrict__ x, int B, int H, int W,
   }
 }
 
+template <bool EVAL, typename T>
+int blocks_per_sm() {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_conv1_fwd_kernel<EVAL, T>, TPB, 0);
+  return n;
+}
+
+template <typename T>
+int launch(const void* x, int B, int H, int W, const void* wk, const void* bias,
+           const void* gamma, const void* stats, void* out, void* partials, void* sums,
+           int eval, cudaStream_t s) {
+  const int blocks = n_blocks(B, H, W);
+  auto xp = static_cast<const T*>(x);
+  auto wp = static_cast<const T*>(wk);
+  auto bp = static_cast<const T*>(bias);
+  auto gp = static_cast<const T*>(gamma);
+  auto op = static_cast<T*>(out);
+  if (eval) {
+    fused_conv1_fwd_kernel<true, T><<<blocks, TPB, 0, s>>>(
+        xp, B, H, W, wp, bp, gp, static_cast<const float*>(stats), op, nullptr);
+    return cudaGetLastError();
+  }
+  auto pp = static_cast<float*>(partials);
+  fused_conv1_fwd_kernel<false, T><<<blocks, TPB, 0, s>>>(xp, B, H, W, wp, bp, gp, nullptr, op,
+                                                          pp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_columns(pp, blocks, 2 * C, static_cast<float*>(sums), s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -163,45 +208,31 @@ extern "C" {
 // partial-sum scratch (n_blocks, 2, C) with it.
 int fused_conv1_fwd_blocks(int B, int H, int W) { return n_blocks(B, H, W); }
 
-// Resident blocks per SM of the eval (eval != 0) or statistics kernel, from
-// its registers and shared memory (what the card reports).
-int fused_conv1_fwd_blocks_per_sm(int eval) {
-  int n = 0;
-  if (eval)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_conv1_fwd_kernel<true>, TPB, 0);
-  else
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fused_conv1_fwd_kernel<false>, TPB, 0);
-  return n;
+// Resident blocks per SM of the eval (eval != 0) or statistics kernel of
+// element type dtype (0 float, 1 bf16), from its registers and shared
+// memory (what the card reports).
+int fused_conv1_fwd_blocks_per_sm(int eval, int dtype) {
+  if (dtype)
+    return eval ? blocks_per_sm<true, bf16>() : blocks_per_sm<false, bf16>();
+  return eval ? blocks_per_sm<true, float>() : blocks_per_sm<false, float>();
 }
 
-// c_out must equal C.  eval != 0: stats = (3, C) running mean,
-// rsqrt(running var + eps), beta; out = the eval block's pooled activation;
-// partials and sums unused.
+// c_out must equal C.  x, wk, bias, gamma and out of element type dtype
+// (0 float, 1 bf16); stats, partials and sums float.
+// eval != 0: stats = (3, C) running mean, rsqrt(running var + eps), beta;
+// out = the eval block's pooled activation; partials and sums unused.
 // eval == 0: stats unused; out = sel; partials (n_blocks, 2, C) scratch;
 // sums (2, C) = s1, s2.  out is (B, C, H/2, W/2) either way.
 int fused_conv1_fwd_launch(const void* x, int B, int H, int W, const void* wk,
                            const void* bias, const void* gamma,
                            const void* stats, void* out, void* partials,
-                           void* sums, int c_out, int eval, void* stream) {
-  if (H % 2 || W % 2 || c_out != C || B < 1) return cudaErrorInvalidValue;
+                           void* sums, int c_out, int eval, int dtype, void* stream) {
+  if (H % 2 || W % 2 || c_out != C || B < 1 || dtype < 0 || dtype > 1)
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  const int blocks = n_blocks(B, H, W);
-  auto xp = static_cast<const float*>(x);
-  auto wp = static_cast<const float*>(wk);
-  auto bp = static_cast<const float*>(bias);
-  auto gp = static_cast<const float*>(gamma);
-  auto op = static_cast<float*>(out);
-  if (eval) {
-    fused_conv1_fwd_kernel<true><<<blocks, TPB, 0, s>>>(
-        xp, B, H, W, wp, bp, gp, static_cast<const float*>(stats), op, nullptr);
-    return cudaGetLastError();
-  }
-  auto pp = static_cast<float*>(partials);
-  fused_conv1_fwd_kernel<false><<<blocks, TPB, 0, s>>>(xp, B, H, W, wp, bp, gp, nullptr, op,
-                                                       pp);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return reduce_columns(pp, blocks, 2 * C, static_cast<float*>(sums), s);
+  if (dtype)
+    return launch<bf16>(x, B, H, W, wk, bias, gamma, stats, out, partials, sums, eval, s);
+  return launch<float>(x, B, H, W, wk, bias, gamma, stats, out, partials, sums, eval, s);
 }
 
 }  // extern "C"

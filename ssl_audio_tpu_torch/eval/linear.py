@@ -20,6 +20,7 @@ from ssl_audio_tpu_torch.data.pipeline import DataLoader
 from ssl_audio_tpu_torch.eval.encode import encode_vit, extract_embeddings
 from ssl_audio_tpu_torch.eval.low_shot import eval_linear_low_shot
 from ssl_audio_tpu_torch.eval.mlp_clf import MLPClassifier
+from ssl_audio_tpu_torch.models.precision import bf16_params, forward_bf16
 from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT
 
 
@@ -30,10 +31,19 @@ def make_embedding_forward(cfg, encoder: nn.Module) -> Callable:
     puts its train / eval mode back afterwards.
 
     ViTs: per-unit CLS (or dense tokens without cfg.use_cls) averaged over
-    cfg.crop_frames-frame units; conv encoders: the pooled forward."""
-    if cfg.use_fp16_eval:
-        raise NotImplementedError("--use_fp16_eval (bf16 embedding extraction) "
-                                  "is not ported yet")
+    cfg.crop_frames-frame units; conv encoders: the pooled forward.
+
+    cfg.use_fp16_eval: the forward runs in bf16 over bf16 copies of the
+    encoder's parameters taken here, once (JAX eval/linear.py:30-39), its
+    running statistics fp32, each unit or batch cast to bf16 and the
+    embeddings returned in fp32."""
+    params = bf16_params(encoder, detach=True) if cfg.use_fp16_eval else None
+
+    def apply(x, **kwargs):
+        if params is None:
+            return encoder(x, **kwargs)
+        return forward_bf16(encoder, params, x, **kwargs)
+
     def run(fn, x):
         was_training = encoder.training
         encoder.eval()
@@ -45,7 +55,7 @@ def make_embedding_forward(cfg, encoder: nn.Module) -> Callable:
 
     if isinstance(encoder, MaskedAutoencoderViT):
         def unit_apply(xu, return_all):
-            return encoder(xu, return_all=return_all)
+            return apply(xu, return_all=return_all)
 
         def vit_forward(x):
             return encode_vit(unit_apply, x, unit_frames=cfg.crop_frames,
@@ -53,7 +63,7 @@ def make_embedding_forward(cfg, encoder: nn.Module) -> Callable:
                               embed_d=encoder.embed_dim)
 
         return lambda x: run(vit_forward, x)
-    return lambda x: run(encoder, x)
+    return lambda x: run(apply, x)
 
 
 def eval_linear(forward: Callable, train_loader, val_loader, test_loader,

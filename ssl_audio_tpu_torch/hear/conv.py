@@ -9,8 +9,16 @@ Conv-BN-ReLU-Pool kernel on inputs whose H and W are even (the 0.95-s
 timestamp windows; the 10-s scene clips have T = 1001 and take the plain
 block, as in JAX).
 
-Not ported yet: compute_dtype="bfloat16", the resnet model types and Orbax
-checkpoints raise NotImplementedError.
+compute_dtype="bfloat16" runs the encoder in bf16, as the JAX wrapper
+does (hear/conv.py:83-101): the parameters are cast once at load, the BN
+running statistics stay fp32, each normalised log-mel batch is cast at the
+encoder's input and the embeddings come back fp32 (models/precision.py);
+with fused_conv=True block 1 takes the fused kernel's bf16 instantiation.
+fetch_dtype="bfloat16" rounds the fp32 embeddings before the copy to the
+host, with either compute type.
+
+Not ported yet: the resnet model types and Orbax checkpoints raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from ssl_audio_tpu_torch.hear.pipeline import (
     timestamp_pipeline,
 )
 from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022, init_weights_
+from ssl_audio_tpu_torch.models.precision import cast_params_, compute_dtype as _dtype_of
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram
 from ssl_audio_tpu_torch.utils import resolve_device
 from ssl_audio_tpu_torch.utils.weights import load_reference_state_dict
@@ -41,9 +50,7 @@ class ConvModelWrapper:
         if model_type != "audiontt":
             raise NotImplementedError(
                 f"model type {model_type!r} is not ported yet (audiontt only)")
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} is not ported yet (float32 only)")
+        self.dtype = _dtype_of(compute_dtype)
         if fetch_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"fetch_dtype must be float32 or bfloat16, got {fetch_dtype!r}")
         self.device = resolve_device(device)
@@ -61,6 +68,7 @@ class ConvModelWrapper:
         self.timestamp_embedding_size = self.embed_dim
         self.mel = MelSpec.from_config(cfg)
         self._load_weights(model_file_path)
+        cast_params_(self.model, self.dtype)
         self.model.to(self.device).eval()
 
     def _load_weights(self, model_file_path: str) -> None:
@@ -77,7 +85,8 @@ class ConvModelWrapper:
 
     @torch.no_grad()
     def forward(self, lms: torch.Tensor) -> torch.Tensor:
-        return self.model(lms.to(self.device))
+        """(B, 1, F, T) normalised log-mels -> (B, 3072) fp32 embeddings."""
+        return self.model(lms.to(self.device).to(self.dtype)).float()
 
     @torch.no_grad()
     def to_feature(self, batch_audio) -> torch.Tensor:

@@ -62,9 +62,10 @@ def timestamp_pipeline(to_feature: Callable, encode: Callable,
     transformed nor encoded): to_feature -> log-mel (C, 1, F, T); the
     reference's statistics over the real rows, with its 1/N quirk
     (mean = mu / N, std = sqrt(unbiased var) / N, hear/utils.py); then
-    normalise and encode.  fetch_dtype="bfloat16" casts on the device
-    before the copy to the host (half the bytes; embeddings rounded to
-    bf16)."""
+    normalise and encode (fp32 embeddings from either compute type: a
+    bf16 model casts its input and output itself).  fetch_dtype="bfloat16"
+    casts on the device before the copy to the host (half the bytes;
+    embeddings rounded to bf16), as in JAX after a bf16 forward too."""
     mels = [to_feature(flat[i : min(i + BATCH_SIZE, N)])
             for i in range(0, N, BATCH_SIZE)]
     total = N * int(np.prod(mels[0].shape[1:]))

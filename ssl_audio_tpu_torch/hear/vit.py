@@ -19,8 +19,13 @@ metadata keep the JAX wrapper's values: timestamp_embedding_size is
 embed_dim * grid_size()[0] while the timestamp embeddings are embed_dim
 wide.
 
-Not ported yet: compute_dtype="bfloat16" and Orbax checkpoints raise
-NotImplementedError.
+compute_dtype="bfloat16" runs the encoder in bf16, as the JAX wrapper
+does (hear/vit.py:65-73, :117-120): the parameters are cast once at load,
+the ConvStem's running statistics and the fixed position table stay fp32,
+each unit batch is cast at the encoder's input and the embeddings come back
+fp32 (models/precision.py); the attention stays the einsum path, in bf16.
+
+Not ported yet: Orbax checkpoints raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from ssl_audio_tpu_torch.hear.pipeline import (
     frame_audio_on_device,
     timestamp_pipeline,
 )
+from ssl_audio_tpu_torch.models.precision import cast_params_, compute_dtype as _dtype_of
 from ssl_audio_tpu_torch.models.vit import get_mae_vit, init_vit_weights_
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram
 from ssl_audio_tpu_torch.utils import resolve_device
@@ -51,9 +57,7 @@ class ViTModelWrapper:
     def __init__(self, cfg, model_type: str, model_file_path: str, patch_size,
                  fetch_dtype: str = "float32", fast_mel: bool = False,
                  compute_dtype: str = "float32", device=None):
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} is not ported yet (float32 only)")
+        self.dtype = _dtype_of(compute_dtype)
         if fetch_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"fetch_dtype must be float32 or bfloat16, got {fetch_dtype!r}")
         self.device = resolve_device(device)
@@ -71,6 +75,7 @@ class ViTModelWrapper:
         self.timestamp_embedding_size = self.embed_dim * self.model.grid_size()[0]
         self.mel = MelSpec.from_config(cfg)
         self._load_weights(model_file_path)
+        cast_params_(self.model, self.dtype)
         self.model.to(self.device).eval()
 
     def _load_weights(self, model_file_path: str) -> None:
@@ -88,8 +93,8 @@ class ViTModelWrapper:
 
     @torch.no_grad()
     def unit_apply(self, xu: torch.Tensor) -> torch.Tensor:
-        """(B', 1, F, unit) -> (B', D) CLS embeddings."""
-        return self.model(xu.to(self.device))
+        """(B', 1, F, unit) -> (B', D) fp32 CLS embeddings."""
+        return self.model(xu.to(self.device).to(self.dtype)).float()
 
     def encode_lms(self, lms: torch.Tensor) -> torch.Tensor:
         """(B, 1, F, T) normalised log-mels -> (B, U, D) per-unit CLS

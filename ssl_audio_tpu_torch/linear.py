@@ -62,6 +62,9 @@ def main(argv=None) -> dict:
     logger = make_csv_logger(f"logs/linear_eval/{cfg.dataset}/{args.model_name}/")
     loaders = get_fsd50k_eval_loaders(cfg)
     encoder = load_model(cfg, args.model_file_path)
+    print(f"probing {cfg.model_type} on {cfg.dataset}, device "
+          f"{next(encoder.parameters()).device}, encoder compute "
+          f"{'bfloat16' if cfg.use_fp16_eval else 'float32'}")
     scores = eval_linear(make_embedding_forward(cfg, encoder), *loaders,
                          device=next(encoder.parameters()).device)
     score_all = scores.get("score_all")

@@ -60,7 +60,9 @@ def main(argv=None):
     trainer = Trainer(cfg, log_dir=log_dir, wandb_run=wandb_run)
     print(f"training {cfg.model_type} on {cfg.dataset}: {cfg.epochs} epochs x "
           f"{trainer.niter_per_ep} steps, batch {cfg.batch_size}, {cfg.optimizer}, "
-          f"device {trainer.device}; checkpoints in {ckpt_path}, log in {log_dir}")
+          f"device {trainer.device}, encoder compute {'bfloat16' if cfg.use_fp16 else 'float32'}"
+          f" (probe {'bfloat16' if cfg.use_fp16_eval else 'float32'}); "
+          f"checkpoints in {ckpt_path}, log in {log_dir}")
     trainer.fit(ckpt_path=ckpt_path, resume_path=cfg.resume_path, eval_fn=eval_fn)
     wandb_run.finish()
     return trainer

@@ -32,6 +32,15 @@ take fp32 convolutions through TF32.  The flag is read when a convolution
 runs, so whoever calls backward() on this module's output does so under
 ops.no_tf32() as well (train/steps.py does).  Dropout draws from torch's global
 generator unless the caller hands frames()/forward() the keep mask.
+
+Under the bf16 compute mode (models/precision.py: bf16 parameters and
+input, as the JAX module runs with them) block 1 takes the fused kernels'
+bf16 instantiation (or, for odd H or W, cuDNN's bf16 conv); blocks 2's
+convolutions are cuDNN bf16; every BatchNorm takes its statistics in fp32,
+folds them into fp32 running buffers and returns bf16 (models/batchnorm.py);
+the pool-reordered block 2's epilogue runs in fp32 and rounds to bf16; the
+dropout mask multiplies in bf16, and mean_max_pooling runs in bf16 (JAX
+models/audiontt.py:70).
 """
 from __future__ import annotations
 

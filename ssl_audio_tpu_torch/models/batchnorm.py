@@ -5,9 +5,16 @@ batch variance, computed as mean(x^2) - mean(x)^2 in fp32 and clamped at 0,
 and folds that same biased variance into the running average.  torch's
 BatchNorm folds the unbiased one (n / (n - 1) larger).  These subclasses
 take over the training-mode forward and leave everything else to torch:
-eval mode, the parameter and buffer names (weight, bias, running_mean,
-running_var, num_batches_tracked), so reference state dicts load with
-strict=True.
+the fp32 eval mode, the parameter and buffer names (weight, bias,
+running_mean, running_var, num_batches_tracked), so reference state dicts
+load with strict=True.
+
+Half-precision input (the bf16 compute mode, models/precision.py), as
+flax's BatchNorm does it: the statistics in fp32, the normalisation
+(x - mean) * (rsqrt(var + eps) * weight) + bias in fp32 with bf16 weight
+and bias widened, the result in the input's type; in eval mode the fp32
+running statistics, which torch's own batch_norm would not take beside
+bf16 weights.
 """
 from __future__ import annotations
 
@@ -17,22 +24,29 @@ from torch import nn
 
 class _BiasedVarianceMixin:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        half = x.dtype in HALF_DTYPES
+        if not self.training and not half:
             return super().forward(x)
         dims = [d for d in range(x.dim()) if d != 1]
         shape = [1, -1] + [1] * (x.dim() - 2)
         x32 = at_least_fp32(x)
-        mean = x32.mean(dim=dims)
-        var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
-        update_running_stats_(self, mean, var)
+        if self.training:
+            mean = x32.mean(dim=dims)
+            var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            update_running_stats_(self, mean, var)
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
         scale = torch.rsqrt(var + self.eps) * self.weight
         return ((x32 - mean.view(shape)) * scale.view(shape)
                 + self.bias.view(shape)).to(x.dtype)
 
 
+HALF_DTYPES = (torch.float16, torch.bfloat16)
+
+
 def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
     """Half-precision activations take their statistics in fp32."""
-    return x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+    return x.float() if x.dtype in HALF_DTYPES else x
 
 
 def update_running_stats_(bn: nn.modules.batchnorm._BatchNorm,

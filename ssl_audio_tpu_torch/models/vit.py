@@ -27,6 +27,16 @@ default, TF32 off); the ConvStem's convolutions and the patch projection
 run under ops.no_tf32() here, and whoever calls backward() on the output
 does so under it as well (train/steps.py does).  LayerNorm is PyTorch's
 two-pass one where flax takes E[x^2] - E[x]^2; both have eps 1e-6.
+
+Under the bf16 compute mode (models/precision.py: bf16 parameters and
+input) the model runs as the JAX one does with bf16 parameters: linear
+layers, convolutions and the einsum attention's products in bf16 (its
+scores rounded to bf16, then softmax in fp32, the probabilities rounded to
+bf16 for P V); the fused kernels' bf16 instantiation; LayerNorm and the
+ConvStem's BatchNorm with fp32 statistics and a bf16 result; the fp32
+position tables and mask token cast to the activation's type; the token
+mask, the key bias and the masked mean pool in fp32 (JAX promotes the pool
+to fp32 too); the reconstruction loss in fp32.
 """
 from __future__ import annotations
 
@@ -129,7 +139,7 @@ class AttentionKBiasZero(nn.Module):
             qkv = qkv + torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
         attn = None
         if self.fused and not return_attention and fused_attention_supports(B, N, C, H):
-            bias2 = (x.new_zeros(B, N) if key_bias is None
+            bias2 = (x.new_zeros(B, N, dtype=torch.float32) if key_bias is None
                      else key_bias[:, 0, 0, :].float())
             out = fused_attention(qkv, bias2, H)
         else:
@@ -363,7 +373,8 @@ class MaskedAutoencoderViT(nn.Module):
             tokens = torch.gather(tokens, 1, ids_keep[..., None].expand(-1, -1, tokens.shape[-1]))
         else:
             if mask is None:
-                mask = x.new_zeros(B, L) if unmasked else random_token_mask(noise, mask_ratio)
+                mask = (x.new_zeros(B, L, dtype=torch.float32) if unmasked
+                        else random_token_mask(noise, mask_ratio))
             key_bias = F.pad((mask * NEG_INF)[:, None, None, :], (1, 0))   # CLS visible
         cls = (self.cls_token + pe[:, :1]).to(tokens.dtype).expand(B, -1, -1)
         return torch.cat([cls, tokens], dim=1), mask, key_bias, ids_keep

@@ -2,8 +2,10 @@
 the fused first conv block, forward and backward (fused_conv.py), the fused
 ViT attention, forward and backward (fused_attention.py), the fixed
 position tables (pos_embed.py), and the nvcc build and ctypes binding of the
-kernels (_build.py).  Each kernel wrapper counts its launches;
-launch_counts() reads every counter and zero_launch_counts() resets them."""
+kernels (_build.py).  Each kernel wrapper counts its launches, the fp32 and
+the bf16 instantiations apart (`launches`, `launches_bf16`; the log-mel
+kernel is fp32 only); launch_counts() reads every counter, the bf16 ones
+under "<name>_bf16", and zero_launch_counts() resets them."""
 from __future__ import annotations
 
 import torch
@@ -33,9 +35,11 @@ def launch_counts() -> dict[str, int]:
     """Every kernel instantiation's launch counter."""
     from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
 
+    counted = _counted()
     return {"log_mel_folded": log_mel_cuda.launches["folded"],
             "log_mel_unfolded": log_mel_cuda.launches["unfolded"],
-            **{name: wrapper.launches for name, wrapper in _counted().items()}}
+            **{name: wrapper.launches for name, wrapper in counted.items()},
+            **{f"{name}_bf16": wrapper.launches_bf16 for name, wrapper in counted.items()}}
 
 
 def zero_launch_counts() -> None:
@@ -44,4 +48,4 @@ def zero_launch_counts() -> None:
     for key in log_mel_cuda.launches:
         log_mel_cuda.launches[key] = 0
     for wrapper in _counted().values():
-        wrapper.launches = 0
+        wrapper.launches = wrapper.launches_bf16 = 0

@@ -112,11 +112,35 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:
-    """Raise unless t is a contiguous float32 tensor of `shape` on `device`."""
-    if t.device != device or t.dtype != torch.float32 \
-            or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+# element types of the kernels' templates, as the C entries number them
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    """The C entries' code of t's element type; raises for any type but
+    float32 and bfloat16."""
+    if t.dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: want float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One more launch on a kernel wrapper's counter for `dtype`'s
+    instantiation: `launches_bf16` for bfloat16, `launches` for float32."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
+def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
+            dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless t is a contiguous `dtype` tensor of `shape` on `device`,
+    its data 16-byte aligned (the kernels' vector loads)."""
+    if t.device != device or t.dtype != dtype \
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous() \
+            or t.data_ptr() % 16:
         raise ValueError(
-            f"{name}: want contiguous float32 {tuple(shape)} on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device} "
-            f"(contiguous={t.is_contiguous()})")
+            f"{name}: want contiguous 16-byte aligned {dtype} {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()}, address {t.data_ptr():#x})")

@@ -45,6 +45,17 @@ when G < H.  Each kernel has a plain PyTorch version here with the same
 signature and the same rounding points: the CPU path and the kernels'
 oracle.  A wrapper takes the plain version only for a CPU tensor; for a CUDA
 tensor it launches the kernel or raises.
+
+Precision: qkv (and dO) are float32, or bfloat16 under the bf16 compute
+mode, read as they are (the kernels are templates over the type: a bf16
+qkv is staged without conversion).  The output and dq / dk / dv come back
+in qkv's type (the JAX function's out_shape, fused_attention.py:178,
+:230-232); the key bias and its cotangent stay fp32 (:233).  The products
+and sums are the same in both types; in bf16 the output and dq take one
+more rounding (to bf16) than in fp32, where the contract leaves them fp32,
+and dk / dv, already rounded to bf16 in fp32, are stored as they are.  Each
+wrapper counts its fp32 and bf16 launches apart (`launches`,
+`launches_bf16`).
 """
 from __future__ import annotations
 
@@ -67,8 +78,9 @@ ROWS_PER_BLOCK = 64        # padded query rows of the heads a block takes, at mo
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "fused_attention_fwd_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    "fused_attention_bwd_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "fused_attention_fwd_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    "fused_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                                   _P],
     "fused_attention_smem_bytes": [_I, _I, _I, _I, _I],
     "fused_attention_warps": [_I, _I, _I, _I],
 }
@@ -198,13 +210,13 @@ def _probs(q, k, key_bias, scale):
 
 def fused_attention_fwd_plain(qkv: torch.Tensor, key_bias: torch.Tensor,
                               num_heads: int) -> torch.Tensor:
-    """qkv (B, N, 3C), key_bias (B, N) -> (B, N, C) in plain PyTorch, with
-    the kernel's rounding points."""
+    """qkv (B, N, 3C), key_bias (B, N) -> (B, N, C) in qkv's type, in plain
+    PyTorch, with the kernel's rounding points."""
     B, N, C3 = qkv.shape
     scale = _scale(C3 // 3, num_heads)
     q, k, v = _qkv_heads(qkv, num_heads)
-    out = torch.matmul(_bf16(_probs(q, k, key_bias, scale)), v)
-    return out.transpose(1, 2).reshape(B, N, C3 // 3)
+    out = torch.matmul(_bf16(_probs(q, k, key_bias.float(), scale)), v)
+    return out.transpose(1, 2).reshape(B, N, C3 // 3).to(qkv.dtype)
 
 
 def _sum_over_queries(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -222,12 +234,13 @@ def _sum_over_queries(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def fused_attention_bwd_plain(qkv: torch.Tensor, key_bias: torch.Tensor,
                               dout: torch.Tensor, num_heads: int):
     """Plain PyTorch version of fused_attention_bwd_cuda, same signature and
-    results: (dqkv (B, N, 3C) = [dq | dk | dv], d key_bias (B, N))."""
+    results: (dqkv (B, N, 3C) = [dq | dk | dv] in qkv's type, d key_bias
+    (B, N) fp32)."""
     B, N, C3 = qkv.shape
     scale = _scale(C3 // 3, num_heads)
     q, k, v = _qkv_heads(qkv, num_heads)
     do = _bf16(_heads(dout, num_heads))
-    p = _probs(q, k, key_bias, scale)
+    p = _probs(q, k, key_bias.float(), scale)
     dv = _bf16(_sum_over_queries(_bf16(p), do))
     t = torch.matmul(do, v.transpose(-1, -2)) * p
     ds = t - p * t.sum(dim=-1, keepdim=True)
@@ -236,10 +249,12 @@ def fused_attention_bwd_plain(qkv: torch.Tensor, key_bias: torch.Tensor,
     dq = torch.matmul(ds16, k) * scale
     dk = _bf16(_sum_over_queries(ds16, q) * scale)
     dqkv = torch.cat([g.transpose(1, 2).reshape(B, N, C3 // 3) for g in (dq, dk, dv)], dim=-1)
-    return dqkv, dbias
+    return dqkv.to(qkv.dtype), dbias
 
 
 def _require(qkv, key_bias, num_heads):
+    """qkv float32 or bfloat16, key_bias float32, on the card, in the
+    envelope."""
     dev = qkv.device
     if dev.type != "cuda":
         raise ValueError(f"the fused attention kernels need CUDA tensors, got {dev}")
@@ -248,7 +263,8 @@ def _require(qkv, key_bias, num_heads):
         raise ValueError(f"unsupported shape: qkv {tuple(qkv.shape)}, {num_heads} heads "
                          f"(supports(): hd % 8 == 0, hd <= 128, N <= {MAX_SEQ}, "
                          f"H * N <= {MAX_PACKED})")
-    _build.require(qkv, "qkv", (B, N, C3), dev)
+    _build.dtype_code(qkv, "qkv")
+    _build.require(qkv, "qkv", (B, N, C3), dev, qkv.dtype)
     _build.require(key_bias, "key_bias", (B, N), dev)
     return dev, B, N, C3 // 3
 
@@ -263,19 +279,20 @@ def fused_attention_fwd_cuda(qkv: torch.Tensor, key_bias: torch.Tensor,
 def _launch_fwd(qkv, key_bias, num_heads: int, p: Plan) -> torch.Tensor:
     B, N, C3 = qkv.shape
     C = C3 // 3
-    out = torch.empty(B, N, C, device=qkv.device)
+    out = torch.empty(B, N, C, device=qkv.device, dtype=qkv.dtype)
     lib = _build.load("fused_attention.cu", _SIGNATURES)
     with torch.cuda.device(qkv.device):
         code = lib.fused_attention_fwd_launch(
             qkv.data_ptr(), key_bias.data_ptr(), out.data_ptr(), B, N, num_heads,
             C // num_heads, _scale(C, num_heads), p.heads_per_block, p.rounds_tiles,
-            _build.stream_ptr(qkv.device))
+            _build.DTYPE_CODES[qkv.dtype], _build.stream_ptr(qkv.device))
     _build.check(code, "fused_attention_fwd_launch")
-    fused_attention_fwd_cuda.launches += 1
+    _build.count_launch(fused_attention_fwd_cuda, qkv.dtype)
     return out
 
 
 fused_attention_fwd_cuda.launches = 0
+fused_attention_fwd_cuda.launches_bf16 = 0
 
 
 def fused_attention_bwd_cuda(qkv: torch.Tensor, key_bias: torch.Tensor,
@@ -285,7 +302,7 @@ def fused_attention_bwd_cuda(qkv: torch.Tensor, key_bias: torch.Tensor,
     summed over its heads in a fixed order; where G < H the sum over the
     groups is a PyTorch reduction, also in a fixed order."""
     dev, B, N, C = _require(qkv, key_bias, num_heads)
-    _build.require(dout, "dout", (B, N, C), dev)
+    _build.require(dout, "dout", (B, N, C), dev, qkv.dtype)
     return _launch_bwd(qkv, key_bias, dout, num_heads,
                        plan(B, N, num_heads, C // num_heads, True))
 
@@ -294,20 +311,26 @@ def _launch_bwd(qkv, key_bias, dout, num_heads: int, p: Plan):
     B, N, C3 = qkv.shape
     C = C3 // 3
     groups = num_heads // p.heads_per_block
-    dqkv = torch.empty(B, N, C3, device=qkv.device)
+    dqkv = torch.empty(B, N, C3, device=qkv.device, dtype=qkv.dtype)
     dbias = torch.empty(B, groups, N, device=qkv.device)
+    # bf16 with rounds of query tiles: the running dK / dV sums need fp32 room
+    run = None
+    if qkv.dtype == torch.bfloat16 and p.rounds_tiles < _pad(N) // TILE:
+        run = torch.empty(B, N, C3, device=qkv.device)
     lib = _build.load("fused_attention.cu", _SIGNATURES)
     with torch.cuda.device(qkv.device):
         code = lib.fused_attention_bwd_launch(
             qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-            dbias.data_ptr(), B, N, num_heads, C // num_heads, _scale(C, num_heads),
-            p.heads_per_block, p.rounds_tiles, _build.stream_ptr(qkv.device))
+            dbias.data_ptr(), None if run is None else run.data_ptr(), B, N, num_heads,
+            C // num_heads, _scale(C, num_heads), p.heads_per_block, p.rounds_tiles,
+            _build.DTYPE_CODES[qkv.dtype], _build.stream_ptr(qkv.device))
     _build.check(code, "fused_attention_bwd_launch")
-    fused_attention_bwd_cuda.launches += 1
+    _build.count_launch(fused_attention_bwd_cuda, qkv.dtype)
     return dqkv, (dbias[:, 0] if groups == 1 else dbias.sum(dim=1))
 
 
 fused_attention_bwd_cuda.launches = 0
+fused_attention_bwd_cuda.launches_bf16 = 0
 
 
 def fused_attention_fwd(qkv, key_bias, num_heads: int) -> torch.Tensor:
@@ -342,7 +365,9 @@ class _FusedAttention(torch.autograd.Function):
 def fused_attention(qkv: torch.Tensor, key_bias: torch.Tensor,
                     num_heads: int) -> torch.Tensor:
     """Multi-head self-attention over the raw qkv projection: qkv (B, N, 3C),
-    key_bias (B, N) -> (B, N, C) fp32, differentiable in both through the
-    hand-written backward."""
-    return _FusedAttention.apply(qkv.float().contiguous(),
-                                 key_bias.float().contiguous(), num_heads)
+    key_bias (B, N) -> (B, N, C), differentiable in both through the
+    hand-written backward.  A bfloat16 qkv runs the kernels' bf16
+    instantiation and gives bf16; anything else is taken in float32."""
+    if qkv.dtype != torch.bfloat16:
+        qkv = qkv.float()
+    return _FusedAttention.apply(qkv.contiguous(), key_bias.float().contiguous(), num_heads)

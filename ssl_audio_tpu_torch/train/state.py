@@ -9,6 +9,13 @@ handle on them, and state_dict() / load_state_dict() carry all of it
 through a checkpoint.  The teacher/student step only: the BYOL variant's
 target network is not ported yet (its modules would travel under a key of
 their own beside "model").
+
+With cfg.use_fp16 a step runs the encoder in bf16 (encoder_forward): bf16
+copies of the fp32 master parameters and a bf16 input, the outputs cast
+back to fp32 for the head, predictor and loss, which stay fp32 (JAX
+Modules.apply_encoder, ssl_audio_tpu/train/state.py:81-101).  The running
+statistics are fp32 buffers throughout, the optimizer updates the fp32
+masters and a checkpoint holds them: its format does not change.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from torch import nn
 from ssl_audio_tpu_torch.augment.transforms import AugmentState, init_augment_state
 from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022, init_weights_
 from ssl_audio_tpu_torch.models.heads import BarlowTwinsHead, BarlowTwinsPredictor
+from ssl_audio_tpu_torch.models.precision import bf16_params, forward_bf16
 from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT, get_mae_vit, init_vit_weights_
 from ssl_audio_tpu_torch.train import optim as optim_lib
 from ssl_audio_tpu_torch.utils import resolve_device
@@ -70,6 +78,17 @@ class TrainState:
 
 def is_vit(cfg) -> bool:
     return "vit" in cfg.model_type
+
+
+def encoder_forward(cfg, encoder: nn.Module):
+    """-> fn(x, *args, **kwargs): the encoder's forward for one step.  With
+    cfg.use_fp16, over bf16 copies of the fp32 master parameters taken now
+    (gradients flow back through the cast into the masters), x cast to bf16
+    and the outputs to fp32; else the encoder itself."""
+    if not cfg.use_fp16:
+        return encoder
+    params = bf16_params(encoder)
+    return lambda x, *args, **kwargs: forward_bf16(encoder, params, x, *args, **kwargs)
 
 
 def build_encoder(cfg) -> tuple[nn.Module, int]:

@@ -13,6 +13,11 @@ implementations can be stepped on the same draws.
 For a ViT the teacher view is masked at the step's mask_ratio (key-bias
 masking, or token drop with a static len_keep; train/loop.py picks both per
 step) and the students are not, as in the JAX step.
+
+With --use_fp16 the encoder forwards run in bf16 over bf16 copies of the
+fp32 master parameters, taken once per step (train/state.py
+encoder_forward); the frontend, the views, the heads, the loss and the
+optimizer stay fp32.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT
 from ssl_audio_tpu_torch.objectives.barlow import barlow_twins_loss
 from ssl_audio_tpu_torch.ops import no_tf32
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_cropped
-from ssl_audio_tpu_torch.train.state import TrainState
+from ssl_audio_tpu_torch.train.state import TrainState, encoder_forward
 
 
 def init_monitor(device) -> dict:
@@ -150,9 +155,6 @@ def make_train_step(cfg, world_scale: float = 1.0, frontend=None):
     `state` in place (parameters, running statistics, optimizer momentum,
     mixup bank, step count).  Randomness: `draws`, or drawn from `gen`.
     mask_ratio, len_keep: a ViT teacher's masking (train/loop.py)."""
-    if cfg.use_fp16:
-        raise NotImplementedError(
-            "--use_fp16 (bf16 autocast of the encoder) is not ported yet")
 
     def train_step(state: TrainState, batch: torch.Tensor, gen=None,
                    draws: Optional[StepDraws] = None, monitor=None,
@@ -172,16 +174,17 @@ def make_train_step(cfg, world_scale: float = 1.0, frontend=None):
 
         def encode(i: int, v: torch.Tensor, teacher: bool = False):
             if not vit:
-                return encoder(v, draws.dropout[i])
+                return run_encoder(v, draws.dropout[i])
             masking = (dict(mask_ratio=mask_ratio, len_keep=len_keep,
                             masked_recon=cfg.masked_recon) if teacher else {})
-            return encoder(v, mean_pool=cfg.use_mean_pool, noise=draws.noise[i],
-                           drop_keep=None if draws.drop_path is None else draws.drop_path[i],
-                           **masking)
+            return run_encoder(v, mean_pool=cfg.use_mean_pool, noise=draws.noise[i],
+                               drop_keep=None if draws.drop_path is None else draws.drop_path[i],
+                               **masking)
 
         # cuDNN's TF32 flag is read when a kernel is chosen: the backward
         # convolutions run inside loss.backward(), so it stays in the context
         with no_tf32():
+            run_encoder = encoder_forward(cfg, encoder)
             # teacher: first global view, masked (a ViT), head + predictor
             t_out = encode(0, views[0], teacher=True)
             recon = torch.zeros((), device=batch.device)

@@ -305,18 +305,20 @@ def test_eval_linear_on_the_synthetic_loader(audiontt_pair):
 
 
 def test_deferred_eval_options_raise(audiontt_pair, tmp_path):
-    """--use_fp16_eval, and the per-epoch FSD50K probe of a state with a
-    BYOL target encoder, are not ported.  Without FSD50K the probe's
-    loaders raise FileNotFoundError (main then disables the hook)."""
+    """The per-epoch FSD50K probe of a state with a BYOL target encoder is
+    not ported; --use_fp16_eval is (tests/test_torch_bf16_serving.py holds
+    it against JAX), so it no longer raises and gives fp32 embeddings.
+    Without FSD50K the probe's loaders raise FileNotFoundError (main then
+    disables the hook)."""
     from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
 
     _, enc = audiontt_pair
     cfg = tconfig.config_from_args(["--dataset", "synthetic", "--use_fp16_eval"])
-    assert any("--use_fp16_eval" in s for s in tconfig.unsupported_settings(cfg))
-    with pytest.raises(NotImplementedError):
-        tconfig.require_supported(cfg)
-    with pytest.raises(NotImplementedError):
-        linear.make_embedding_forward(cfg, enc)
+    assert tconfig.unsupported_settings(cfg) == []
+    tconfig.require_supported(cfg)
+    emb = linear.make_embedding_forward(cfg, enc)(torch.zeros(2, 1, 64, 96))
+    assert emb.dtype == torch.float32 and emb.shape == (2, 3072)
+    assert all(p.dtype == torch.float32 for p in enc.parameters())
     cfg = tconfig.default_config(dataset="fsd50k", device="cpu")
     with pytest.raises(FileNotFoundError):
         linear.get_fsd50k_eval_loaders(cfg, data_dir=str(tmp_path / "none"))

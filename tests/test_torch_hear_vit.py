@@ -151,8 +151,8 @@ def test_no_silent_cpu_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             tvit.load_model()
-    with pytest.raises(NotImplementedError):
-        tvit.load_model(compute_dtype="bfloat16", device="cpu")
+    with pytest.raises(ValueError):         # bfloat16 is ported; other types are not
+        tvit.load_model(compute_dtype="float16", device="cpu")
     with pytest.raises(NotImplementedError):
         tvit.load_model("checkpoints/orbax_dir", "vit_tiny", "16x16", device="cpu")
     with pytest.raises(ValueError):

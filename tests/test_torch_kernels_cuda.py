@@ -41,6 +41,7 @@ SUMS_RTOL = 1e-4     # backward sums / their largest value: fp32 sums in another
 DY_ATOL = 1e-4       # dy values O(1): the T1/n, T2/n terms come from those sums
 BF16_SPACING = 2.0 ** -7   # attention: a bf16 operand or output rounded the other way
 ATTN_REL_L2 = 1e-4         # moves one element by one bf16 spacing; relative L2 stays tiny
+ATTN_REL_L2_BF16 = 2e-4    # bf16 dq / dk / dv: one more bf16 rounding (chip_smoke.py)
 
 
 @pytest.fixture
@@ -295,8 +296,10 @@ def test_fused_conv_grid_matches_the_plan(dev):
     for shape in CONV_SHAPES + [(128, 64, 96), (512, 64, 96), (1, 2, 2)]:
         blocks = fc.launch_plan(*shape).blocks
         assert fwd.fused_conv1_fwd_blocks(*shape) == blocks == bwd.fused_conv1_bwd_blocks(*shape)
-    assert bwd.fused_conv1_bwd_blocks_per_sm() >= 4
-    assert fwd.fused_conv1_fwd_blocks_per_sm(0) >= 4 and fwd.fused_conv1_fwd_blocks_per_sm(1) >= 4
+    for dt in (0, 1):              # the fp32 and the bf16 instantiations
+        assert bwd.fused_conv1_bwd_blocks_per_sm(dt) >= 4
+        assert fwd.fused_conv1_fwd_blocks_per_sm(0, dt) >= 4
+        assert fwd.fused_conv1_fwd_blocks_per_sm(1, dt) >= 4
 
 
 def test_fused_block_function_card_matches_cpu(dev, rng):
@@ -360,13 +363,13 @@ def _attention_inputs(rng, B, N, C, masked):
     return [torch.from_numpy(a) for a in (qkv, bias, dout)]
 
 
-def _attention_close(got, want, what):
+def _attention_close(got, want, what, rel_l2=ATTN_REL_L2):
     scale = float(want.abs().max())
     if scale == 0.0:               # N = 1: P = 1, so dS and what follows from it vanish
         assert torch.equal(got, want), what
         return
     assert float((got - want).abs().max()) <= BF16_SPACING * scale, what
-    assert float((got - want).double().norm() / want.double().norm()) <= ATTN_REL_L2, what
+    assert float((got - want).double().norm() / want.double().norm()) <= rel_l2, what
 
 
 @pytest.mark.parametrize("B,N,C,H,masked", [
@@ -513,3 +516,105 @@ def test_fused_attention_layout_matches_the_plan(dev):
                             fa.smem_bytes(N, hd, G, R, bwd), (N, hd, G, R, bwd)
                         assert lib.fused_attention_warps(N, G, R, int(bwd)) == \
                             fa.launch_warps(N, G, R, bwd)
+
+
+# ------------------------------------------------------------------ bf16
+# The bf16 instantiations against the plain versions in bf16 (the tolerances
+# of chip_smoke.py): sel and the eval output within one bf16 spacing of each
+# element beside CONV_ATOL (near 0 the two sides' fp32 values, cuDNN's conv
+# and the fmaf chain, round to bf16 neighbours of values far smaller than
+# their difference); fp32 sums as in fp32; attention as in fp32.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_spacing(t):
+    """One bf16 spacing at each element's magnitude (2^(e - 8) for |t| in
+    [2^(e-1), 2^e))."""
+    _, e = torch.frexp(t.float().abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _bf16_close(got, want, what):
+    got, want = got.float(), want.float()
+    tol = torch.maximum(_bf16_spacing(got), _bf16_spacing(want)) + CONV_ATOL
+    assert bool(((got - want).abs() <= tol).all()), what
+
+
+@pytest.mark.parametrize("shape", [(128, 64, 96), (3, 18, 38), (1, 64, 96), (5, 14, 26)])
+def test_fused_conv_bf16_kernels_match_plain(dev, rng, shape):
+    """The forward (statistics and eval) and the backward in bf16: x and
+    the parameters bf16, sel, the eval output bf16, the sums fp32; two
+    launches give the same bits; the bf16 counters count them, the fp32
+    ones do not."""
+    x, wk, b, g, be, mean, var = (t.to(dev) for t in _conv_inputs(rng, *shape))
+    x, wk, b, g, be = (t.to(BF16) for t in (x, wk, b, g, be))
+    before = (fused_conv1_fwd_cuda.launches, fused_conv1_fwd_cuda.launches_bf16,
+              fused_conv1_bwd_cuda.launches, fused_conv1_bwd_cuda.launches_bf16)
+    sel, s1, s2 = fused_conv1_fwd_cuda(x, wk, b, g)
+    again = fused_conv1_fwd_cuda(x, wk, b, g)
+    sel_p, s1_p, s2_p = fused_conv1_fwd_plain(x, wk, b, g)
+    out = fused_conv1_bn_relu_pool_eval(x[..., None], wk.reshape(3, 3, 1, -1), b, g, be,
+                                        mean, var)
+    out_p = torch.relu(g.float() * (sel_p.float() - mean) * torch.rsqrt(var + 1e-5)
+                       + be.float()).to(BF16)
+    assert sel.dtype == out.dtype == BF16 and s1.dtype == torch.float32
+    assert all(torch.equal(a, a2) for a, a2 in zip((sel, s1, s2), again))
+    assert nchw_memory(sel) and nchw_memory(out)
+    _bf16_close(sel, sel_p, "sel")
+    _bf16_close(out, out_p, "eval out")
+    for a, p in ((s1, s1_p), (s2, s2_p)):
+        assert float((a - p).abs().max()) <= STATS_RTOL * float(p.abs().max())
+    n = float(x.numel())
+    mean_b, var_b = s1 / n, s2 / n - (s1 / n) ** 2
+    r = torch.rsqrt(var_b + 1e-5)
+    pooled = torch.relu(g.float() * (sel.float() - mean_b) * r + be.float()).to(BF16)
+    dp = torch.from_numpy(rng.standard_normal(tuple(pooled.shape)).astype(np.float32))
+    dp = dp.to(dev).to(BF16).permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    args = (x, wk, b, g, mean_b, r, pooled, dp)
+    got = fused_conv1_bwd_cuda(*args, be)
+    again = fused_conv1_bwd_cuda(*args, be)
+    ref = fused_conv1_bwd_plain(*args, be)
+    torch.cuda.synchronize()
+    for name, a, a2, p in zip(("t1", "t2", "sx", "a1", "a2", "gram"), got, again, ref):
+        assert torch.equal(a, a2), name
+        if name == "sx":
+            assert float(a.abs().max()) <= 1e-5 * n and float(p.abs().max()) <= 1e-5 * n
+            continue
+        assert float((a - p).abs().max()) <= SUMS_RTOL * float(p.abs().max()), name
+    assert (fused_conv1_fwd_cuda.launches, fused_conv1_fwd_cuda.launches_bf16,
+            fused_conv1_bwd_cuda.launches, fused_conv1_bwd_cuda.launches_bf16) == \
+        (before[0], before[1] + 3, before[2], before[3] + 2)
+    with pytest.raises(ValueError):               # B5 is fp32 only
+        fused_conv1_dx_cuda(*args, got[0], got[1], n)
+    with pytest.raises(ValueError):               # no mixed types
+        fused_conv1_fwd_cuda(x, wk.float(), b, g)
+
+
+@pytest.mark.parametrize("B,N,C,H,masked", [
+    (128, 25, 768, 12, True), (128, 7, 768, 12, False), (3, 33, 64, 2, True),
+    (2, 256, 512, 4, True)])                      # the envelope: rounds of query tiles
+def test_fused_attention_bf16_kernels_match_plain(dev, rng, B, N, C, H, masked):
+    """The bf16 instantiations: qkv, dO, O and dqkv bf16, the bias and its
+    cotangent fp32; against the plain versions in bf16; two backward
+    launches give the same bits; counted as bf16 launches."""
+    qkv, bias, dout = (t.to(dev) for t in _attention_inputs(rng, B, N, C, masked))
+    qkv, dout = qkv.to(BF16), dout.to(BF16)
+    before = (fa.fused_attention_fwd_cuda.launches_bf16,
+              fa.fused_attention_bwd_cuda.launches_bf16, fa.fused_attention_fwd_cuda.launches)
+    out = fa.fused_attention_fwd_cuda(qkv, bias, H)
+    dqkv, dbias = fa.fused_attention_bwd_cuda(qkv, bias, dout, H)
+    again = fa.fused_attention_bwd_cuda(qkv, bias, dout, H)
+    out_p = fa.fused_attention_fwd_plain(qkv, bias, H)
+    dqkv_p, dbias_p = fa.fused_attention_bwd_plain(qkv, bias, dout, H)
+    torch.cuda.synchronize()
+    assert out.dtype == dqkv.dtype == BF16 and dbias.dtype == torch.float32
+    assert (fa.fused_attention_fwd_cuda.launches_bf16,
+            fa.fused_attention_bwd_cuda.launches_bf16,
+            fa.fused_attention_fwd_cuda.launches) == (before[0] + 1, before[1] + 2, before[2])
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+    _attention_close(out.float(), out_p.float(), "out")
+    for i, name in enumerate(("dq", "dk", "dv")):
+        sl = slice(i * C, (i + 1) * C)
+        _attention_close(dqkv[..., sl].float(), dqkv_p[..., sl].float(), name, ATTN_REL_L2_BF16)
+    _attention_close(dbias, dbias_p, "dbias")
