@@ -99,7 +99,8 @@ Phases, each of which exits non-zero on failure:
      resume check of phase 9 on FSD50K, bit-identical; (f) the linear CLI on
      (b)'s last checkpoint; (g) main --use_fp16 --use_fp16_eval on FSD50K for
      an epoch with the per-epoch probe in bf16 (bf16 kernels only in its
-     steps), and the linear CLI --use_fp16_eval on its checkpoint;
+     steps), the linear CLI --use_fp16_eval on its checkpoint, and a second
+     epoch through the same Trainer, ms per step from the device's step ends;
  11. bf16 compute: the bf16 instantiations of the fused conv (eval at the
      serving chunk, statistics mode and backward at a view of the step) and
      of the attention kernels (ViT-B's qkv at N = 25, masked and not, and
@@ -115,6 +116,23 @@ Phases, each of which exits non-zero on failure:
      per-request launches (the bf16 fused conv only; the ViT, as in JAX, runs
      no attention kernel), medians in turns, the timestamp request profiled,
      a small request against the CPU.
+ 12. --steps_per_dispatch 4, a window of steps as one CUDA graph: through
+     the Trainer over SyntheticWav at full width, batch 128, (a) the defaults
+     (AudioNTT2022, LARS, fp32), (b) the same with --use_fp16, (c) ViT-B
+     --fused_attention, AdamW, --lr_schedule, the teacher masked by key bias
+     at --random_mask_ratio (a ratio per step), (d) ViT-B --fused_attention
+     --use_fp16 at --random_mask_ratio, (e) ViT-B --fused_attention with
+     --mask_ratio_schedule and token drop over two len_keep values (two
+     graphs captured); each epoch (10 steps, (e) 14: an eager warm-up window,
+     captured and replayed windows, a tail of single steps) against the same
+     epoch at one step a dispatch from the same seed: every tensor of the
+     train state, the generator and the epoch loss bit for bit, or the gap
+     per tensor with the loss within the card-vs-card tolerance; every
+     dispatch's launches (a replay DISPATCH x the eager step's); for (a)-(d)
+     ms per step eager against graphed on a resident batch (A B B A), the
+     capture's seconds, peak memory and each side's device busy and idle
+     share; a --profile_dir trace at one step a dispatch that names the
+     log-mel and fused conv kernels.
 The `kernels` JSON line lists every ported kernel, the bf16 instantiations
 as entries of their own; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -2307,13 +2325,288 @@ def phase_disk(seed: int, dev: torch.device, smi: str, resident_wav_ms: float) -
         if not 0.0 < scores["score_all"] <= 1.0 or "encoder compute bfloat16" not in \
                 cli_log.getvalue():
             raise SystemExit(f"linear CLI --use_fp16_eval: {scores}, {cli_log.getvalue()!r}")
+        # a second epoch through the same Trainer, its steps timed on the device
+        through_trainer = epoch_through_trainer(trainer, 2)
         out["bf16"] = {"flags": "--dataset fsd50k --epochs 1 --use_fp16 --use_fp16_eval",
                        "run_s": run_s, "epoch_losses": trainer.epoch_losses,
+                       "through_trainer": through_trainer,
                        "probe_s": probes[0][1], "probe_map": probes[0][2]["score_all"],
                        "linear_cli_s": time.perf_counter() - t,
                        "linear_cli_map": scores["score_all"]}
         print("  (g) bf16 on FSD50K: " + json.dumps(out["bf16"]))
         del trainer
+    return out
+
+
+# phase 12: --steps_per_dispatch windows as CUDA graphs.  Each
+# configuration's epoch at DISPATCH steps a window (an eager warm-up window, a
+# captured and replayed one, replayed ones, a tail of single steps) against
+# the same epoch at one step a dispatch, from the same seed, bit for bit
+DISPATCH = 4
+GRAPH_STEPS = 14     # (a)-(d): windows [0-3] eager, [4-7] captured and replayed,
+                     # [8-11] replayed (static inputs refilled), tail [12, 13]
+GRAPH_WINDOWS = 4    # timed windows per graphed turn: 8 windows, 32 replayed steps
+VITB = ["--dataset", "synthetic_wav", "--model_type", "vit_base", "--fused_attention"]
+VIT_STEP = {"log_mel_folded": 1, "fused_attention_fwd": 2 * VIT_DEPTH,
+            "fused_attention_bwd": 2 * VIT_DEPTH}
+GRAPH_CONFIGS = {   # flags, launches per step, timed A B B A
+    "a_audiontt_fp32_lars": (["--dataset", "synthetic_wav", "--model_type", "audiontt"],
+                             WAV_STEP_LAUNCHES, True),
+    "b_audiontt_bf16_lars": (["--dataset", "synthetic_wav", "--model_type", "audiontt",
+                              "--use_fp16"],
+                             {"log_mel_folded": 1, "fused_conv1_fwd_bf16": 2,
+                              "fused_conv1_bwd_bf16": 2}, True),
+    "c_vitb_adamw_lr_schedule_key_bias_random_ratio": (
+        [*VITB, "--optimizer", "AdamW", "--lr_schedule", "--mask", "--random_mask_ratio",
+         "--mask_beta", "0.75"], VIT_STEP, True),
+    "d_vitb_bf16_key_bias_random_ratio": (
+        [*VITB, "--use_fp16", "--mask", "--random_mask_ratio", "--mask_beta", "0.75"],
+        {"log_mel_folded": 1, "fused_attention_fwd_bf16": 2 * VIT_DEPTH,
+         "fused_attention_bwd_bf16": 2 * VIT_DEPTH}, True),
+    # the sine schedule over 4 epochs of 14 steps, epoch 3: len_keep 18 for
+    # the first two windows, 17 for the third and the tail (24 tokens), so the
+    # graph of 18 and then a second graph, of 17, are captured
+    "e_vitb_token_drop_mask_schedule": (
+        [*VITB, "--mask", "--mask_ratio_schedule", "--epochs", "4"], VIT_STEP, False),
+}
+SCHEDULE_EPOCH, SCHEDULE_STEPS, SCHEDULE_KEYS = 3, 14, [18] * 8 + [17] * 6
+
+
+def graph_epoch(flags: list[str], n: int, steps: int, epoch: int, seed: int) -> dict:
+    """One epoch of config_from_args(flags) through the Trainer at n steps a
+    dispatch: the launches of every dispatch (counters zeroed just before it
+    and read just after), what each window did (eager, captured and
+    replayed, replayed), the trainer."""
+    from ssl_audio_tpu_torch.config import config_from_args
+    from ssl_audio_tpu_torch.train.loop import Trainer
+
+    argv = [*flags, "--synthetic_steps_per_epoch", str(steps), "--seed", str(seed),
+            "--steps_per_dispatch", str(n)]
+    if "--epochs" not in flags:
+        argv += ["--epochs", "1"]
+    trainer = Trainer(config_from_args(argv), log=lambda line: None)
+    dispatches = []
+
+    def counted(fn, kind):
+        def run(*args, **kwargs):
+            graphs = dict(trainer.multi_step.graphs) if kind == "window" else {}
+            zero_launch_counts()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            mode = kind
+            if kind == "window":
+                now = trainer.multi_step.graphs
+                new = [k for k in now if k not in graphs or now[k] is not graphs[k]]
+                mode = "captured and replayed" if new else \
+                    "replayed" if kwargs.get("len_keep") in now else "eager"
+            dispatches.append({"mode": mode, "len_keep": kwargs.get("len_keep"),
+                               "launches": launch_counts()})
+            return out
+        return run
+
+    step = trainer.train_step
+    trainer.train_step = counted(step, "step")
+    if trainer.multi_step is not None:
+        multi = trainer.multi_step
+        trainer.multi_step = counted(multi, "window")
+        trainer.multi_step.inputs, trainer.multi_step.graphs = multi.inputs, multi.graphs
+    t0 = time.perf_counter()
+    trainer.train_one_epoch(epoch)
+    torch.cuda.synchronize()
+    return {"trainer": trainer, "dispatches": dispatches, "epoch_s": time.perf_counter() - t0}
+
+
+def graphs_vs_eager(name: str, flags: list[str], per_step: dict, seed: int) -> dict:
+    """(a)-(e): the epoch at DISPATCH steps a window against the same epoch
+    one step at a time: every tensor of the train state, the generator and
+    the epoch's loss (the monitor's sum over the steps), bit for bit (the
+    phase fails otherwise, printing the largest gap per tensor); launches of
+    every dispatch: a window DISPATCH x the step's, each single step the
+    step's."""
+    from ssl_audio_tpu_torch.tools.step_determinism import tensor_gaps, train_state_tensors
+
+    schedule = name.startswith("e_")
+    steps, epoch = (SCHEDULE_STEPS, SCHEDULE_EPOCH) if schedule else (GRAPH_STEPS, 1)
+    want = counts_with(**per_step)
+    runs = {n: graph_epoch(flags, n, steps, epoch, seed) for n in (DISPATCH, 1)}
+    graphed, eager = runs[DISPATCH]["trainer"], runs[1]["trainer"]
+    for n, run in runs.items():
+        for d in run["dispatches"]:
+            k = DISPATCH if d["mode"] not in ("step",) else 1
+            if d["launches"] != {c: k * v for c, v in want.items()}:
+                raise SystemExit(f"{name}: a {d['mode']} dispatch at N = {n} launched "
+                                 f"{d['launches']}, expected {k} x {per_step}")
+    modes = [(d["mode"], d["len_keep"]) for d in runs[DISPATCH]["dispatches"]]
+    expected = ["eager", "captured and replayed",
+                "captured and replayed" if schedule else "replayed", "step", "step"]
+    if [m for m, _ in modes] != expected:
+        raise SystemExit(f"{name}: the epoch's dispatches were {modes}, expected {expected}")
+    if schedule:
+        keys = [lk for _, lk in modes]
+        if keys != [18, 18, 17, 17, 17] or sorted(graphed.multi_step.graphs, key=str) != [17, 18]:
+            raise SystemExit(f"{name}: len_keep per dispatch {keys}, graphs "
+                             f"{list(graphed.multi_step.graphs)}")
+    gaps = tensor_gaps(train_state_tensors(graphed.state), train_state_tensors(eager.state))
+    same_gen = torch.equal(graphed.gen.get_state(), eager.gen.get_state())
+    lg, le = graphed.epoch_losses[epoch], eager.epoch_losses[epoch]
+    rec = {"flags": flags, "epoch": epoch, "steps": steps,
+           "dispatches": [f"{m}{'' if lk is None else f' (len_keep {lk})'}" for m, lk in modes],
+           "bit_for_bit": not gaps and same_gen and lg == le,
+           "epoch_loss": {"graphed": lg, "eager": le}, "generators_equal": same_gen,
+           "tensors_differing": len(gaps),
+           "largest_gaps": dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:8]),
+           "launches_per_replay": {c: v for c, v in next(
+               d["launches"] for d in runs[DISPATCH]["dispatches"]
+               if d["mode"] != "eager" and d["mode"] != "step").items() if v},
+           "launches_per_eager_step": {c: v for c, v in runs[1]["dispatches"][0]["launches"]
+                                       .items() if v},
+           "capture_s": {str(k): w.capture_s for k, w in graphed.multi_step.graphs.items()},
+           "epoch_s": {"graphed": runs[DISPATCH]["epoch_s"], "eager": runs[1]["epoch_s"]}}
+    print(f"  ({name[0]}) {json.dumps(rec)}")
+    if not rec["bit_for_bit"]:
+        raise SystemExit(f"{name}: the graphed epoch is not the eager one bit for bit "
+                         f"(generators equal: {same_gen}; the gaps per tensor above)")
+    del runs
+    return rec
+
+
+def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int,
+                          smi: str) -> dict:
+    """(a)-(d) timed on a batch of 128 seeded 10-s clips resident on the
+    card, in turns (A B B A): eager steps (A, 12 after two warm-ups per
+    turn) and graphed windows of DISPATCH steps (B, GRAPH_WINDOWS windows per
+    turn after the warm-up window and the capture), ms per step (the median
+    over the windows of a window's host-clock ms / DISPATCH), the capture's
+    seconds, peak memory and each side's profile (device busy, idle share,
+    the port's kernels the device ran: a replay's must be DISPATCH x the
+    step's, as the launch counters say, or the phase fails)."""
+    from ssl_audio_tpu_torch.config import config_from_args
+    from ssl_audio_tpu_torch.tools.serving import profile, seeded_clips
+    from ssl_audio_tpu_torch.tools.train_profile import (
+        seeded_training,
+        step_wall_ms,
+        window_runner,
+    )
+    from ssl_audio_tpu_torch.train.loop import mask_ratio_for_step
+
+    overrides = {k: v for k, v in vars(config_from_args(flags)).items()
+                 if k in ("model_type", "fused_attention", "use_fp16", "optimizer", "lr",
+                          "lr_schedule", "mask", "random_mask_ratio", "mask_beta", "wd")}
+    cfg, state, step, gen = seeded_training(seed, torch.device("cuda"), **overrides)
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).cuda()
+    rng = np.random.default_rng(seed + 17)
+    ratios = [mask_ratio_for_step(cfg, None, i, rng) for i in range(TRAIN_STEPS)]
+    window_ratios = ratios[:DISPATCH]
+    run_window, multi = window_runner(cfg, state, gen, wavs, DISPATCH, window_ratios)
+    turn = iter(range(10 ** 6))
+
+    def eager():
+        return step(state, wavs, gen=gen, mask_ratio=ratios[next(turn) % TRAIN_STEPS])
+
+    eager()
+    eager()
+    times = {"eager": [], "graphed": []}
+    # peak device memory above what was allocated when each side started
+    # (the train state, the batch and what earlier phases still hold)
+    peak, base = {}, {}
+    for side in ("eager", "graphed", "graphed", "eager"):
+        if side == "eager":
+            torch.cuda.reset_peak_memory_stats()
+            base.setdefault("eager", torch.cuda.memory_allocated())
+            times["eager"] += step_wall_ms(eager, TRAIN_STEPS)
+            peak.setdefault("eager", torch.cuda.max_memory_allocated() - base["eager"])
+            continue
+        if not multi.graphs:
+            run_window()                                   # the eager warm-up window
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base["graphed"] = torch.cuda.memory_allocated()
+            capture_ms = step_wall_ms(run_window, 1)[0]    # capture + the first replay
+        times["graphed"] += [t / DISPATCH for t in step_wall_ms(run_window, GRAPH_WINDOWS)]
+        peak["graphed"] = torch.cuda.max_memory_allocated() - base["graphed"]
+    (window,) = multi.graphs.values()
+    prof_eager, prof_graphed = profile(eager), profile(run_window)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    rec = {"order": "eager, graphed, graphed, eager", "steps_timed": {
+               "eager": len(times["eager"]), "graphed": DISPATCH * len(times["graphed"])},
+           "ms_per_step_median": med, "ms_per_step_min": {k: min(v) for k, v in times.items()},
+           "clips_per_s": {k: TRAIN_BATCH / v * 1e3 for k, v in med.items()},
+           "speedup": med["eager"] / med["graphed"],
+           "capture_s": window.capture_s, "first_replay_with_capture_ms": capture_ms,
+           "peak_memory_above_start_bytes": peak,
+           "allocated_at_start_bytes": base,
+           "eager_step_profile": {"wall_ms": prof_eager["wall_ms"],
+                                  "device_busy_ms": prof_eager["device_busy_ms"],
+                                  "idle_share": prof_eager["idle_share"]},
+           "graphed_window_profile": {"wall_ms": prof_graphed["wall_ms"],
+                                      "device_busy_ms": prof_graphed["device_busy_ms"],
+                                      "idle_share": prof_graphed["idle_share"],
+                                      "device_ms_by_kernel": dict(list(
+                                          prof_graphed["device_ms_by_kernel"].items())[:6])},
+           "card": smi}
+    want = counts_with(**per_step)
+    seen = {"eager step": prof_eager["launches_seen"], "replay": prof_graphed["launches_seen"]}
+    rec["launches_seen_by_profiler"] = seen
+    print(f"  ({name[0]}) time: {json.dumps(rec)}")
+    for what, k in (("eager step", 1), ("replay", DISPATCH)):
+        if counts_with(**seen[what]) != {c: k * v for c, v in want.items()}:
+            raise SystemExit(f"{name}: the profiler saw the {what} run {seen[what]}, the "
+                             f"launch counters say {k} x {per_step}")
+    del state, multi, window
+    return rec
+
+
+def profile_dir_trace(seed: int) -> dict:
+    """main's --profile_dir at one step a dispatch: an 11-step epoch of the
+    defaults traces iteration 10; the trace must name the log-mel kernel
+    (B2) and both fused conv kernels (B1, B4)."""
+    from ssl_audio_tpu_torch.config import config_from_args
+    from ssl_audio_tpu_torch.train.loop import Trainer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        lines = []
+        cfg = config_from_args(["--dataset", "synthetic_wav", "--epochs", "1",
+                                "--synthetic_steps_per_epoch", "11", "--seed", str(seed),
+                                "--profile_dir", tmp])
+        Trainer(cfg, log=lines.append).train_one_epoch(1)
+        (path,) = glob.glob(os.path.join(tmp, "*.json"))
+        text = open(path).read()
+        names = {k: k in text for k in ("log_mel_kernel", "fused_conv1_fwd_kernel",
+                                        "fused_conv1_bwd_kernel")}
+        rec = {"trace": os.path.basename(path), "bytes": len(text), "names": names,
+               "said": [line for line in lines if "trace" in line]}
+    print(f"  --profile_dir: {json.dumps(rec)}")
+    if not all(names.values()):
+        raise SystemExit(f"the --profile_dir trace misses kernels: {names}")
+    return rec
+
+
+def phase_graphs(seed: int, smi: str) -> dict:
+    """Phase 12: --steps_per_dispatch as CUDA graphs through the Trainer."""
+    import gc
+
+    from ssl_audio_tpu_torch.train.loop import token_drop_len_keep
+    from ssl_audio_tpu_torch.utils.schedules import sine_scheduler_increase
+
+    print(f"phase 12: --steps_per_dispatch {DISPATCH}, a window of steps as one CUDA graph, "
+          "against one step a dispatch; full width, batch 128, raw 10-s clips in")
+    sched = sine_scheduler_increase(0.3, 4, SCHEDULE_STEPS)
+    keys = [token_drop_len_keep(VIT_TOKENS - 1, r) for r in
+            sched[(SCHEDULE_EPOCH - 1) * SCHEDULE_STEPS:SCHEDULE_EPOCH * SCHEDULE_STEPS]]
+    if keys != SCHEDULE_KEYS:
+        raise SystemExit(f"(e): the schedule's len_keep per step is {keys}")
+    out = {"launches": {}, "card": smi}
+    for name, (flags, per_step, timed) in GRAPH_CONFIGS.items():
+        out[name] = graphs_vs_eager(name, flags, per_step, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if timed:
+            out[name]["time"] = graphed_vs_eager_time(name, flags, per_step, seed, smi)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["launches"][f"graph_{name}"] = counts_with(**{
+            k: v // DISPATCH for k, v in out[name]["launches_per_replay"].items()})
+    out["profile_dir"] = profile_dir_trace(seed)
     return out
 
 
@@ -2359,6 +2652,9 @@ def main() -> int:
     t10 = time.perf_counter()
     disk = phase_disk(args.seed, dev, smi, training["ms_per_step_median"])
     print(f"  phase 10: {time.perf_counter() - t10:.1f} s")
+    t12 = time.perf_counter()
+    graphs = phase_graphs(args.seed, smi)
+    print(f"  phase 12: {time.perf_counter() - t12:.1f} s")
     next(k for k in kernels if k["name"] == "log_mel_folded")["converter_shape"] = \
         disk["convert_mel_row"]
     # launches on the main paths, per path (timestamp request, scene request,
@@ -2376,7 +2672,7 @@ def main() -> int:
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
                **evaluation["launches"], **pretraining["launches"], **disk["launches"],
-               **bf16["launches"]}
+               **bf16["launches"], **graphs["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -13,8 +13,9 @@ drew.  The random entry points (`random_resize_crop`, `mixup_byola`,
     whose taps are clamped to the crop; products in fp32 (TF32 is off for
     matmul by default, and stays off here).
   * mixup_byola: mixing with a random entry of a FIFO memory bank in the
-    linear-power domain.  The bank is a ring buffer on the device and is
-    written IN PLACE (the JAX package returns a new state).
+    linear-power domain.  The bank is a ring buffer on the device, its count
+    and write position device tensors, all written IN PLACE (the JAX
+    package returns a new state).
   * random_linear_fader, mix_gaussian_noise, normalize_batch (unbiased std
     over axes (0, 2, 3)), running_norm.
 """
@@ -129,24 +130,30 @@ def random_resize_crop(gen: torch.Generator, lms: torch.Tensor,
 @dataclass
 class MixupState:
     """FIFO memory bank of past (pre-augmentation) log-mels: bank
-    (n_memory, C, F, T), count = valid entries, pos = next write position.
-    count and pos are host integers: they advance by the batch size, so
-    nothing is ever read back from the device for them."""
+    (n_memory, C, F, T), count = valid entries, pos = next write position,
+    both 0-d int32 tensors on the bank's device (JAX's MixupState), updated
+    in place, so a step captured in a CUDA graph advances them at every
+    replay and nothing is read back to the host.  A checkpoint holds them as
+    ints."""
     bank: torch.Tensor
-    count: int = 0
-    pos: int = 0
+    count: torch.Tensor
+    pos: torch.Tensor
 
     def state_dict(self) -> dict:
-        return {"bank": self.bank, "count": self.count, "pos": self.pos}
+        return {"bank": self.bank, "count": int(self.count), "pos": int(self.pos)}
 
     def load_state_dict(self, sd: dict) -> None:
-        """Copies the bank into this state's tensor (its device stays)."""
+        """Copies the bank, count and pos into this state's tensors (their
+        device stays)."""
         self.bank.copy_(sd["bank"])
-        self.count, self.pos = int(sd["count"]), int(sd["pos"])
+        self.count.fill_(int(sd["count"]))
+        self.pos.fill_(int(sd["pos"]))
 
 
 def init_mixup_state(n_memory: int, shape, device=None) -> MixupState:
-    return MixupState(bank=torch.zeros(n_memory, *shape, device=device))
+    return MixupState(bank=torch.zeros(n_memory, *shape, device=device),
+                      count=torch.zeros((), dtype=torch.int32, device=device),
+                      pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def log_mixup_exp(xa: torch.Tensor, xb: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -154,28 +161,35 @@ def log_mixup_exp(xa: torch.Tensor, xb: torch.Tensor, alpha: torch.Tensor) -> to
     return torch.log(x + TORCH_EPS)
 
 
-def draw_mixup(gen: torch.Generator, B: int, count: int, ratio: float = 0.2,
+def bank_index(u: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """floor(u * max(count, 1)): a bank entry ~ U{0, count - 1} per sample
+    (0 when the bank is empty, where the mix is not used)."""
+    return torch.floor(u * count.clamp(min=1)).long()
+
+
+def draw_mixup(gen: torch.Generator, B: int, count: torch.Tensor, ratio: float = 0.2,
                device=None):
     """(alpha (B, 1, 1, 1) = ratio * U(0, 1), idx (B,) ~ U{0, count - 1})."""
     alpha = ratio * torch.rand(B, 1, 1, 1, generator=gen, device=device)
     u = torch.rand(B, generator=gen, device=device)
-    return alpha, torch.floor(u * max(count, 1)).long()
+    return alpha, bank_index(u, count)
 
 
 def apply_mixup(x: torch.Tensor, state: MixupState, alpha: torch.Tensor,
                 idx: torch.Tensor, update_bank: bool = True) -> torch.Tensor:
     """mixed_i = log((1 - a_i) e^{x_i} + a_i e^{bank[idx_i]} + eps); an empty
-    bank passes x through.  With update_bank the batch is then written into
-    the ring buffer, in place."""
-    out = log_mixup_exp(x, state.bank[idx], 1.0 - alpha) if state.count > 0 else x
+    bank passes x through (JAX's where(count > 0, mixed, x)).  With
+    update_bank the batch is then written into the ring buffer at rows
+    (pos + arange(B)) % n, in place."""
+    out = torch.where(state.count > 0, log_mixup_exp(x, state.bank[idx], 1.0 - alpha), x)
     if update_bank:
         n, B = state.bank.shape[0], x.shape[0]
         if B > n:
             raise ValueError(f"batch {B} larger than the mixup bank {n}")
         rows = (state.pos + torch.arange(B, device=x.device)) % n
         state.bank[rows] = x.detach().to(state.bank.dtype)
-        state.count = min(state.count + B, n)
-        state.pos = (state.pos + B) % n
+        state.count.copy_(torch.clamp(state.count + B, max=n))
+        state.pos.copy_((state.pos + B) % n)
     return out
 
 
@@ -236,32 +250,38 @@ def normalize_batch(x: torch.Tensor, dim=(0, 2, 3)) -> torch.Tensor:
 class RunningNormState:
     mu: torch.Tensor          # mean, the shape of one reduced sample
     s2: torch.Tensor          # running mean of the squared deviation
-    n: int = 0                # updates so far
+    n: torch.Tensor           # updates so far: a 0-d int32 tensor on mu's device
 
     def state_dict(self) -> dict:
-        return {"mu": self.mu, "s2": self.s2, "n": self.n}
+        return {"mu": self.mu, "s2": self.s2, "n": int(self.n)}
 
     def load_state_dict(self, sd: dict) -> None:
-        device = self.mu.device
-        self.mu, self.s2 = sd["mu"].to(device), sd["s2"].to(device)
-        self.n = int(sd["n"])
+        """Copies into this state's tensors, in place (their device stays)."""
+        self.mu.copy_(sd["mu"])
+        self.s2.copy_(sd["s2"])
+        self.n.fill_(int(sd["n"]))
 
 
 def init_running_norm_state(shape, device=None) -> RunningNormState:
     z = torch.zeros(*shape, device=device)
-    return RunningNormState(mu=z, s2=z.clone())
+    return RunningNormState(mu=z, s2=z.clone(),
+                            n=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def running_norm(x: torch.Tensor, state: RunningNormState, max_update: int,
                  dim=(1, 2)) -> torch.Tensor:
     """The reference's RunningNorm, its off-by-one incremental mean included
-    (mu += (m - mu) / n with n incremented afterwards).  Updates `state` in
-    place."""
-    if state.n < max_update:
-        m = x.mean(dim=dim, keepdim=True)
-        mu = m if state.n == 0 else state.mu + (m - state.mu) / state.n
-        d2 = ((x - mu) ** 2).mean(dim=dim, keepdim=True)
-        s2 = d2 if state.n == 0 else state.s2 + (d2 - state.s2) / state.n
-        state.mu, state.s2, state.n = mu.detach(), s2.detach(), state.n + 1
+    (mu += (m - mu) / n with n incremented afterwards), frozen after
+    max_update updates.  Updates `state` in place, on the device: every
+    branch is a select, so a captured step updates it at every replay."""
+    m = x.mean(dim=dim, keepdim=True)
+    first, n = state.n == 0, state.n.clamp(min=1).float()
+    mu = torch.where(first, m, state.mu + (m - state.mu) / n)
+    d2 = ((x - mu) ** 2).mean(dim=dim, keepdim=True)
+    s2 = torch.where(first, d2, state.s2 + (d2 - state.s2) / n)
+    update = state.n < max_update
+    state.mu.copy_(torch.where(update, mu, state.mu))
+    state.s2.copy_(torch.where(update, s2, state.s2))
+    state.n.add_(update.to(state.n.dtype))
     std = torch.sqrt(state.s2).clamp_min(TORCH_EPS)
     return (x - state.mu) / std

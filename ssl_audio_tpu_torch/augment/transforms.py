@@ -111,8 +111,8 @@ def _global_view(x: torch.Tensor, state: AugmentState, cfg, d: GlobalDraws,
     out = x
     if cfg.mixup:
         alpha, u = d.mix
-        idx = torch.floor(u * max(state.mixup.count, 1)).long()
-        out = A.apply_mixup(out, state.mixup, alpha, idx, update_bank)
+        out = A.apply_mixup(out, state.mixup, alpha, A.bank_index(u, state.mixup.count),
+                            update_bank)
     if cfg.Gnoise:
         out = A.apply_gaussian_noise(out, *d.noise)
     if cfg.RRC:

@@ -215,8 +215,6 @@ def unsupported_settings(cfg: Config) -> List[str]:
         bad.append(f"--dataset {cfg.dataset} (ported: {', '.join(PORTED_DATASETS)})")
     for flag, on, what in (
             ("--squeeze_excitation", cfg.squeeze_excitation, "SE blocks"),
-            ("--steps_per_dispatch > 1", cfg.steps_per_dispatch != 1, "multi-step dispatch"),
-            ("--profile_dir", bool(cfg.profile_dir), "the loop's profiler trace"),
             ("--distributed", cfg.distributed, "data-parallel training"),
             ("--data_axis_size", cfg.data_axis_size not in (0, 1), "data-parallel training"),
             ("--model_parallel > 1", cfg.model_parallel != 1, "tensor parallelism"),

@@ -17,7 +17,8 @@ A failed build of the C++ readers raises; nothing falls back to Python.
 Given a CUDA `device`, batches are pinned host tensors from a ring of
 prefetch + 2 slots, and the C++ readers write straight into them: the
 consumer copies each to the card with non_blocking=True before it asks for
-the next batch.  When it asks, the loader records an event on the current
+the next batch (the Trainer at --steps_per_dispatch N > 1: into its slot of
+the CUDA graph's batch buffer).  When it asks, the loader records an event on the current
 stream of the device after that copy, and the producer waits on a slot's
 event before it writes that slot again.  Otherwise batches are numpy arrays
 and nothing is pinned.  Labels are numpy arrays on every path.

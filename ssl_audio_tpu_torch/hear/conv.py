@@ -46,6 +46,7 @@ class ConvModelWrapper:
     def __init__(self, cfg, model_type: str, model_file_path: str,
                  fast_mel: bool = False, fetch_dtype: str = "float32",
                  fused_conv: bool | None = None,
+                 pool_reorder: bool | None = None,
                  compute_dtype: str = "float32", device=None):
         if model_type != "audiontt":
             raise NotImplementedError(
@@ -62,6 +63,10 @@ class ConvModelWrapper:
         self.fast_mel = fast_mel
         self.fetch_dtype = fetch_dtype
         self.compute_dtype = compute_dtype
+        # pool_reorder selects the JAX package's eval order of block 2 (pool
+        # before BN, an XLA-level choice); both orders compute the same
+        # embeddings to fp32 rounding, and the port runs the plain one
+        self.pool_reorder = bool(pool_reorder)
         self.model = AudioNTT2022(n_mels=cfg.n_mels, fused_conv=bool(fused_conv))
         self.embed_dim = self.model.embed_dim
         self.scene_embedding_size = self.embed_dim
@@ -104,16 +109,16 @@ class ConvModelWrapper:
 def load_model(model_file_path: str = "", model_type: str = "audiontt",
                cfg_path: str = "hear/config.yaml", fast_mel: bool = False,
                fetch_dtype: str = "float32", fused_conv: bool | None = None,
-               compute_dtype: str = "float32", device=None) -> ConvModelWrapper:
-    """The JAX load_model's arguments (less the XLA-only pool_reorder)
-    plus `device`: "cuda" by default, and with no card it raises unless
+               pool_reorder: bool | None = None, compute_dtype: str = "float32",
+               device=None) -> ConvModelWrapper:
+    """The JAX load_model's arguments, in its order, plus `device`: "cuda" by default, and with no card it raises unless
     device="cpu".  An empty model_file_path gives random weights from a
     generator seeded with 0."""
     cfg = utils.load_config(cfg_path)
     return ConvModelWrapper(cfg, model_type, model_file_path,
                             fast_mel=fast_mel, fetch_dtype=fetch_dtype,
-                            fused_conv=fused_conv, compute_dtype=compute_dtype,
-                            device=device)
+                            fused_conv=fused_conv, pool_reorder=pool_reorder,
+                            compute_dtype=compute_dtype, device=device)
 
 
 def get_timestamp_embeddings(

@@ -20,7 +20,10 @@ and `hear.vit.load_model(path, model_type, ...)` (the ViT family), and is
 probed by `python -m ssl_audio_tpu_torch.linear`.  The per-epoch FSD50K
 probe (every `--epoch_eval_f` epochs and at the last one) reads
 `data/FSD50K`: without it the run says "Epoch eval disabled" and trains on,
-as the JAX main does.
+as the JAX main does.  `--steps_per_dispatch N` takes N steps a dispatch,
+one CUDA graph per window on the card (eager windows with `--device cpu`);
+`--profile_dir DIR` writes a torch.profiler trace of steps 10-20 of the
+first epoch into DIR (at one step a dispatch only, as in JAX).
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ def main(argv=None):
     trainer = Trainer(cfg, log_dir=log_dir, wandb_run=wandb_run)
     print(f"training {cfg.model_type} on {cfg.dataset}: {cfg.epochs} epochs x "
           f"{trainer.niter_per_ep} steps, batch {cfg.batch_size}, {cfg.optimizer}, "
+          f"{cfg.steps_per_dispatch} step(s) a dispatch, "
           f"device {trainer.device}, encoder compute {'bfloat16' if cfg.use_fp16 else 'float32'}"
           f" (probe {'bfloat16' if cfg.use_fp16_eval else 'float32'}); "
           f"checkpoints in {ckpt_path}, log in {log_dir}")

@@ -205,14 +205,20 @@ class Block(nn.Module):
         return x + self.drop_path(self.mlp(self.norm2(x)), k1)
 
 
-def len_keep_for(length: int, mask_ratio) -> int:
-    """floor(L * (1 - r)) in fp32, as the JAX package computes it."""
+def len_keep_for(length: int, mask_ratio):
+    """floor(L * (1 - r)) in fp32, as the JAX package computes it: an int
+    for a number; for a 0-d tensor ratio (a step's ratio in a CUDA graph,
+    JAX's traced ratio) a 0-d int64 tensor on its device, by the same fp32
+    operations, so nothing is read back to the host."""
+    if torch.is_tensor(mask_ratio):
+        return torch.floor(length * (1.0 - mask_ratio.float())).long()
     return int(np.floor(np.float32(length) * (np.float32(1.0) - np.float32(mask_ratio))))
 
 
 def random_token_mask(noise: torch.Tensor, mask_ratio) -> torch.Tensor:
     """Per-sample binary mask (1 = removed) from uniform noise (B, L): rank
-    the tokens by noise and remove the ranks >= floor(L * (1 - r))."""
+    the tokens by noise and remove the ranks >= floor(L * (1 - r)).  The
+    ratio is a number or a 0-d tensor."""
     ranks = torch.argsort(torch.argsort(noise, dim=1, stable=True), dim=1, stable=True)
     return (ranks >= len_keep_for(noise.shape[1], mask_ratio)).float()
 
@@ -355,7 +361,8 @@ class MaskedAutoencoderViT(nn.Module):
         """-> (tokens with CLS, mask (B, L) 1 = removed, key_bias, ids_keep).
         Token drop when `len_keep` (an int, 0 <= len_keep < L) is given and
         `mask` is not; else key-bias masking, with `mask`, or a mask from
-        `noise` at `mask_ratio` (none at a Python 0)."""
+        `noise` at `mask_ratio` (a number, none at a Python 0, or a 0-d
+        tensor)."""
         B, _, Fr, T = x.shape
         tokens = self.patch_embed(x)
         L = tokens.shape[1]

@@ -5,7 +5,10 @@ position tables (pos_embed.py), and the nvcc build and ctypes binding of the
 kernels (_build.py).  Each kernel wrapper counts its launches, the fp32 and
 the bf16 instantiations apart (`launches`, `launches_bf16`; the log-mel
 kernel is fp32 only); launch_counts() reads every counter, the bf16 ones
-under "<name>_bf16", and zero_launch_counts() resets them."""
+under "<name>_bf16", and zero_launch_counts() resets them.  A CUDA graph's
+capture runs the wrappers but no kernel: train/steps.py takes the counts its
+capture saw back off (set_launch_counts) and adds them at every replay
+(add_launch_counts)."""
 from __future__ import annotations
 
 import torch
@@ -42,10 +45,21 @@ def launch_counts() -> dict[str, int]:
             **{f"{name}_bf16": wrapper.launches_bf16 for name, wrapper in counted.items()}}
 
 
-def zero_launch_counts() -> None:
+def set_launch_counts(counts: dict[str, int]) -> None:
+    """Every counter to its value in `counts` (launch_counts()'s keys)."""
     from ssl_audio_tpu_torch.ops.mel_kernel import log_mel_cuda
 
     for key in log_mel_cuda.launches:
-        log_mel_cuda.launches[key] = 0
-    for wrapper in _counted().values():
-        wrapper.launches = wrapper.launches_bf16 = 0
+        log_mel_cuda.launches[key] = counts[f"log_mel_{key}"]
+    for name, wrapper in _counted().items():
+        wrapper.launches = counts[name]
+        wrapper.launches_bf16 = counts[f"{name}_bf16"]
+
+
+def add_launch_counts(delta: dict[str, int]) -> None:
+    now = launch_counts()
+    set_launch_counts({k: now[k] + delta[k] for k in now})
+
+
+def zero_launch_counts() -> None:
+    set_launch_counts(dict.fromkeys(launch_counts(), 0))

@@ -126,7 +126,9 @@ def dtype_code(t: torch.Tensor, name: str) -> int:
 
 def count_launch(wrapper, dtype: torch.dtype) -> None:
     """One more launch on a kernel wrapper's counter for `dtype`'s
-    instantiation: `launches_bf16` for bfloat16, `launches` for float32."""
+    instantiation: `launches_bf16` for bfloat16, `launches` for float32.
+    Inside a CUDA graph's capture nothing launches: train/steps.py takes the
+    capture's counts back off and adds them at every replay."""
     if dtype == torch.bfloat16:
         wrapper.launches_bf16 += 1
     else:

@@ -197,6 +197,29 @@ def short_kernel_name(name: str) -> str:
     return re.match(r"(?:void\s+)?([\w:]*)", name).group(1) or name
 
 
+# the port's kernels by the launch counter of their wrapper (ops.launch_counts)
+_COUNTERS = (("log_mel_kernel<true", "log_mel_folded"), ("log_mel_kernel<false", "log_mel_unfolded"),
+             ("fused_conv1_fwd_kernel<", "fused_conv1_fwd"),
+             ("fused_conv1_bwd_kernel<", "fused_conv1_bwd"),
+             ("fused_conv1_dx_kernel", "fused_conv1_dx"),
+             ("fused_attention_fwd_kernel<", "fused_attention_fwd"),
+             ("fused_attention_bwd_kernel<", "fused_attention_bwd"))
+
+
+def launches_seen(calls_by_kernel: dict) -> dict[str, int]:
+    """The port's kernel launches among a profile's kernel events (kernel
+    name -> calls), under ops.launch_counts()'s keys: what the device ran,
+    to hold the wrappers' counters against."""
+    out: dict[str, int] = {}
+    for name, calls in calls_by_kernel.items():
+        for pattern, counter in _COUNTERS:
+            if pattern in name:
+                args = name[name.index(pattern) + len(pattern):].split(">")[0]
+                key = counter + ("_bf16" if "bfloat16" in args else "")
+                out[key] = out.get(key, 0) + calls
+    return out
+
+
 def per_launch_ms(fn) -> dict:
     """Device ms of each kernel one call of fn launches, by short name
     (torch.profiler, after one call outside the trace)."""
@@ -210,9 +233,9 @@ def per_launch_ms(fn) -> dict:
 
 def profile(fn) -> dict:
     """Wall ms of one call of fn (ending in a synchronise), device ms by
-    kernel name, the device's idle share and the host's own ms by operation
-    (CPU self time: where the host spends a host-bound call), from
-    torch.profiler."""
+    kernel name, the device's idle share, the host's own ms by operation
+    (CPU self time: where the host spends a host-bound call) and the port's
+    kernel launches the device ran (launches_seen), from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     torch.cuda.synchronize()
@@ -221,7 +244,7 @@ def profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_kernel, host = {}, {}
+    by_kernel, calls, host = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0:
             host[e.key] = e.self_cpu_time_total / 1e3
@@ -230,13 +253,14 @@ def profile(fn) -> dict:
         if dev_us > 0 and e.device_type == torch.autograd.DeviceType.CUDA \
                 and not getattr(e, "is_user_annotation", False):
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + dev_us / 1e3
+            calls[e.key] = calls.get(e.key, 0) + e.count
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])
     top_host = sorted(host.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
             "device_ms_by_kernel": dict(top[:15]),
-            "host_self_ms_by_op": dict(top_host[:12])}
+            "host_self_ms_by_op": dict(top_host[:12]), "launches_seen": launches_seen(calls)}
 
 
 def main() -> int:

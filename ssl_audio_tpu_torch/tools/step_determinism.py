@@ -2,11 +2,14 @@
 card, and if not, where the two runs part.
 
     python3 -m ssl_audio_tpu_torch.tools.step_determinism [--steps 3]
-        [--model_type vit_base --fused_attention]
+        [--model_type vit_base --fused_attention] [--small]
+        [--steps_per_dispatch 4]
 
 Two train states with the same seeded weights (tools/train_profile.py's
 setup: the default configuration at full width, batch 128 of seeded 10-s
-clips resident on the card) take --steps steps side by side on the same
+clips resident on the card; with --small the card tests' shapes, SMALL:
+batch 8 of 1-s clips, 32 frames, projector 256, a ring of 16) take --steps
+steps side by side on the same
 clips with the same random draws (drawn once per step on a host generator).
 Before the first step the views (frontend, crop and augmentations) are made
 twice from copies of the augmentation state and compared; after each step
@@ -18,6 +21,20 @@ name the operations that have no deterministic implementation.  One JSON
 line per setting: the first step at which the runs differ, the gradient
 tensors that differ at that step with their largest absolute difference,
 and the warnings.  The package itself never turns these settings on.
+
+With --steps_per_dispatch N it holds the CUDA graph of a window against N
+eager steps instead: states from the same seed, each with a device
+generator seeded alike, one taking N eager steps at a time, a twin taking
+the same eager steps (the spread of two eager runs), the other
+windows of N steps through train/steps.py make_multi_train_step (a warm-up
+window, the capture, then replays; --steps rounded up to whole windows, at
+least 3), compared after every window: the
+losses, every tensor of the train state (parameters, running statistics,
+optimizer state, LR counter, mixup ring) and the generators' states.  One
+JSON line: the first window at which they differ and the tensors that
+differ there, largest gap first (the earliest part of the step among them
+names where the two part); at the end, the graph's and the twin's largest
+loss and state gaps against the eager state.
 """
 from __future__ import annotations
 
@@ -30,6 +47,10 @@ import torch
 
 from ssl_audio_tpu_torch.tools.serving import seeded_clips, smi_line
 from ssl_audio_tpu_torch.tools.train_profile import CLIP_SECONDS, seeded_training
+
+# --small: the shapes of the card tests' graph-against-eager comparisons
+SMALL = dict(batch_size=8, crop_frames=32, projector_hidden_dim=256, mixup_n_memory=16)
+SMALL_CLIP_SAMPLES = 16000
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -54,6 +75,74 @@ def view_gaps(cfg, state, wavs, draws) -> list:
             runs.append(apply_pair_views(frontend(wavs, draws.starts), copy.deepcopy(state.aug),
                                          cfg, draws.views))
     return [max_abs(a, b) for a, b in zip(*runs)]
+
+
+def flat_tensors(tree, prefix: str = "") -> dict:
+    """{dotted path: tensor} of every tensor in nested dicts and lists."""
+    if torch.is_tensor(tree):
+        return {prefix: tree}
+    items = tree.items() if isinstance(tree, dict) else \
+        enumerate(tree) if isinstance(tree, (list, tuple)) else ()
+    out = {}
+    for k, v in items:
+        out.update(flat_tensors(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def train_state_tensors(state) -> dict:
+    """Every tensor a step updates, by name, with the LR counter and the
+    mixup ring's device counters."""
+    out = flat_tensors(state.state_dict())
+    out["lr_counter"] = state.lr_schedule.counter
+    if state.aug.mixup is not None:
+        out["mixup.count"], out["mixup.pos"] = state.aug.mixup.count, state.aug.mixup.pos
+    return out
+
+
+def _max_loss_gap(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def run_graphed(seed: int, n: int, windows: int, dev, wavs, overrides: dict) -> dict:
+    """A state taking windows through the graph against one taking the same
+    steps eagerly, and a second eager state beside them (the twin): where
+    the card's algorithms part two eager runs, the twin's gaps are the yard
+    for the graph's."""
+    from ssl_audio_tpu_torch.tools.train_profile import window_runner
+
+    cfg, eager, step, gen_eager = seeded_training(seed, dev, **overrides)
+    _, twin, _, gen_twin = seeded_training(seed, dev, **overrides)
+    _, graphed, _, gen_graphed = seeded_training(seed, dev, **overrides)
+    run_window, multi = window_runner(cfg, graphed, gen_graphed, wavs, n)
+    out = {"setting": f"graphed windows of {n} against eager steps", "windows": windows,
+           "first_difference": None, "losses": []}
+    for w in range(windows):
+        losses = [float(step(eager, wavs, gen=gen_eager)["loss"]) for _ in range(n)]
+        twin_losses = [float(step(twin, wavs, gen=gen_twin)["loss"]) for _ in range(n)]
+        graphed_losses = [float(v) for v in run_window()["loss"]]
+        out["losses"].append({"eager": losses, "graphed": graphed_losses, "twin": twin_losses,
+                              "mode": "eager warm-up" if w == 0 else "graph"})
+        gaps = tensor_gaps(train_state_tensors(graphed), train_state_tensors(eager))
+        same_gen = torch.equal(gen_graphed.get_state(), gen_eager.get_state())
+        if (gaps or not same_gen or losses != graphed_losses) \
+                and out["first_difference"] is None:
+            out["first_difference"] = {
+                "window": w + 1, "losses_equal": losses == graphed_losses,
+                "generators_equal": same_gen, "tensors_differing": len(gaps),
+                "gaps_largest_first": sorted(gaps.items(), key=lambda kv: -kv[1])[:16]}
+    out["graphs"] = {str(k): {"capture_s": v.capture_s, "launches_per_replay":
+                              {c: n for c, n in v.launches.items() if n}}
+                     for k, v in multi.graphs.items()}
+    final = {}
+    for name, other, gen in (("graphed", graphed, gen_graphed), ("twin", twin, gen_twin)):
+        gaps = tensor_gaps(train_state_tensors(other), train_state_tensors(eager))
+        final[name] = {
+            "max_loss_rel_gap": max(_max_loss_gap(w[name], w["eager"]) for w in out["losses"]),
+            "generators_equal": torch.equal(gen.get_state(), gen_eager.get_state()),
+            "max_state_gap": max(gaps.values(), default=0.0),
+            "gaps_largest_first": sorted(gaps.items(), key=lambda kv: -kv[1])}
+    out["final"] = final
+    return out
 
 
 def run_setting(name: str, seed: int, steps: int, dev, wavs, overrides: dict) -> dict:
@@ -99,16 +188,25 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model_type", default="audiontt")
     ap.add_argument("--fused_attention", action="store_true")
+    ap.add_argument("--small", action="store_true")
+    ap.add_argument("--steps_per_dispatch", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this is a measurement of the card")
     dev = torch.device("cuda")
-    overrides = {}
+    overrides = dict(SMALL) if args.small else {}
     if args.model_type != "audiontt":
-        overrides = dict(model_type=args.model_type, fused_attention=args.fused_attention)
-    wavs = seeded_clips(torch.Generator().manual_seed(args.seed), 128,
-                        CLIP_SECONDS * 16000).to(dev)
+        overrides.update(model_type=args.model_type, fused_attention=args.fused_attention)
+    batch, samples = (SMALL["batch_size"], SMALL_CLIP_SAMPLES) if args.small else \
+        (128, CLIP_SECONDS * 16000)
+    wavs = seeded_clips(torch.Generator().manual_seed(args.seed), batch, samples).to(dev)
     print(smi_line())
+    if args.steps_per_dispatch > 1:
+        n = args.steps_per_dispatch
+        print(json.dumps({"model_type": args.model_type, **overrides,
+                          **run_graphed(args.seed, n, max(-(-args.steps // n), 3),
+                                        dev, wavs, overrides)}))
+        return 0
     settings = (("default", lambda: None),
                 ("cudnn_deterministic",
                  lambda: setattr(torch.backends.cudnn, "deterministic", True)),

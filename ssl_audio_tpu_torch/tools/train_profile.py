@@ -4,6 +4,7 @@ of its step on the card.
     python3 -m ssl_audio_tpu_torch.tools.train_profile [--seed 0] [--steps 10]
         [--model_type vit_base [--fused_attention] [--mask_ratio 0.75 [--token_drop]]]
         [--dataset synthetic_multicue] [--optimizer Adam --lr 1e-3] [--loop 30]
+        [--steps_per_dispatch 4]
 
 Builds a pretraining configuration at full width with weights drawn from a
 seed, and one batch of 128 seeded 10-s clips resident on the card: by
@@ -72,6 +73,36 @@ class CachedItems:
         return self.items[idx]
 
 
+def window_runner(cfg, state, gen, wavs: torch.Tensor, n_steps: int, ratios=None,
+                  len_keep=None):
+    """-> (run_window, multi_step): run_window() takes one window of n_steps
+    steps on the resident batch `wavs` (raw wav when cfg's dataset is a wav
+    one) through make_multi_train_step, every step on the same batch (copied
+    once into each of the graph's batch slots), with the teacher's mask
+    ratios `ratios` (n_steps,) and the window's len_keep.  On the card its
+    first call runs the window eagerly, its second captures the graph and
+    replays it, every later one replays it; it returns the window's
+    metrics."""
+    from ssl_audio_tpu_torch.train.steps import (
+        init_monitor,
+        make_device_frontend,
+        make_multi_train_step,
+    )
+
+    frontend = make_device_frontend(cfg, (0.0, 1.0)) if cfg.dataset.endswith("_wav") else None
+    multi = make_multi_train_step(cfg, n_steps, frontend=frontend)
+    batches = multi.inputs(tuple(wavs.shape), wavs.device) if wavs.is_cuda else \
+        torch.empty(n_steps, *wavs.shape)
+    batches.copy_(wavs.expand(n_steps, *wavs.shape))
+    ratios = np.zeros(n_steps, np.float32) if ratios is None else np.asarray(ratios, np.float32)
+
+    def run_window():
+        return multi(state, batches, ratios, init_monitor(wavs.device), len_keep=len_keep,
+                     gen=gen)[0]
+
+    return run_window, multi
+
+
 def step_wall_ms(run_step, steps: int) -> list[float]:
     """Host-clock milliseconds of `steps` calls, each ending in a synchronise."""
     times = []
@@ -98,6 +129,7 @@ def main() -> int:
     ap.add_argument("--lr", type=float, default=None)
     ap.add_argument("--loop", type=int, default=0)
     ap.add_argument("--loop_cached", action="store_true")
+    ap.add_argument("--steps_per_dispatch", type=int, default=1)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the profile is a device measurement")
@@ -106,6 +138,8 @@ def main() -> int:
     overrides = dict(dataset=args.dataset, optimizer=args.optimizer, lr=args.lr)
     if args.model_type != "audiontt":
         overrides.update(model_type=args.model_type, fused_attention=args.fused_attention)
+    if args.mask_ratio > 0:
+        overrides.update(mask=True, mask_ratio=args.mask_ratio, token_drop=args.token_drop)
     cfg, state, step, gen = seeded_training(args.seed, dev, **overrides)
     if args.dataset == "synthetic_wav":
         wavs = seeded_clips(torch.Generator().manual_seed(args.seed), cfg.batch_size,
@@ -126,7 +160,9 @@ def main() -> int:
 
     for _ in range(2):                          # warm-up: kernel build, cuDNN plans
         run_step()
+    torch.cuda.reset_peak_memory_stats()
     times = step_wall_ms(run_step, args.steps)
+    eager_peak = torch.cuda.max_memory_allocated()
     median = statistics.median(times)
     print(json.dumps({"what": "train step", "model_type": cfg.model_type,
                       "dataset": cfg.dataset, "optimizer": cfg.optimizer,
@@ -134,11 +170,32 @@ def main() -> int:
                       "batch": cfg.batch_size, "card": smi,
                       "steps": args.steps, "ms_per_step_median": median,
                       "ms_per_step_min": min(times), "ms_per_step_max": max(times),
-                      "clips_per_s": cfg.batch_size / median * 1e3}))
+                      "clips_per_s": cfg.batch_size / median * 1e3,
+                      "peak_memory_bytes": eager_peak}))
     zero_launch_counts()
     prof = profile(run_step)
     print(json.dumps({"what": "train step profile", "card": smi,
                       "launches": launch_counts(), **prof}))
+    if args.steps_per_dispatch > 1:
+        n = args.steps_per_dispatch
+        run_window, multi = window_runner(cfg, state, gen, wavs, n,
+                                          [args.mask_ratio] * n, masking.get("len_keep"))
+        torch.cuda.reset_peak_memory_stats()
+        run_window()                            # eagerly: the graph's warm-up
+        run_window()                            # capture, then the first replay
+        windows = step_wall_ms(run_window, max(args.steps // n, 1))
+        per_step = [t / n for t in windows]
+        zero_launch_counts()
+        prof = profile(run_window)
+        print(json.dumps({"what": f"graphed train steps ({n} a window)", "card": smi,
+                          "windows": len(windows),
+                          "ms_per_step_median": statistics.median(per_step),
+                          "ms_per_step_min": min(per_step), "ms_per_step_max": max(per_step),
+                          "clips_per_s": cfg.batch_size / statistics.median(per_step) * 1e3,
+                          "capture_s": next(iter(multi.graphs.values())).capture_s,
+                          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                          "eager_peak_memory_bytes": eager_peak,
+                          "launches_per_replay": launch_counts(), **prof}))
     if args.loop:
         from ssl_audio_tpu_torch.train.loop import Trainer
 

@@ -7,11 +7,13 @@ under `data_dir` as the JAX Trainer does), Trainer, train_one_epoch (each
 batch copied to the card from the loader's pinned slots with
 non_blocking=True), fit (checkpoints every epoch_save_f epochs and at the
 last, deterministic resume, eval_fn every epoch_eval_f epochs and at the
-last), the CSV log, and the ViT teacher's masking per step
+last), the CSV log, the ViT teacher's masking per step
 (mask_ratio_for_step: a fixed ratio, a random one, or the sine schedule;
-token drop with a static len_keep).  Not yet: the profiler trace and
-multi-step dispatch; their settings raise NotImplementedError
-(config.require_supported) when the Trainer is built.
+token drop with a static len_keep), --steps_per_dispatch N
+(_train_one_epoch_multi: windows of N steps through
+train/steps.py make_multi_train_step, a CUDA graph per window on the card)
+and --profile_dir (a torch.profiler trace of steps 10-20 of epoch 1, at
+--steps_per_dispatch 1 only, as in JAX).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from ssl_audio_tpu_torch.train.state import init_train_state, is_vit
 from ssl_audio_tpu_torch.train.steps import (
     init_monitor,
     make_device_frontend,
+    make_multi_train_step,
     make_train_step,
 )
 from ssl_audio_tpu_torch.utils import checkpoint as ckpt_lib
@@ -38,6 +41,8 @@ from ssl_audio_tpu_torch.utils.logging_utils import make_csv_logger
 from ssl_audio_tpu_torch.utils.schedules import sine_scheduler_increase
 
 LOG_EVERY = 50          # steps between fetches of the device-side monitor
+LOG_EVERY_DISPATCH = 10  # windows between fetches at --steps_per_dispatch > 1
+PROFILE_STEPS = (10, 20)  # --profile_dir traces these iterations of epoch 1
 
 
 class _ConcatDataset:
@@ -160,6 +165,11 @@ class Trainer:
             stats = D.NORM_STATS.get(cfg.dataset.split("+")[0].split("_")[0], (0.0, 1.0))
             frontend = make_device_frontend(cfg, stats)
         self.train_step = make_train_step(cfg, world_scale=1.0, frontend=frontend)
+        self.multi_step = None
+        if int(cfg.steps_per_dispatch) > 1:
+            self.multi_step = make_multi_train_step(cfg, int(cfg.steps_per_dispatch),
+                                                    world_scale=1.0, frontend=frontend)
+        self._profiler = None
         # the step's random numbers are drawn on the device
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.mask_schedule = None
@@ -190,20 +200,140 @@ class Trainer:
             sys.exit(1)
         return float(monitor["loss_sum"])
 
+    def _start_trace(self) -> None:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_trace(self, first: int, last: int) -> None:
+        """Stop the trace and write it: profile_dir/trace_steps_{first}-{last}.json
+        (chrome trace format), iterations first..last of epoch 1."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        path = os.path.join(self.cfg.profile_dir, f"trace_steps_{first}-{last}.json")
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        self.log(f"profiler trace written to {path}")
+
+    def _finish_epoch(self, epoch: int, monitor, t_data: float, t_step: float) -> float:
+        """The epoch-end fetch (it covers every step since the last one):
+        the mean loss over the epoch's steps, the epoch's log line."""
+        loss_sum = self._check_monitor(monitor)
+        n_steps = int(monitor["count"])
+        avg = loss_sum / max(n_steps, 1)
+        self.log(f"Epoch [{epoch}/{self.cfg.epochs}] loss={avg:.4f} "
+                 f"data_time={t_data:.1f}s step_time={t_step:.1f}s "
+                 f"({n_steps * self.cfg.batch_size / max(t_data + t_step, 1e-9):.0f} "
+                 f"samples/s) on {self.device}")
+        self.epoch_losses[epoch] = avg
+        self.epoch_times[epoch] = (t_data, t_step)
+        return avg
+
+    def _train_one_epoch_multi(self, epoch: int) -> float:
+        """--steps_per_dispatch N > 1 (JAX Trainer._train_one_epoch_multi):
+        windows of N steps through the multi step, the mask ratio per step
+        (drawn on the host per iteration), the token-drop len_keep once per
+        window from its first ratio, a window's last steps that do not fill
+        it (the epoch's tail) through the single step.  On the card each
+        batch is copied from the loader's pinned slot into the graph's
+        batch buffer as it arrives; the monitor is fetched every
+        LOG_EVERY_DISPATCH windows, with a CSV line of the window's mean
+        data and step times."""
+        cfg = self.cfg
+        spd = int(cfg.steps_per_dispatch)
+        self.loader.set_epoch(epoch)
+        if cfg.profile_dir and epoch == 1:
+            self.log("WARNING: --profile_dir is only supported with --steps_per_dispatch 1 "
+                     "(the trace brackets individual step dispatches); no trace will be "
+                     "captured.")
+        cuda = self.device.type == "cuda"
+        monitor = init_monitor(self.device)
+        t_data = t_step = win_data = win_step = 0.0
+        tflag = time.time()
+        buf, ratios = [], []
+        dispatches = 0
+
+        def flush(monitor):
+            nonlocal dispatches, win_data, win_step
+            len_keep = self._static_len_keep(ratios[0])
+            if len(ratios) == spd:
+                batches = buf[0] if cuda else torch.from_numpy(np.stack(buf))
+                metrics, monitor = self.multi_step(self.state, batches, ratios, monitor,
+                                                   len_keep=len_keep, gen=self.gen)
+                last_loss = metrics["loss"][-1]
+            else:       # the epoch's tail: single steps, the same math
+                for i, mr in enumerate(ratios):
+                    batch = buf[0][i] if cuda else torch.from_numpy(buf[i])
+                    metrics, monitor = self.train_step(self.state, batch, gen=self.gen,
+                                                       monitor=monitor, mask_ratio=mr,
+                                                       len_keep=len_keep)
+                last_loss = metrics["loss"]
+            dispatches += 1
+            if dispatches % LOG_EVERY_DISPATCH == 0:
+                self._check_monitor(monitor)
+                self._record("epoch,{},step,{},loss,{},data_time,{:.4f},step_time,{:.4f}".format(
+                    epoch, dispatches * spd, float(last_loss), win_data / LOG_EVERY_DISPATCH,
+                    win_step / LOG_EVERY_DISPATCH))
+                win_data = win_step = 0.0
+            return monitor
+
+        for it, (batch, _labels) in enumerate(self.loader):
+            dt_i = time.time() - tflag
+            t_data += dt_i
+            win_data += dt_i
+            iteration = self.niter_per_ep * (epoch - 1) + it
+            ratios.append(mask_ratio_for_step(cfg, self.mask_schedule, iteration,
+                                              self.host_rng))
+            tflag = time.time()
+            if cuda:
+                # into the graph's batch buffer from the loader's pinned slot:
+                # queued behind the last replay, not waited for
+                batch = torch.as_tensor(batch)
+                if not buf:
+                    buf.append(self.multi_step.inputs(tuple(batch.shape), self.device))
+                buf[0][len(ratios) - 1].copy_(batch, non_blocking=True)
+            else:
+                buf.append(batch)
+            if len(ratios) == spd:
+                monitor = flush(monitor)
+                buf, ratios = [], []
+            st_i = time.time() - tflag
+            t_step += st_i
+            win_step += st_i
+            tflag = time.time()
+        if ratios:
+            tflag = time.time()
+            monitor = flush(monitor)
+            t_step += time.time() - tflag
+        return self._finish_epoch(epoch, monitor, t_data, t_step)
+
     def train_one_epoch(self, epoch: int) -> float:
         cfg = self.cfg
+        if self.multi_step is not None:
+            return self._train_one_epoch_multi(epoch)
         self.loader.set_epoch(epoch)
         monitor = init_monitor(self.device)
         t_data = t_step = 0.0
         tflag = time.time()
+        first = min(PROFILE_STEPS[0], self.niter_per_ep - 1)
         for it, (batch, _labels) in enumerate(self.loader):
             dt_i = time.time() - tflag
             t_data += dt_i
+            iteration = self.niter_per_ep * (epoch - 1) + it
+            # --profile_dir: a torch.profiler trace of steps 10-20 of epoch 1
+            if cfg.profile_dir and epoch == 1:
+                if iteration == first:
+                    self._start_trace()
+                elif iteration == PROFILE_STEPS[1] and self._profiler is not None:
+                    self._stop_trace(first, iteration - 1)
             tflag = time.time()
             # from the loader's pinned slot on the card: queued, not waited for
             batch = torch.as_tensor(batch).to(self.device, non_blocking=True)
-            mask_ratio = mask_ratio_for_step(cfg, self.mask_schedule,
-                                             self.niter_per_ep * (epoch - 1) + it, self.host_rng)
+            mask_ratio = mask_ratio_for_step(cfg, self.mask_schedule, iteration, self.host_rng)
             metrics, monitor = self.train_step(self.state, batch, gen=self.gen,
                                                monitor=monitor, mask_ratio=mask_ratio,
                                                len_keep=self._static_len_keep(mask_ratio))
@@ -212,21 +342,16 @@ class Trainer:
                 self._check_monitor(monitor)
                 loss_val = float(metrics["loss"])
                 self._record("epoch,{},step,{},loss,{},data_time,{:.4f},step_time,{:.4f}".format(
-                    epoch, self.niter_per_ep * (epoch - 1) + it,
-                    loss_val, dt_i, time.time() - tflag))
+                    epoch, iteration, loss_val, dt_i, time.time() - tflag))
                 if self.wandb_run is not None:
                     self.wandb_run.log({"Loss": loss_val})
             t_step += time.time() - tflag
             tflag = time.time()
-        loss_sum = self._check_monitor(monitor)
-        avg = loss_sum / max(int(monitor["count"]), 1)
-        self.log(f"Epoch [{epoch}/{cfg.epochs}] loss={avg:.4f} "
-                 f"data_time={t_data:.1f}s step_time={t_step:.1f}s "
-                 f"({self.niter_per_ep * cfg.batch_size / max(t_data + t_step, 1e-9):.0f} "
-                 f"samples/s) on {self.device}")
-        self.epoch_losses[epoch] = avg
-        self.epoch_times[epoch] = (t_data, t_step)
-        return avg
+        # a trace started near a short first epoch's end is stopped here, so
+        # it is always written
+        if self._profiler is not None:
+            self._stop_trace(first, self.niter_per_ep - 1)
+        return self._finish_epoch(epoch, monitor, t_data, t_step)
 
     def _record(self, line: str) -> None:
         """A metrics line: to the log, and to the CSV log where there is one."""

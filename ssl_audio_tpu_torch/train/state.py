@@ -42,10 +42,33 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: Optional[object]       # LR factor schedule of AdamW/Adam/SGD; LARS carries its own
     aug: AugmentState
+    # bumped by load_state_dict, which replaces the optimizer's state tensors:
+    # a CUDA graph captured before then reads stale ones (train/steps.py)
+    version: int = 0
 
     @property
     def device(self) -> torch.device:
         return next(self.modules.parameters()).device
+
+    @property
+    def lr_schedule(self) -> optim_lib.LRSchedule:
+        """The device LR schedule the step reads and advances: LARS's own,
+        or the scheduler's of AdamW/Adam/SGD."""
+        return (self.scheduler or self.optimizer).schedule
+
+    def host_counters(self) -> tuple[int, int]:
+        """The counters a step advances on the host: (step, the LR
+        schedule's count).  Their device counterparts advance on the
+        device."""
+        return self.step, self.lr_schedule.count
+
+    def set_host_counters(self, counters: tuple[int, int]) -> None:
+        self.step, self.lr_schedule.count = counters
+
+    def advance_host(self, n: int) -> None:
+        """n steps taken on the device by a replayed CUDA graph, which
+        advanced the device counters itself: the host counters follow."""
+        self.set_host_counters(tuple(c + n for c in self.host_counters()))
 
     def state_dict(self) -> dict:
         """Everything a step reads and updates: "model" (the modules under
@@ -74,6 +97,7 @@ class TrainState:
             self.scheduler.load_state_dict(sd["scheduler"])
         self.aug.load_state_dict(sd["augment"])
         self.step = int(sd["step"])
+        self.version += 1
 
 
 def is_vit(cfg) -> bool:

@@ -1,5 +1,5 @@
 """The Barlow Twins training step (port of ssl_audio_tpu/train/steps.py:
-init_monitor, make_device_frontend, make_train_step).
+init_monitor, make_device_frontend, make_train_step, make_multi_train_step).
 
 One call = one iteration: [raw wav -> cropped, normalised log-mel] -> two
 augmented views -> teacher and student forwards -> Barlow Twins loss (+ the
@@ -18,13 +18,24 @@ With --use_fp16 the encoder forwards run in bf16 over bf16 copies of the
 fp32 master parameters, taken once per step (train/state.py
 encoder_forward); the frontend, the views, the heads, the loss and the
 optimizer stay fp32.
+
+--steps_per_dispatch N (make_multi_train_step): a window of N steps is one
+CUDA graph on the card, the counterpart of JAX's lax.scan over N steps.
+Everything a step reads or advances is device state (the LR schedule's
+counter, the mixup ring's count and position, the running norm, the
+generator the draws come from, a ViT teacher's mask ratio as a tensor), so a
+replay takes N real steps.  On the CPU the same function runs the N steps
+eagerly, in order.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ssl_audio_tpu_torch.augment.transforms import (
@@ -35,6 +46,7 @@ from ssl_audio_tpu_torch.augment.transforms import (
 from ssl_audio_tpu_torch.models.audiontt import DROPOUT_RATE
 from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT
 from ssl_audio_tpu_torch.objectives.barlow import barlow_twins_loss
+from ssl_audio_tpu_torch import ops
 from ssl_audio_tpu_torch.ops import no_tf32
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_cropped
 from ssl_audio_tpu_torch.train.state import TrainState, encoder_forward
@@ -212,3 +224,138 @@ def make_train_step(cfg, world_scale: float = 1.0, frontend=None):
         return metrics, _fold_monitor(monitor, loss)
 
     return train_step
+
+
+MAX_GRAPHS = 2      # captured windows kept, one per token-drop len_keep (the
+                    # sine schedule only moves forward: the last two suffice)
+
+
+@dataclass
+class _Window:
+    """One captured window of N steps: the graph, the monitor it starts
+    from (a static input), its stacked metrics and final monitor (static
+    outputs), the kernel launches its capture saw and the host seconds the
+    capture took."""
+    graph: object
+    monitor_in: dict
+    metrics: dict
+    monitor_out: dict
+    launches: dict
+    capture_s: float
+
+
+def _stack(metrics: list) -> dict:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def make_multi_train_step(cfg, n_steps: int, world_scale: float = 1.0, frontend=None):
+    """-> multi_step(state, batches (N, B, ...), mask_ratios (N,), monitor,
+    len_keep=None, *, gen) -> (metrics stacked (N,), monitor): N training
+    steps in one dispatch (--steps_per_dispatch, JAX's make_multi_train_step).
+    Step i runs on batches[i] with the teacher's mask ratio mask_ratios[i]
+    (host numbers, drawn by the loop; the model gets each as a 0-d fp32
+    tensor, so every step of a window has its own ratio, as JAX's traced
+    ratios) and the window's static token-drop count len_keep.  Every random number comes
+    from `gen`, in order.
+
+    On the CPU the N steps run eagerly, in order: the plain version.  On the
+    card the window is a CUDA graph.  The first full window after the
+    function is made, after the state was loaded (TrainState.version) or
+    with another generator runs eagerly: it builds what a capture must not
+    allocate from the host (the kernels, the mel tables, the optimizer's
+    moments, cuDNN's plans).  Every later window replays the graph of its
+    len_keep, captured on first use (at most MAX_GRAPHS kept).  A capture
+    runs no kernel, so a captured window is then replayed to take its
+    steps.  Before a replay the batches, ratios and monitor are copied into
+    the graph's static inputs on the current stream (multi_step.inputs
+    hands out the batches' buffer, which the loop fills straight from the
+    loader's pinned slots); after it the host counters advance by N
+    (TrainState.advance_host) and the kernels' launch counters by what the
+    capture saw.  A failed capture raises: nothing falls back to eager
+    windows."""
+    step = make_train_step(cfg, world_scale=world_scale, frontend=frontend)
+    graphs: "OrderedDict[Optional[int], _Window]" = OrderedDict()
+    static = {"batches": None, "ratios": None, "owner": None}
+
+    def ratio(ratios: torch.Tensor, i: int):
+        # a model without masking keeps the unmasked path of a Python 0
+        return ratios[i] if cfg.mask else 0.0
+
+    def run_eagerly(state, batches, ratios, monitor, len_keep, gen):
+        metrics = []
+        for i in range(n_steps):
+            m, monitor = step(state, batches[i], gen=gen, monitor=monitor,
+                              mask_ratio=ratio(ratios, i), len_keep=len_keep)
+            metrics.append(m)
+        return _stack(metrics), monitor
+
+    def inputs(batch_shape, device) -> torch.Tensor:
+        """The (N, *batch_shape) device buffer every graph reads its batches
+        from (a new shape or device drops the graphs)."""
+        shape, device = (n_steps, *batch_shape), torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        buf = static["batches"]
+        if buf is None or tuple(buf.shape) != shape or buf.device != device:
+            graphs.clear()
+            buf = static["batches"] = torch.empty(shape, device=device)
+            static["ratios"] = torch.zeros(n_steps, device=device)
+        return buf
+
+    def capture(state, monitor, len_keep, gen) -> _Window:
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+            raise RuntimeError("this torch cannot register a generator with a CUDA graph: "
+                               "--steps_per_dispatch > 1 needs it on the card")
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(gen)
+        monitor_in = {k: v.clone() for k, v in monitor.items()}
+        host, launches = state.host_counters(), ops.launch_counts()
+        # thread_local: the loader's producer thread may wait on events and
+        # pin memory while this thread captures
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            metrics, monitor_out = run_eagerly(state, static["batches"], static["ratios"],
+                                               monitor_in, len_keep, gen)
+        # the capture ran the step's Python N times and launched nothing
+        state.set_host_counters(host)
+        seen = ops.launch_counts()
+        ops.set_launch_counts(launches)
+        return _Window(graph, monitor_in, metrics, monitor_out,
+                       {k: seen[k] - launches[k] for k in seen}, time.perf_counter() - t0)
+
+    def multi_step(state, batches, mask_ratios, monitor, len_keep: Optional[int] = None, *,
+                   gen: torch.Generator):
+        if batches.shape[0] != n_steps or len(mask_ratios) != n_steps:
+            raise ValueError(f"a window is {n_steps} batches and ratios, got "
+                             f"{batches.shape[0]} and {len(mask_ratios)}")
+        ratios = torch.from_numpy(np.asarray(mask_ratios, np.float32))
+        if batches.device.type != "cuda":
+            return run_eagerly(state, batches, ratios, monitor, len_keep, gen)
+        buf = inputs(batches.shape[1:], batches.device)
+        if batches.data_ptr() != buf.data_ptr():
+            buf.copy_(batches)
+        static["ratios"].copy_(ratios.pin_memory(), non_blocking=True)
+        owner = (id(state), state.version, id(gen))
+        if static["owner"] != owner:
+            # another state, a loaded one or another generator: the graphs
+            # read stale tensors; warm up again, eagerly
+            graphs.clear()
+            static["owner"] = owner
+            return run_eagerly(state, buf, static["ratios"], monitor, len_keep, gen)
+        window = graphs.pop(len_keep, None)
+        if window is None:
+            window = capture(state, monitor, len_keep, gen)
+        graphs[len_keep] = window
+        while len(graphs) > MAX_GRAPHS:
+            graphs.popitem(last=False)
+        for k, v in monitor.items():
+            window.monitor_in[k].copy_(v)
+        window.graph.replay()
+        state.advance_host(n_steps)
+        ops.add_launch_counts(window.launches)
+        return ({k: v.clone() for k, v in window.metrics.items()},
+                {k: v.clone() for k, v in window.monitor_out.items()})
+
+    multi_step.inputs = inputs
+    multi_step.graphs = graphs
+    return multi_step

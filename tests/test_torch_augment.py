@@ -150,11 +150,12 @@ def test_mixup_apply_matches_jax(filled):
         jstate = JA.MixupState(bank=jstate.bank.at[:4].set(old), count=jnp.int32(4),
                                pos=jnp.int32(4))
         ours.bank[:4] = t(old)
-        ours.count, ours.pos = 4, 4
+        ours.count.fill_(4)           # the ring's count and position are device tensors
+        ours.pos.fill_(4)
     key = jax.random.key(5)
     ref, jnew = JA.mixup_byola(key, jnp.asarray(x), jstate, ratio=0.2)
     alpha, u = jax_mixup_draws(key, 4, 0.2)
-    idx = torch.floor(u * max(ours.count, 1)).long()
+    idx = torch.floor(u * max(int(ours.count), 1)).long()
     out = A.apply_mixup(t(x), ours, alpha, idx)
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
     if not filled:

@@ -178,3 +178,28 @@ def test_no_silent_cpu_and_unported_options():
         tconv.load_model(model_type="resnet18", device="cpu")
     with pytest.raises(NotImplementedError):
         tconv.load_model("checkpoints/orbax_dir", device="cpu")
+
+
+def test_load_model_takes_the_jax_arguments_in_their_order():
+    """load_model and ConvModelWrapper take the JAX package's arguments in
+    its positions (pool_reorder before compute_dtype), then `device`: a
+    positional call binds each argument where JAX binds it."""
+    import inspect
+
+    for jfn, tfn in ((jconv.load_model, tconv.load_model),
+                     (jconv.ConvModelWrapper.__init__, tconv.ConvModelWrapper.__init__)):
+        jnames = list(inspect.signature(jfn).parameters)
+        tnames = list(inspect.signature(tfn).parameters)
+        assert tnames == jnames + ["device"], (jfn.__qualname__, jnames, tnames)
+
+
+def test_pool_reorder_gives_the_same_embeddings(audio):
+    """pool_reorder selects the JAX package's eval order only: the port's
+    embeddings are the same with it on and off."""
+    out = []
+    for reorder in (False, True):
+        tm = tconv.load_model("", "audiontt", "hear/config.yaml", False, "float32", True,
+                              reorder, device="cpu")
+        assert tm.pool_reorder is reorder and tm.compute_dtype == "float32"
+        out.append(tconv.get_scene_embeddings(audio, tm))
+    torch.testing.assert_close(out[1], out[0], rtol=0, atol=0)

@@ -49,7 +49,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "ops.fused_attention", "ops.pos_embed", "utils.schedules", "hear.vit",
                  "eval.encode", "eval.stats", "eval.mlp_clf", "eval.low_shot", "eval.knn",
                  "eval.linear", "data.datasets", "data.native_loader", "linear",
-                 "tools.wav_to_lms", "tools.bench_pipeline", "tools.sweep"):
+                 "tools.wav_to_lms", "tools.bench_pipeline", "tools.sweep",
+                 "augment.augmentations", "ops", "tools.step_determinism", "tools.eager_ab"):
         assert f"ssl_audio_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

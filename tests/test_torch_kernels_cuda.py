@@ -618,3 +618,104 @@ def test_fused_attention_bf16_kernels_match_plain(dev, rng, B, N, C, H, masked):
         sl = slice(i * C, (i + 1) * C)
         _attention_close(dqkv[..., sl].float(), dqkv_p[..., sl].float(), name, ATTN_REL_L2_BF16)
     _attention_close(dbias, dbias_p, "dbias")
+
+
+# --------------------------------------------------------------------------
+# --steps_per_dispatch: a window of steps as one CUDA graph against the
+# same steps taken eagerly, at small shapes
+
+GRAPH_CASES = [
+    (dict(), {"log_mel_folded": 1, "fused_conv1_fwd": 2, "fused_conv1_bwd": 2}),
+    (dict(use_fp16=True), {"log_mel_folded": 1, "fused_conv1_fwd_bf16": 2,
+                           "fused_conv1_bwd_bf16": 2}),
+    (dict(model_type="vit_tiny", fused_attention=True),
+     {"log_mel_folded": 1, "fused_attention_fwd": 24, "fused_attention_bwd": 24}),
+]
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """At these small shapes cuDNN's default algorithms part two eager runs
+    of AudioNTT (step_determinism --small; PERF.md section 2): the bit-for-bit
+    comparisons take cuDNN's deterministic algorithms, graphed and eager
+    alike.  test_graphed_window_at_default_cudnn holds the default choice,
+    and chip_smoke.py phase 12 the full-width step at the default choice,
+    bit for bit."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = before
+
+
+def _graphed_against_eager(dev, rng, overrides):
+    from ssl_audio_tpu_torch.tools.step_determinism import SMALL, SMALL_CLIP_SAMPLES, run_graphed
+
+    wavs = _wav(rng, (SMALL["batch_size"], SMALL_CLIP_SAMPLES)).to(dev)
+    return run_graphed(0, 3, 3, dev, wavs, {**SMALL, **overrides})
+
+
+@pytest.mark.parametrize("overrides,per_step", GRAPH_CASES)
+def test_graphed_window_equals_eager_steps(dev, rng, deterministic_cudnn, overrides, per_step):
+    """Three windows of 3 steps (eager warm-up, capture and replay, replay)
+    against 9 eager steps from the same seed and generator seed: losses,
+    every tensor of the train state and the generators, bit for bit; a
+    replay counts 3 x the step's launches."""
+    out = _graphed_against_eager(dev, rng, overrides)
+    assert out["first_difference"] is None, out["first_difference"]
+    (graph,) = out["graphs"].values()
+    assert graph["launches_per_replay"] == {k: 3 * v for k, v in per_step.items()}
+
+
+@pytest.mark.parametrize("overrides,per_step", GRAPH_CASES)
+def test_graphed_window_at_default_cudnn(dev, rng, overrides, per_step):
+    """The same windows at cuDNN's default algorithms, which the package
+    runs.  Where two eager runs already part at these shapes, bit for bit is
+    out of reach: every step's loss is held within the card-vs-card
+    tolerance of PERF.md section 2 (1e-3 relative), and what no cuDNN
+    algorithm computes bit for bit: the generators, the LR counter and the
+    mixup ring's count and position.  (The eager twin's gaps beside them:
+    step_determinism --small --steps_per_dispatch 3.)"""
+    out = _graphed_against_eager(dev, rng, overrides)
+    final = out["final"]["graphed"]
+    assert final["max_loss_rel_gap"] <= 1e-3, out["losses"]
+    assert final["generators_equal"]
+    differing = {name for name, _ in final["gaps_largest_first"]}
+    assert not differing & {"lr_counter", "mixup.count", "mixup.pos"}, differing
+    (graph,) = out["graphs"].values()
+    assert graph["launches_per_replay"] == {k: 3 * v for k, v in per_step.items()}
+
+
+def test_trainer_epoch_graphed_equals_one_step_a_dispatch(dev, deterministic_cudnn, tmp_path):
+    """The Trainer's epoch of 7 steps at --steps_per_dispatch 3 (an eager
+    window, a graphed one, a 1-step tail) against the same epoch one step at
+    a time; then a checkpoint of the graphed run resumes into a new Trainer
+    whose windows capture their own graphs."""
+    from ssl_audio_tpu_torch.config import config_from_args
+    from ssl_audio_tpu_torch.tools.step_determinism import tensor_gaps, train_state_tensors
+    from ssl_audio_tpu_torch.train.loop import Trainer
+
+    argv = ["--dataset", "synthetic_wav", "--batch_size", "8", "--crop_frames", "32",
+            "--projector_hidden_dim", "256", "--mixup_n_memory", "12", "--epochs", "2",
+            "--synthetic_steps_per_epoch", "7", "--num_workers", "2"]
+    runs = []
+    for n in ("1", "3"):
+        tr = Trainer(config_from_args([*argv, "--steps_per_dispatch", n]), log=lambda l: None)
+        tr.train_one_epoch(1)
+        runs.append(tr)
+    single, graphed = runs
+    assert list(graphed.multi_step.graphs) == [None]
+    assert tensor_gaps(train_state_tensors(graphed.state), train_state_tensors(single.state)) == {}
+    assert graphed.epoch_losses == single.epoch_losses
+    assert torch.equal(graphed.gen.get_state(), single.gen.get_state())
+    assert graphed.state.step == 7 and int(graphed.state.lr_schedule.counter) == 7
+    from ssl_audio_tpu_torch.utils import checkpoint as ckpt
+
+    path = str(tmp_path / "model_1.pt")
+    ckpt.save_checkpoint(path, graphed.state, 2, ckpt.encode_rng(graphed.gen, graphed.host_rng))
+    resumed = Trainer(config_from_args([*argv, "--steps_per_dispatch", "3"]),
+                      log=lambda l: None)
+    resumed.fit(resume_path=path)
+    graphed.train_one_epoch(2)
+    assert tensor_gaps(train_state_tensors(resumed.state),
+                       train_state_tensors(graphed.state)) == {}
+    assert resumed.epoch_losses[2] == graphed.epoch_losses[2]

@@ -67,7 +67,7 @@ def test_without_a_card_it_fails_and_prints_no_result(tmp_path):
         assert "no CUDA device" in out.stderr
 
 
-@pytest.mark.parametrize("flags", [["--profile_dir", "trace"], ["--steps_per_dispatch", "4"],
+@pytest.mark.parametrize("flags", [["--fsdp"], ["--model_parallel", "2"],
                                    ["--squeeze_excitation"],
                                    ["--dataset", "cifar10"], ["--model_type", "resnet18"],
                                    ["--model_type", "vit_tiny", "--remat"]])

@@ -376,10 +376,10 @@ def test_deferred_flags_raise():
                dict(dataset="synthetic_multicue"), dict(dataset="fsd50k"),
                dict(dataset="fsd50k", load_lms=False), dict(dataset="audioset_wav"),
                dict(dataset="audioset+librispeech"), dict(dataset="nsynth"),
-               dict(use_fp16=True), dict(use_fp16_eval=True)):
+               dict(use_fp16=True), dict(use_fp16_eval=True), dict(steps_per_dispatch=4),
+               dict(profile_dir="x")):
         assert unsupported_settings(default_config(**{"dataset": "synthetic_wav", **kw})) == []
-    for kw in (dict(squeeze_excitation=True), dict(steps_per_dispatch=4),
-               dict(profile_dir="x"),
+    for kw in (dict(squeeze_excitation=True),
                dict(model_type="resnet18"), dict(dataset="cifar10"), dict(distributed=True),
                dict(model_type="vit_base", remat=True),
                dict(model_type="vit_base", layout_barrier=True), dict(fsdp=True),
