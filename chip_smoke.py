@@ -133,6 +133,24 @@ Phases, each of which exits non-zero on failure:
      capture's seconds, peak memory and each side's device busy and idle
      share; a --profile_dir trace at one step a dispatch that names the
      log-mel and fused conv kernels.
+ 13. the BYOL-style variant (main_bt_byol) over SyntheticWav at full width,
+     batch 128, every BYOL step's launches counted: (a) the defaults
+     (AudioNTT2022, LARS, fp32) with --stop_gradient --predictor, 4 epochs of
+     3 steps twice and once resumed from model_2.pt (phase 9's resume check,
+     the target in the train state; log-mel 1, fused forward 4, backward 2
+     a step); (b) the same without --stop_gradient for an epoch (forward 4,
+     backward 4); (c) ViT-B --fused_attention --mask --random_mask_ratio
+     AdamW --lr_schedule for an epoch (attention forward 48, backward 24);
+     (d) (a) at --steps_per_dispatch 4 against one step a dispatch, phase
+     12's checks (bit for bit, a replay's launches against the profiler's);
+     (e) (a) with --use_fp16 (bf16 kernels only); (f) a batch-16 BYOL step of
+     AudioNTT2022 and of vit_tiny (fused attention) on the card against the
+     CPU, and the target's gap after the EMA; (g) the BYOL step of (a) and of
+     (c) against the Barlow Twins step of the same configuration on a
+     resident batch (A B B A): ms per step, clips/s, device busy and idle
+     share, peak memory; (h) the reproduce chain (tools/reproduce.py) on a
+     tree written in a temporary directory: convert, pretrain, probe, HEAR,
+     aggregate, each stage's seconds and launches, every score in [0, 1].
 The `kernels` JSON line lists every ported kernel, the bf16 instantiations
 as entries of their own; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -1479,29 +1497,36 @@ def entry_epoch(argv: list[str], want: dict, seed: int):
 def card_vs_cpu_step(seed: int, dev: torch.device, overrides: dict, step_kwargs: dict,
                      zero_grad: tuple, loss_rtol: float, grad_rtol: float, why: str,
                      global_rtol: float | None = None, ref: tuple = ("cpu", {}),
-                     label: str = "card vs CPU") -> dict:
+                     label: str = "card vs CPU", byol: bool = False) -> dict:
     """One small step on the card against the same step on the CPU (plain
     versions): the same seeded weights, the same 16 wavs, the same draws.
     ref: where the reference step runs and the settings it changes (the
     card's fp32 step against its bf16 one: (dev, {"use_fp16": False})).
     zero_grad: parameters whose gradient is mathematically 0 (float noise).
     Limits: the loss (relative), the worst tensor's gradient (relative L2)
-    and, if given, all gradients as one vector (relative L2)."""
+    and, if given, all gradients as one vector (relative L2).  byol: the
+    BYOL-style step (with --stop_gradient its target moves by the EMA of the
+    pre-step online net, equal on both sides: its largest gap after the step
+    must stay within EMA_RTOL of its largest value)."""
     from ssl_audio_tpu_torch.tools.serving import seeded_clips
     from ssl_audio_tpu_torch.tools.train_profile import seeded_training
     from ssl_audio_tpu_torch.train.steps import draw_step
 
     wav_small = seeded_clips(torch.Generator().manual_seed(seed + 7), 16, 2 * 16000)
-    runs = []
+    runs, targets = [], []
     for where, kw in ((ref[0], {**overrides, **ref[1]}), (dev, overrides)):
-        cfg_s, state_s, step_s, _ = seeded_training(seed, where, **kw)
+        cfg_s, state_s, step_s, _ = seeded_training(seed, where, byol=byol, **kw)
         draws = draw_step(torch.Generator().manual_seed(seed + 9), cfg_s,
-                          tuple(wav_small.shape), state_s.modules["encoder"], wav=True)
+                          tuple(wav_small.shape), state_s.modules["encoder"], wav=True,
+                          byol=byol)
         loss = float(step_s(state_s, wav_small.to(where), draws=draws.to(where),
                             **step_kwargs)["loss"])
         grads = {k: p.grad.detach().cpu() for k, p in state_s.modules.named_parameters()
                  if p.grad is not None}
         runs.append((loss, grads))
+        if byol:
+            targets.append({k: p.detach().cpu() for k, p in
+                            state_s.modules["target"].named_parameters()})
     (loss_c, grads_c), (loss_d, grads_d) = runs
     loss_err = abs(loss_d - loss_c) / abs(loss_c)
     worst, worst_name, worst_max, sq_diff, sq_ref = 0.0, "", 0.0, 0.0, 0.0
@@ -1524,8 +1549,19 @@ def card_vs_cpu_step(seed: int, dev: torch.device, overrides: dict, step_kwargs:
     if global_rtol is not None:
         check(f"train step gradients, {label}, relative L2 all at once", overall, global_rtol,
               why)
-    return {"loss_rel_err": loss_err, "grad_rel_l2_err": worst, "worst_grad": worst_name,
-            "grad_rel_l2_err_all": overall, "grad_max_elem_err": worst_max}
+    out = {"loss_rel_err": loss_err, "grad_rel_l2_err": worst, "worst_grad": worst_name,
+           "grad_rel_l2_err_all": overall, "grad_max_elem_err": worst_max}
+    if targets:
+        tc, td = targets
+        gaps = {k: float((td[k].double() - v.double()).abs().max() / v.abs().max())
+                for k, v in tc.items()}
+        out["target_worst"] = max(gaps, key=gaps.get)
+        out["target_rel_gap_after_ema"] = gaps[out["target_worst"]]
+        print(f"  the target after the EMA, {label}: largest gap {gaps[out['target_worst']]:.2e} "
+              f"of its tensor's largest ({out['target_worst']})")
+        check(f"BYOL target after the EMA, {label}, relative", out["target_rel_gap_after_ema"],
+              EMA_RTOL, "the EMA reads the pre-step parameters, equal on both sides")
+    return out
 
 
 def timed_steps(step, state, wavs, gen, **kwargs) -> tuple[list[float], list[float]]:
@@ -1852,12 +1888,13 @@ def expect(counts: dict, per_unit: dict, units: int, what: str) -> dict:
     return {k: per_unit.get(k, 0) for k in counts}
 
 
-def run_main(argv: list[str]):
-    """ssl_audio_tpu_torch.main.main(argv) in-process, its stdout kept, the
-    counters zeroed just before and read just after -> (trainer, seconds,
-    launches, output lines)."""
+def run_main(argv: list[str], entry=None):
+    """ssl_audio_tpu_torch.main.main(argv) (or `entry`, e.g. main_bt_byol's)
+    in-process, its stdout kept, the counters zeroed just before and read
+    just after -> (trainer, seconds, launches, output lines)."""
     from ssl_audio_tpu_torch.main import main as train_main
 
+    train_main = entry or train_main
     out = io.StringIO()
     zero_launch_counts()
     torch.cuda.synchronize()
@@ -1880,23 +1917,24 @@ def state_gap(a, b) -> tuple[float, str]:
     return gaps[name], name
 
 
-def resume_check(path: str, seed: int, flags: list[str], steps: int, per_step: dict):
-    """Two uninterrupted RESUME_EPOCHS-epoch runs of main with `flags` (of
-    `steps` steps per epoch, each launching `per_step`) and one resumed
-    from the first run's model_2.pt (in the working directory) -> (the
-    record, the first run's trainer, its last checkpoint)."""
+def resume_check(path: str, seed: int, flags: list[str], steps: int, per_step: dict,
+                 entry=None):
+    """Two uninterrupted RESUME_EPOCHS-epoch runs of main (or `entry`) with
+    `flags` (of `steps` steps per epoch, each launching `per_step`) and one
+    resumed from the first run's model_2.pt (in the working directory) ->
+    (the record, the first run's trainer, its last checkpoint)."""
     from ssl_audio_tpu_torch.utils import checkpoint as ckpt_lib
 
     base = flags + ["--epochs", str(RESUME_EPOCHS), "--synthetic_steps_per_epoch", str(steps),
                     "--seed", str(seed)]
     runs = {}
     for name, extra in (("a", ["--epoch_save_f", "2"]), ("b", ["--epoch_save_f", str(RESUME_EPOCHS)])):
-        runs[name] = run_main(base + extra + ["--save_base_dir", f"{path}/{name}"])
+        runs[name] = run_main(base + extra + ["--save_base_dir", f"{path}/{name}"], entry)
         expect(runs[name][2], per_step, RESUME_EPOCHS * steps, f"{path} run {name}")
     (ckpt2,) = glob.glob(f"{path}/a/results/*/*/model_2.pt")
     (ckpt_last,) = glob.glob(f"{path}/a/results/*/*/model_{RESUME_EPOCHS}.pt")
     runs["r"] = run_main(base + ["--epoch_save_f", "2", "--save_base_dir", f"{path}/r",
-                                 "--resume_path", ckpt2])
+                                 "--resume_path", ckpt2], entry)
     per_step = expect(runs["r"][2], per_step, (RESUME_EPOCHS - 2) * steps, f"{path} resumed")
     if not any(line.startswith(f"Resumed from {ckpt2} at epoch 3") for line in runs["r"][3]):
         raise SystemExit(f"{path}: the resumed run did not start at epoch 3")
@@ -2372,7 +2410,8 @@ GRAPH_CONFIGS = {   # flags, launches per step, timed A B B A
 SCHEDULE_EPOCH, SCHEDULE_STEPS, SCHEDULE_KEYS = 3, 14, [18] * 8 + [17] * 6
 
 
-def graph_epoch(flags: list[str], n: int, steps: int, epoch: int, seed: int) -> dict:
+def graph_epoch(flags: list[str], n: int, steps: int, epoch: int, seed: int,
+                byol: bool = False) -> dict:
     """One epoch of config_from_args(flags) through the Trainer at n steps a
     dispatch: the launches of every dispatch (counters zeroed just before it
     and read just after), what each window did (eager, captured and
@@ -2384,7 +2423,7 @@ def graph_epoch(flags: list[str], n: int, steps: int, epoch: int, seed: int) -> 
             "--steps_per_dispatch", str(n)]
     if "--epochs" not in flags:
         argv += ["--epochs", "1"]
-    trainer = Trainer(config_from_args(argv), log=lambda line: None)
+    trainer = Trainer(config_from_args(argv), byol=byol, log=lambda line: None)
     dispatches = []
 
     def counted(fn, kind):
@@ -2416,7 +2455,8 @@ def graph_epoch(flags: list[str], n: int, steps: int, epoch: int, seed: int) -> 
     return {"trainer": trainer, "dispatches": dispatches, "epoch_s": time.perf_counter() - t0}
 
 
-def graphs_vs_eager(name: str, flags: list[str], per_step: dict, seed: int) -> dict:
+def graphs_vs_eager(name: str, flags: list[str], per_step: dict, seed: int,
+                    byol: bool = False) -> dict:
     """(a)-(e): the epoch at DISPATCH steps a window against the same epoch
     one step at a time: every tensor of the train state, the generator and
     the epoch's loss (the monitor's sum over the steps), bit for bit (the
@@ -2428,7 +2468,7 @@ def graphs_vs_eager(name: str, flags: list[str], per_step: dict, seed: int) -> d
     schedule = name.startswith("e_")
     steps, epoch = (SCHEDULE_STEPS, SCHEDULE_EPOCH) if schedule else (GRAPH_STEPS, 1)
     want = counts_with(**per_step)
-    runs = {n: graph_epoch(flags, n, steps, epoch, seed) for n in (DISPATCH, 1)}
+    runs = {n: graph_epoch(flags, n, steps, epoch, seed, byol) for n in (DISPATCH, 1)}
     graphed, eager = runs[DISPATCH]["trainer"], runs[1]["trainer"]
     for n, run in runs.items():
         for d in run["dispatches"]:
@@ -2471,7 +2511,7 @@ def graphs_vs_eager(name: str, flags: list[str], per_step: dict, seed: int) -> d
 
 
 def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int,
-                          smi: str) -> dict:
+                          smi: str, byol: bool = False) -> dict:
     """(a)-(d) timed on a batch of 128 seeded 10-s clips resident on the
     card, in turns (A B B A): eager steps (A, 12 after two warm-ups per
     turn) and graphed windows of DISPATCH steps (B, GRAPH_WINDOWS windows per
@@ -2491,13 +2531,16 @@ def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int
 
     overrides = {k: v for k, v in vars(config_from_args(flags)).items()
                  if k in ("model_type", "fused_attention", "use_fp16", "optimizer", "lr",
-                          "lr_schedule", "mask", "random_mask_ratio", "mask_beta", "wd")}
-    cfg, state, step, gen = seeded_training(seed, torch.device("cuda"), **overrides)
+                          "lr_schedule", "mask", "random_mask_ratio", "mask_beta", "wd",
+                          "stop_gradient", "predictor")}
+    cfg, state, step, gen = seeded_training(seed, torch.device("cuda"), byol=byol,
+                                            **overrides)
     wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).cuda()
     rng = np.random.default_rng(seed + 17)
-    ratios = [mask_ratio_for_step(cfg, None, i, rng) for i in range(TRAIN_STEPS)]
+    ratios = [mask_ratio_for_step(cfg, None, i, rng, byol) for i in range(TRAIN_STEPS)]
     window_ratios = ratios[:DISPATCH]
-    run_window, multi = window_runner(cfg, state, gen, wavs, DISPATCH, window_ratios)
+    run_window, multi = window_runner(cfg, state, gen, wavs, DISPATCH, window_ratios,
+                                      byol=byol)
     turn = iter(range(10 ** 6))
 
     def eager():
@@ -2610,6 +2653,247 @@ def phase_graphs(seed: int, smi: str) -> dict:
     return out
 
 
+# phase 13: the BYOL-style variant (main_bt_byol) and the reproduce chain.
+# Launches per step: the online net's two passes and the target's two (block
+# 1 forward 4 times, 48 attention forwards for ViT-B); backward through the
+# online net only with --stop_gradient, through both without it
+BYOL_FLAGS = ["--dataset", "synthetic_wav", "--model_type", "audiontt", "--stop_gradient",
+              "--predictor"]
+BYOL_STEP = {"log_mel_folded": 1, "fused_conv1_fwd": 4, "fused_conv1_bwd": 2}
+BYOL_BY_GRADIENT_STEP = {"log_mel_folded": 1, "fused_conv1_fwd": 4, "fused_conv1_bwd": 4}
+BYOL_VIT_FLAGS = [*VITB, "--stop_gradient", "--predictor", "--mask", "--random_mask_ratio",
+                  "--optimizer", "AdamW", "--lr_schedule"]
+BYOL_VIT_STEP = {"log_mel_folded": 1, "fused_attention_fwd": 4 * VIT_DEPTH,
+                 "fused_attention_bwd": 2 * VIT_DEPTH}
+BYOL_BF16_STEP = {"log_mel_folded": 1, "fused_conv1_fwd_bf16": 4, "fused_conv1_bwd_bf16": 2}
+BYOL_EPOCH_STEPS = 3
+BYOL_TIMED_STEPS = 7   # per turn, A B B A: 14 timed steps of each side
+EMA_RTOL = 1e-6        # the BYOL target after one step, card vs CPU: the EMA of equal values
+CHAIN_TASKS = ("esc50-v2.0.0-full", "speech_commands-v0.0.2-5h")
+
+
+@contextlib.contextmanager
+def byol_steps_counted(per_step: dict, what: str):
+    """Inside: every BYOL step the Trainer makes has its launches counted
+    (read just before and just after the step, the device synchronised);
+    each must be per_step, checked on leaving."""
+    from ssl_audio_tpu_torch.train import loop
+
+    make = loop.make_byol_train_step
+    seen = []
+
+    def counted_factory(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(*a, **kw):
+            before = launch_counts()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            seen.append(counts_minus(launch_counts(), before))
+            return out
+        return counted
+
+    loop.make_byol_train_step = counted_factory
+    try:
+        yield seen
+    finally:
+        loop.make_byol_train_step = make
+    want = counts_with(**per_step)
+    bad = [c for c in seen if c != want]
+    if not seen or bad:
+        raise SystemExit(f"{what}: {len(bad)} of {len(seen)} BYOL steps launched other than "
+                         f"{per_step}: {bad[:2]}")
+    print(f"  {what}: each of {len(seen)} BYOL steps launched {per_step}")
+
+
+def byol_vs_bt_time(name: str, flags: list[str], seed: int, smi: str) -> dict:
+    """The BYOL step of config_from_args(flags) against the Barlow Twins step
+    of the same configuration, on one batch of 128 seeded 10-s clips resident
+    on the card, in turns (A B B A, BYOL_TIMED_STEPS each after two warm-ups
+    per side): ms per step, clips/s, one profiled step of each (device busy,
+    idle share) and each side's peak memory above what was allocated when it
+    started."""
+    import gc
+
+    from ssl_audio_tpu_torch.config import config_from_args
+    from ssl_audio_tpu_torch.tools.serving import profile, seeded_clips
+    from ssl_audio_tpu_torch.tools.train_profile import seeded_training, step_wall_ms
+
+    overrides = {k: v for k, v in vars(config_from_args(flags)).items()
+                 if k in ("model_type", "fused_attention", "optimizer", "lr", "lr_schedule",
+                          "mask", "random_mask_ratio", "wd", "stop_gradient", "predictor")}
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).cuda()
+    ratio = 0.5 if overrides.get("mask") else 0.0     # masked steps, the teacher's or online
+    sides, peak, times, prof = {}, {}, {"bt": [], "byol": []}, {}
+    for side in ("bt", "byol"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, state, step, gen = seeded_training(seed, torch.device("cuda"),
+                                                byol=side == "byol", **overrides)
+        run = (lambda st=state, sp=step, g=gen: sp(st, wavs, gen=g, mask_ratio=ratio))
+        run()
+        run()
+        torch.cuda.synchronize()
+        peak[side] = torch.cuda.max_memory_allocated() - base
+        sides[side] = run
+    for side in ("bt", "byol", "byol", "bt"):
+        times[side] += step_wall_ms(sides[side], BYOL_TIMED_STEPS)
+    for side in ("bt", "byol"):
+        p = profile(sides[side])
+        prof[side] = {"wall_ms": p["wall_ms"], "device_busy_ms": p["device_busy_ms"],
+                      "idle_share": p["idle_share"], "launches_seen": p["launches_seen"]}
+    med = {k: statistics.median(v) for k, v in times.items()}
+    rec = {"flags": flags, "mask_ratio": ratio, "order": "bt, byol, byol, bt",
+           "steps_timed": {k: len(v) for k, v in times.items()},
+           "ms_per_step_median": med, "ms_per_step_min": {k: min(v) for k, v in times.items()},
+           "clips_per_s": {k: TRAIN_BATCH / v * 1e3 for k, v in med.items()},
+           "byol_over_bt": med["byol"] / med["bt"], "profile": prof,
+           "peak_memory_bytes": peak, "card": smi}
+    print(f"  ({name}) BYOL vs Barlow Twins step: {json.dumps(rec)}")
+    del sides
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def reproduce_chain(seed: int) -> dict:
+    """(h): the reproduce chain on a tree written in a temporary directory
+    (64 one-second dev clips, 16 eval clips, two HEAR tasks of 6 + 3 clips):
+    convert -> pretrain (1 epoch of 2 steps at batch 32) -> probe -> HEAR ->
+    aggregate, each stage's seconds and launches (counters zeroed just
+    before it, read just after); every score must lie in [0, 1]."""
+    from ssl_audio_tpu_torch.tools import reproduce
+
+    stages = {}
+
+    def counted(name, fn):
+        def run(*args):
+            zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            stages[name] = {"s": time.perf_counter() - t0,
+                            "launches": {k: v for k, v in launch_counts().items() if v}}
+            return out
+        return run
+
+    originals = {n: getattr(reproduce, f"stage_{n}") for n in reproduce.ALL_STAGES}
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as tmp, contextlib.chdir(tmp):
+        reproduce.fabricate_tree(tmp, n_dev=64, n_eval=16, tasks=CHAIN_TASKS, seed=seed)
+        for n, fn in originals.items():
+            setattr(reproduce, f"stage_{n}", counted(n, fn))
+        try:
+            with contextlib.redirect_stdout(log):
+                results = reproduce.main([
+                    "--root", tmp, "--work_dir", "out", "--epochs", "1", "--batch_size", "32",
+                    "--epoch_save_f", "1", "--name", "chain", "--no_eval",
+                    "--extra_pretrain_args", "--seed", str(seed)])
+        finally:
+            for n, fn in originals.items():
+                setattr(reproduce, f"stage_{n}", fn)
+    groups = results["hear"]["audiontt_chain"]
+    scores = [v for g in groups.values() for v in g.values()] + \
+        [results["linear"]["score_all"], *results["linear"]["score_5"][:1]]
+    rec = {"stages": stages, "results_json": groups,
+           "linear": {k: (list(v) if isinstance(v, tuple) else v)
+                      for k, v in results["linear"].items()}}
+    print(f"  (h) reproduce chain: {json.dumps(rec)}")
+    if not all(0.0 <= v <= 1.0 for v in scores):
+        raise SystemExit(f"(h): a score outside [0, 1]: {scores}")
+    if set(groups["environmental"]) != {CHAIN_TASKS[0], "AVERAGE"} or \
+            set(groups["speech"]) != {CHAIN_TASKS[1], "AVERAGE"}:
+        raise SystemExit(f"(h): results.json groups {groups}")
+    if stages["convert"]["launches"] != {"log_mel_folded": 2}:
+        raise SystemExit(f"(h): the converter launched {stages['convert']['launches']}, "
+                         "expected one log-mel launch per split (one length group each)")
+    want = {"fused_conv1_fwd": 4, "fused_conv1_bwd": 4}
+    if stages["pretrain"]["launches"] != want:
+        raise SystemExit(f"(h): pretraining's 2 steps launched "
+                         f"{stages['pretrain']['launches']}, expected {want}")
+    return rec
+
+
+def phase_byol(seed: int, dev: torch.device, smi: str) -> dict:
+    """Phase 13: main_bt_byol (a)-(e), the BYOL step card vs CPU (f), BYOL
+    against Barlow Twins timed (g) and the reproduce chain (h)."""
+    import gc
+
+    from ssl_audio_tpu_torch import main_bt_byol
+
+    print("phase 13: the BYOL-style variant (main_bt_byol: online and target nets, EMA "
+          "target) at full width, batch 128, raw 10-s clips in, and the reproduce chain")
+    out = {"card": smi, "launches": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_byol_") as tmp, contextlib.chdir(tmp):
+        # (a): the defaults with --stop_gradient --predictor, 4 epochs of 3 steps,
+        # twice and once resumed from model_2.pt
+        with byol_steps_counted(BYOL_STEP, "(a)"):
+            out["a_resume"], trainer, _ = resume_check("byol_audiontt", seed, BYOL_FLAGS,
+                                                       BYOL_EPOCH_STEPS, BYOL_STEP,
+                                                       main_bt_byol.main)
+        if not any(k.startswith("target.") for k in trainer.state.state_dict()["model"]):
+            raise SystemExit("(a): the BYOL train state holds no target")
+        out["launches"]["byol_step"] = counts_with(**BYOL_STEP)
+        del trainer
+        gc.collect()
+        # (b) without --stop_gradient, (c) ViT-B, (e) --use_fp16: one epoch each
+        for key, flags, per_step in (
+                ("b_by_gradient", [f for f in BYOL_FLAGS if f != "--stop_gradient"],
+                 BYOL_BY_GRADIENT_STEP),
+                ("c_vitb", BYOL_VIT_FLAGS, BYOL_VIT_STEP),
+                ("e_bf16", BYOL_FLAGS + ["--use_fp16"], BYOL_BF16_STEP)):
+            with byol_steps_counted(per_step, f"({key[0]})"):
+                trainer, seconds, _, _ = run_main(
+                    flags + ["--epochs", "1", "--synthetic_steps_per_epoch",
+                             str(BYOL_EPOCH_STEPS), "--seed", str(seed), "--save_base_dir", key],
+                    main_bt_byol.main)
+            loss = trainer.epoch_losses[1]
+            if loss != loss or abs(loss) == float("inf"):
+                raise SystemExit(f"({key[0]}): the epoch's mean loss is {loss}")
+            out[key] = {"flags": flags, "steps": BYOL_EPOCH_STEPS, "seconds": seconds,
+                        "mean_loss": loss, "launches_per_step": per_step}
+            out["launches"][f"byol_{key}"] = counts_with(**per_step)
+            print(f"  ({key[0]}) {json.dumps(out[key])}")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    # (d): 14 steps at 4 a dispatch against one a dispatch, bit for bit; a
+    # replay's launches against the profiler's kernel events
+    out["d_graphs"] = graphs_vs_eager("d_byol_graphs", BYOL_FLAGS, BYOL_STEP, seed, byol=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d_graphs"]["time"] = graphed_vs_eager_time("d_byol_graphs", BYOL_FLAGS, BYOL_STEP,
+                                                    seed, smi, byol=True)
+    out["launches"]["byol_graphed_step"] = counts_with(**{
+        k: v // DISPATCH for k, v in out["d_graphs"]["launches_per_replay"].items()})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (f): a batch-16 BYOL step, card vs CPU
+    out["f_cpu_check"] = {
+        "audiontt": card_vs_cpu_step(
+            seed, dev, dict(batch_size=16, stop_gradient=True, predictor=True), {},
+            ("encoder.features.0.bias", "encoder.features.4.bias"), STEP_LOSS_RTOL,
+            STEP_GRAD_RTOL, "pool and ReLU decisions flip on 1e-7 input differences",
+            label="BYOL card vs CPU", byol=True),
+        "vit_tiny_fused": card_vs_cpu_step(
+            seed, dev, dict(model_type="vit_tiny", fused_attention=True, batch_size=16,
+                            stop_gradient=True, predictor=True, mask=True),
+            dict(mask_ratio=0.5), ("encoder.norm.bias",), STEP_LOSS_RTOL, VIT_FUSED_GRAD_RTOL,
+            "bf16 roundings flipped by 1e-7 differences, amplified", VIT_FUSED_GLOBAL_RTOL,
+            label="BYOL card vs CPU", byol=True)}
+    # (g): BYOL against Barlow Twins, timed
+    out["g_time"] = {"audiontt": byol_vs_bt_time("g audiontt", BYOL_FLAGS, seed, smi),
+                     "vitb": byol_vs_bt_time("g vitb", BYOL_VIT_FLAGS, seed, smi)}
+    # (h): the reproduce chain
+    out["h_chain"] = reproduce_chain(seed)
+    for stage in ("convert", "pretrain", "probe", "hear"):
+        out["launches"][f"reproduce_{stage}"] = counts_with(
+            **out["h_chain"]["stages"][stage]["launches"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2655,6 +2939,9 @@ def main() -> int:
     t12 = time.perf_counter()
     graphs = phase_graphs(args.seed, smi)
     print(f"  phase 12: {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    byol = phase_byol(args.seed, dev, smi)
+    print(f"  phase 13: {time.perf_counter() - t13:.1f} s")
     next(k for k in kernels if k["name"] == "log_mel_folded")["converter_shape"] = \
         disk["convert_mel_row"]
     # launches on the main paths, per path (timestamp request, scene request,
@@ -2666,13 +2953,15 @@ def main() -> int:
     # one --load_wav step, one step of the resumed FSD50K run, the linear
     # CLI's probe, (g) one --use_fp16 step and its bf16 probe, the linear
     # CLI --use_fp16_eval; phase 11: one step of main --use_fp16 for
-    # AudioNTT2022 and for ViT-B, the bf16 HEAR requests of both models) and
-    # in all
+    # AudioNTT2022 and for ViT-B, the bf16 HEAR requests of both models;
+    # phase 12: a graphed step of each configuration; phase 13: one BYOL step
+    # of each main_bt_byol run, a graphed BYOL step, and the reproduce chain's
+    # convert, pretrain, probe and HEAR stages) and in all
     kernels += bf16_rows
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
                **evaluation["launches"], **pretraining["launches"], **disk["launches"],
-               **bf16["launches"], **graphs["launches"]}
+               **bf16["launches"], **graphs["launches"], **byol["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

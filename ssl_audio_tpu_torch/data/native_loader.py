@@ -1,9 +1,9 @@
 """The C++ batch readers, bound with ctypes (port of
 ssl_audio_tpu/data/native_loader.py).
 
-The sources are the repository's native/npy_batch_loader.cc and
-native/wav_batch_loader.cc, shared with the JAX package and only read here.
-Each is built with g++ on first use into build/native/<name>-<hash>.so at
+The sources are the port's own csrc/npy_batch_loader.cc and
+csrc/wav_batch_loader.cc (byte for byte the JAX package's readers, so the
+batches are the same bits).  Each is built with g++ on first use into build/native/<name>-<hash>.so at
 the repository root, keyed by a hash of the source and the flags, under a
 temporary name and then renamed, so processes that build at once never load
 a half-written library.  A failed build raises with the compiler's output:
@@ -28,7 +28,7 @@ from typing import List, Optional
 import numpy as np
 
 REPO = Path(__file__).resolve().parents[2]
-NATIVE_SRC = REPO / "native"
+NATIVE_SRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = REPO / "build" / "native"
 CXX = "g++"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
@@ -53,7 +53,7 @@ def library_path(source: str) -> Path:
 
 
 def build(source: str) -> Path:
-    """The shared library of native/`source`, compiled if it is not built
+    """The shared library of csrc/`source`, compiled if it is not built
     yet.  RuntimeError with the compiler's output when the build fails."""
     out = library_path(source)
     if out.is_file():
@@ -66,9 +66,9 @@ def build(source: str) -> Path:
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as e:
-            raise RuntimeError(f"cannot build native/{source}: {' '.join(cmd)}: {e}") from e
+            raise RuntimeError(f"cannot build csrc/{source}: {' '.join(cmd)}: {e}") from e
         if proc.returncode != 0:
-            raise RuntimeError(f"{CXX} failed on native/{source} (exit {proc.returncode}):\n"
+            raise RuntimeError(f"{CXX} failed on csrc/{source} (exit {proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)
     finally:
@@ -78,7 +78,7 @@ def build(source: str) -> Path:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """The ctypes library of native/`source`, built if needed, its entry's
+    """The ctypes library of csrc/`source`, built if needed, its entry's
     argtypes and int result set."""
     lib = _libs.get(source)
     if lib is None:

@@ -109,17 +109,21 @@ def get_fsd50k_eval_loaders(cfg, data_dir="data", crop_frames=711):
 def make_epoch_eval_fn(cfg, data_dir="data", wandb_run=None):
     """The per-epoch FSD50K probe (reference main.py:497-519): eval_fn(state,
     epoch) -> eval_linear's scores for the state's encoder, on the
-    encoder's device.  The loaders are built here, so a missing FSD50K
-    raises FileNotFoundError before training starts.  A state with a target
-    encoder (the BYOL variant, not ported) raises NotImplementedError."""
+    encoder's device.  A BYOL state's target encoder is probed too, without
+    the low-shot protocol, its score returned as "teacher_score_all" (JAX
+    eval/linear.py:133-160; reference main_bt_byol.py:519-527).  The loaders
+    are built here, so a missing FSD50K raises FileNotFoundError before
+    training starts."""
     loaders = get_fsd50k_eval_loaders(cfg, data_dir)
 
     def eval_fn(state, epoch):
-        if any(name.startswith("target") for name in state.modules):
-            raise NotImplementedError("probing the BYOL target encoder is not ported yet")
         encoder = state.modules["encoder"]
-        scores = eval_linear(make_embedding_forward(cfg, encoder), *loaders,
-                             device=next(encoder.parameters()).device)
+        device = next(encoder.parameters()).device
+        scores = eval_linear(make_embedding_forward(cfg, encoder), *loaders, device=device)
+        if "target" in state.modules:
+            target = make_embedding_forward(cfg, state.modules["target"]["encoder"])
+            scores["teacher_score_all"] = eval_linear(target, *loaders, low_shot=False,
+                                                      device=device)["score_all"]
         if wandb_run is not None:
             wandb_run.log({"FSD50K score (100%)": scores["score_all"],
                            "FSD50K score (5pC) (mean)": scores.get("score_5", (None,))[0]})

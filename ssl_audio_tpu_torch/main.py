@@ -35,16 +35,20 @@ from ssl_audio_tpu_torch.train.loop import Trainer
 from ssl_audio_tpu_torch.utils.logging_utils import WandbRun
 
 
-def main(argv=None):
+def pretrain(argv=None, byol: bool = False):
+    """The pretraining run of main (byol=False) and of main_bt_byol
+    (byol=True: the BYOL-style variant, save names
+    {model_type}_byol_{epochs}_epochs or {model_type}_byol_{name}) -> the
+    Trainer after fit."""
     cfg = config_from_args(argv)
     require_supported(cfg)          # before anything is written
     if cfg.resume_path and not os.path.isfile(cfg.resume_path):
         raise FileNotFoundError(f"--resume_path {cfg.resume_path}: no such checkpoint file")
 
     timestamp = datetime.datetime.now().strftime("%H:%M_%h%d")
+    kind = f"{cfg.model_type}_byol" if byol else cfg.model_type
     save_name = (
-        f"{cfg.model_type}_{cfg.epochs}_epochs" if cfg.name == ""
-        else f"{cfg.model_type}_{cfg.name}"
+        f"{kind}_{cfg.epochs}_epochs" if cfg.name == "" else f"{kind}_{cfg.name}"
     ) + timestamp
     wandb_run = WandbRun(project=f"Pre-training {cfg.dataset}", config=cfg, name=save_name)
     log_dir = f"logs/training/{cfg.dataset}/{save_name}/"
@@ -60,9 +64,12 @@ def main(argv=None):
         except (FileNotFoundError, NotImplementedError) as e:
             print(f"Epoch eval disabled: {e}")
 
-    trainer = Trainer(cfg, log_dir=log_dir, wandb_run=wandb_run)
-    print(f"training {cfg.model_type} on {cfg.dataset}: {cfg.epochs} epochs x "
-          f"{trainer.niter_per_ep} steps, batch {cfg.batch_size}, {cfg.optimizer}, "
+    trainer = Trainer(cfg, byol=byol, log_dir=log_dir, wandb_run=wandb_run)
+    variant = (f"BYOL-style, target {'EMA' if cfg.stop_gradient else 'by gradient'}, "
+               if byol else "")
+    print(f"training {cfg.model_type} ({variant}{cfg.optimizer}) on {cfg.dataset}: "
+          f"{cfg.epochs} epochs x "
+          f"{trainer.niter_per_ep} steps, batch {cfg.batch_size}, "
           f"{cfg.steps_per_dispatch} step(s) a dispatch, "
           f"device {trainer.device}, encoder compute {'bfloat16' if cfg.use_fp16 else 'float32'}"
           f" (probe {'bfloat16' if cfg.use_fp16_eval else 'float32'}); "
@@ -70,6 +77,10 @@ def main(argv=None):
     trainer.fit(ckpt_path=ckpt_path, resume_path=cfg.resume_path, eval_fn=eval_fn)
     wandb_run.finish()
     return trainer
+
+
+def main(argv=None):
+    return pretrain(argv)
 
 
 if __name__ == "__main__":

@@ -103,17 +103,18 @@ def _max_loss_gap(a: list, b: list) -> float:
     return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
 
-def run_graphed(seed: int, n: int, windows: int, dev, wavs, overrides: dict) -> dict:
+def run_graphed(seed: int, n: int, windows: int, dev, wavs, overrides: dict,
+                byol: bool = False) -> dict:
     """A state taking windows through the graph against one taking the same
     steps eagerly, and a second eager state beside them (the twin): where
     the card's algorithms part two eager runs, the twin's gaps are the yard
-    for the graph's."""
+    for the graph's.  byol: the BYOL-style state and step."""
     from ssl_audio_tpu_torch.tools.train_profile import window_runner
 
-    cfg, eager, step, gen_eager = seeded_training(seed, dev, **overrides)
-    _, twin, _, gen_twin = seeded_training(seed, dev, **overrides)
-    _, graphed, _, gen_graphed = seeded_training(seed, dev, **overrides)
-    run_window, multi = window_runner(cfg, graphed, gen_graphed, wavs, n)
+    cfg, eager, step, gen_eager = seeded_training(seed, dev, byol=byol, **overrides)
+    _, twin, _, gen_twin = seeded_training(seed, dev, byol=byol, **overrides)
+    _, graphed, _, gen_graphed = seeded_training(seed, dev, byol=byol, **overrides)
+    run_window, multi = window_runner(cfg, graphed, gen_graphed, wavs, n, byol=byol)
     out = {"setting": f"graphed windows of {n} against eager steps", "windows": windows,
            "first_difference": None, "losses": []}
     for w in range(windows):

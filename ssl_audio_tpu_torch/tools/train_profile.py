@@ -43,17 +43,22 @@ def train_config(**overrides):
     return default_config(**{"dataset": "synthetic_wav", **overrides})
 
 
-def seeded_training(seed: int, device, **overrides):
+def seeded_training(seed: int, device, byol: bool = False, **overrides):
     """-> (cfg, state, train_step, gen): the train state with weights drawn
     from `seed`, the step (over the device frontend for a wav dataset), and
-    the generator on `device` the step's random numbers come from."""
+    the generator on `device` the step's random numbers come from.  byol:
+    the BYOL-style state (a target network) and step of main_bt_byol."""
     from ssl_audio_tpu_torch.train.state import init_train_state
-    from ssl_audio_tpu_torch.train.steps import make_device_frontend, make_train_step
+    from ssl_audio_tpu_torch.train.steps import (
+        make_byol_train_step,
+        make_device_frontend,
+        make_train_step,
+    )
 
     cfg = train_config(seed=seed, **overrides)
-    state = init_train_state(cfg, torch.Generator().manual_seed(seed), device=device)
+    state = init_train_state(cfg, torch.Generator().manual_seed(seed), byol=byol, device=device)
     frontend = make_device_frontend(cfg, (0.0, 1.0)) if cfg.dataset.endswith("_wav") else None
-    step = make_train_step(cfg, frontend=frontend)
+    step = (make_byol_train_step if byol else make_train_step)(cfg, frontend=frontend)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     return cfg, state, step, gen
 
@@ -74,7 +79,7 @@ class CachedItems:
 
 
 def window_runner(cfg, state, gen, wavs: torch.Tensor, n_steps: int, ratios=None,
-                  len_keep=None):
+                  len_keep=None, byol: bool = False):
     """-> (run_window, multi_step): run_window() takes one window of n_steps
     steps on the resident batch `wavs` (raw wav when cfg's dataset is a wav
     one) through make_multi_train_step, every step on the same batch (copied
@@ -82,7 +87,8 @@ def window_runner(cfg, state, gen, wavs: torch.Tensor, n_steps: int, ratios=None
     ratios `ratios` (n_steps,) and the window's len_keep.  On the card its
     first call runs the window eagerly, its second captures the graph and
     replays it, every later one replays it; it returns the window's
-    metrics."""
+    metrics.  byol: windows of the BYOL-style step (`state` must hold a
+    target)."""
     from ssl_audio_tpu_torch.train.steps import (
         init_monitor,
         make_device_frontend,
@@ -90,7 +96,7 @@ def window_runner(cfg, state, gen, wavs: torch.Tensor, n_steps: int, ratios=None
     )
 
     frontend = make_device_frontend(cfg, (0.0, 1.0)) if cfg.dataset.endswith("_wav") else None
-    multi = make_multi_train_step(cfg, n_steps, frontend=frontend)
+    multi = make_multi_train_step(cfg, n_steps, frontend=frontend, byol=byol)
     batches = multi.inputs(tuple(wavs.shape), wavs.device) if wavs.is_cuda else \
         torch.empty(n_steps, *wavs.shape)
     batches.copy_(wavs.expand(n_steps, *wavs.shape))

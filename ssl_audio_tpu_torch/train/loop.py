@@ -13,7 +13,8 @@ token drop with a static len_keep), --steps_per_dispatch N
 (_train_one_epoch_multi: windows of N steps through
 train/steps.py make_multi_train_step, a CUDA graph per window on the card)
 and --profile_dir (a torch.profiler trace of steps 10-20 of epoch 1, at
---steps_per_dispatch 1 only, as in JAX).
+--steps_per_dispatch 1 only, as in JAX) and the BYOL-style variant
+(Trainer(cfg, byol=True): both paths through the BYOL step).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from ssl_audio_tpu_torch.train.state import init_train_state, is_vit
 from ssl_audio_tpu_torch.train.steps import (
     init_monitor,
     make_device_frontend,
+    make_byol_train_step,
     make_multi_train_step,
     make_train_step,
 )
@@ -107,18 +109,22 @@ def get_train_dataset(cfg, data_dir: str = "data"):
     raise ValueError(f"Unsupported dataset {ds}")
 
 
-def mask_ratio_for_step(cfg, schedule, iteration: int, rng: np.random.Generator) -> float:
+def mask_ratio_for_step(cfg, schedule, iteration: int, rng: np.random.Generator,
+                        byol: bool = False) -> float:
     """The teacher's mask ratio at `iteration` (reference main.py:72-81): 0
     without --mask; the schedule's value with --mask_ratio_schedule; with
     --random_mask_ratio U(0.05, mask_beta) with probability 1/2, else 0;
-    otherwise --mask_ratio."""
+    otherwise --mask_ratio.  byol (the online net's ratio, reference
+    main_bt_byol.py:68-75): no schedule, and --random_mask_ratio draws
+    U(0.02, 0.2)."""
     if not cfg.mask:
         return 0.0
-    if schedule is not None:
+    if schedule is not None and not byol:
         return float(schedule[min(iteration, len(schedule) - 1)])
     if cfg.random_mask_ratio:
+        lo, hi = (0.02, 0.2) if byol else (0.05, cfg.mask_beta)
         if rng.random() > 0.5:
-            return float(rng.uniform(0.05, cfg.mask_beta))
+            return float(rng.uniform(lo, hi))
         return 0.0
     return float(cfg.mask_ratio)
 
@@ -134,17 +140,20 @@ def token_drop_len_keep(n_tokens: int, mask_ratio: float) -> Optional[int]:
 
 class Trainer:
     """cfg.device None = the card: without one the Trainer raises unless
-    cfg.device is "cpu".  `log` takes every log line (stdout by default);
+    cfg.device is "cpu".  byol: the BYOL-style variant (main_bt_byol: the
+    target network in the state, make_byol_train_step, the online net's
+    mask ratios).  `log` takes every log line (stdout by default);
     with `log_dir` the step and score lines also go to log_dir/log.csv, and
     with `wandb_run` (utils.logging_utils.WandbRun) the losses to wandb.
     An on-disk dataset is read under `data_dir`.  epoch_losses maps each
     epoch this Trainer ran to its mean loss, epoch_times to its seconds
     waiting for batches and its seconds in steps."""
 
-    def __init__(self, cfg, dataset=None, log=print, log_dir: Optional[str] = None,
-                 wandb_run=None, data_dir: str = "data"):
+    def __init__(self, cfg, byol: bool = False, dataset=None, log=print,
+                 log_dir: Optional[str] = None, wandb_run=None, data_dir: str = "data"):
         require_supported(cfg)
         self.cfg = cfg
+        self.byol = byol
         self.log = log
         self.logger = make_csv_logger(log_dir) if log_dir else None
         self.wandb_run = wandb_run
@@ -158,17 +167,19 @@ class Trainer:
         self.niter_per_ep = len(self.loader)
         self.state = init_train_state(
             cfg, torch.Generator().manual_seed(cfg.seed),
-            niter_per_ep=self.niter_per_ep, device=self.device)
+            niter_per_ep=self.niter_per_ep, byol=byol, device=self.device)
         frontend = None
         if getattr(self.dataset, "returns_wav", False):
             # end-to-end mode: raw waveforms in, log-mel and crop on the device
             stats = D.NORM_STATS.get(cfg.dataset.split("+")[0].split("_")[0], (0.0, 1.0))
             frontend = make_device_frontend(cfg, stats)
-        self.train_step = make_train_step(cfg, world_scale=1.0, frontend=frontend)
+        step_factory = make_byol_train_step if byol else make_train_step
+        self.train_step = step_factory(cfg, world_scale=1.0, frontend=frontend)
         self.multi_step = None
         if int(cfg.steps_per_dispatch) > 1:
             self.multi_step = make_multi_train_step(cfg, int(cfg.steps_per_dispatch),
-                                                    world_scale=1.0, frontend=frontend)
+                                                    world_scale=1.0, frontend=frontend,
+                                                    byol=byol)
         self._profiler = None
         # the step's random numbers are drawn on the device
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
@@ -287,7 +298,7 @@ class Trainer:
             win_data += dt_i
             iteration = self.niter_per_ep * (epoch - 1) + it
             ratios.append(mask_ratio_for_step(cfg, self.mask_schedule, iteration,
-                                              self.host_rng))
+                                              self.host_rng, self.byol))
             tflag = time.time()
             if cuda:
                 # into the graph's batch buffer from the loader's pinned slot:
@@ -333,7 +344,8 @@ class Trainer:
             tflag = time.time()
             # from the loader's pinned slot on the card: queued, not waited for
             batch = torch.as_tensor(batch).to(self.device, non_blocking=True)
-            mask_ratio = mask_ratio_for_step(cfg, self.mask_schedule, iteration, self.host_rng)
+            mask_ratio = mask_ratio_for_step(cfg, self.mask_schedule, iteration, self.host_rng,
+                                             self.byol)
             metrics, monitor = self.train_step(self.state, batch, gen=self.gen,
                                                monitor=monitor, mask_ratio=mask_ratio,
                                                len_keep=self._static_len_keep(mask_ratio))

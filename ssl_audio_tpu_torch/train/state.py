@@ -6,9 +6,15 @@ the augmentation state through a pure step function as one pytree.  Here
 the modules own their parameters and running statistics, the optimizer its
 momentum, and a step updates all of them in place; TrainState is the one
 handle on them, and state_dict() / load_state_dict() carry all of it
-through a checkpoint.  The teacher/student step only: the BYOL variant's
-target network is not ported yet (its modules would travel under a key of
-their own beside "model").
+through a checkpoint.
+
+The BYOL variant (byol=True, ssl_audio_tpu/train/state.py:121-185) adds a
+"target" ModuleDict (encoder, head, predictor) beside the online modules,
+deep-copied from them after init, so its parameters and running statistics
+travel in state_dict()["model"] as target.encoder.* and so on.  With
+--stop_gradient the target takes no gradient and sits in no optimizer
+group (the step moves it by an EMA of the online net); without it one
+optimizer spans both stacks.
 
 With cfg.use_fp16 a step runs the encoder in bf16 (encoder_forward): bf16
 copies of the fp32 master parameters and a bf16 input, the outputs cast
@@ -19,6 +25,7 @@ masters and a checkpoint holds them: its format does not change.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Optional
 
@@ -38,7 +45,7 @@ from ssl_audio_tpu_torch.utils import resolve_device
 class TrainState:
     cfg: object
     step: int
-    modules: nn.ModuleDict            # "encoder", "head", "predictor"
+    modules: nn.ModuleDict            # "encoder", "head", "predictor" (+ "target" for BYOL)
     optimizer: torch.optim.Optimizer
     scheduler: Optional[object]       # LR factor schedule of AdamW/Adam/SGD; LARS carries its own
     aug: AugmentState
@@ -72,7 +79,8 @@ class TrainState:
 
     def state_dict(self) -> dict:
         """Everything a step reads and updates: "model" (the modules under
-        the reference's parameter names: encoder.*, head.*, predictor.*),
+        the reference's parameter names: encoder.*, head.*, predictor.*, and
+        a BYOL state's target.encoder.*, target.head.*, target.predictor.*),
         "optimizer" (momentum or moments, and LARS's step count),
         "scheduler" (None for LARS), "augment" (the mixup bank with its
         count and position, the running norm) and "step".  Tensors, ints,
@@ -153,11 +161,10 @@ def init_train_state(cfg, generator: torch.Generator, niter_per_ep: int = 100,
     CPU generator, so the same seed gives the same weights on any device),
     moved to `device`, their optimizer and the augmentation state.  A
     non-conv-stem ViT's patch projection is frozen (requires_grad False).
-    device None = the card: without one this raises unless the caller asks
-    for "cpu"."""
+    byol: a "target" copy of the three modules besides (see the module's
+    docstring).  device None = the card: without one this raises unless the
+    caller asks for "cpu"."""
     device = resolve_device(device)
-    if byol:
-        raise NotImplementedError("the BYOL variant (target network) is not ported yet")
     encoder, feature_dim = build_encoder(cfg)
     modules = nn.ModuleDict({
         "encoder": encoder,
@@ -175,6 +182,11 @@ def init_train_state(cfg, generator: torch.Generator, niter_per_ep: int = 100,
     for name, p in modules.named_parameters():
         if name in frozen:
             p.requires_grad_(False)
+    if byol:
+        # the target starts as the online net (JAX state.py:158-162)
+        modules["target"] = copy.deepcopy(nn.ModuleDict(dict(modules.items())))
+        if cfg.stop_gradient:
+            modules["target"].requires_grad_(False)
     modules.to(device)
     optimizer, scheduler = optim_lib.make_optimizer(cfg, modules.parameters(), niter_per_ep)
     return TrainState(cfg=cfg, step=0, modules=modules, optimizer=optimizer,

@@ -1,5 +1,6 @@
-"""The Barlow Twins training step (port of ssl_audio_tpu/train/steps.py:
-init_monitor, make_device_frontend, make_train_step, make_multi_train_step).
+"""The Barlow Twins training steps (port of ssl_audio_tpu/train/steps.py:
+init_monitor, make_device_frontend, make_train_step, make_byol_train_step,
+make_multi_train_step).
 
 One call = one iteration: [raw wav -> cropped, normalised log-mel] -> two
 augmented views -> teacher and student forwards -> Barlow Twins loss (+ the
@@ -12,7 +13,10 @@ implementations can be stepped on the same draws.
 
 For a ViT the teacher view is masked at the step's mask_ratio (key-bias
 masking, or token drop with a static len_keep; train/loop.py picks both per
-step) and the students are not, as in the JAX step.
+step) and the students are not, as in the JAX step.  The BYOL-style step
+(make_byol_train_step, main_bt_byol) runs an online net on both global
+views, masked, and a target net on every view, unmasked; its target is an
+EMA of the online net (--stop_gradient) or trains beside it.
 
 With --use_fp16 the encoder forwards run in bf16 over bf16 copies of the
 fp32 master parameters, taken once per step (train/state.py
@@ -29,6 +33,7 @@ eagerly, in order.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import OrderedDict
@@ -37,6 +42,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ssl_audio_tpu_torch.augment.transforms import (
     PairDraws,
@@ -113,8 +119,9 @@ def _to_device(obj, device):
 
 @dataclass
 class StepDraws:
-    """Every random number of one step; per encoder forward (teacher view,
-    student view, local crops) where a list."""
+    """Every random number of one step; per encoder forward where a list
+    (teacher view, student view, local crops; for BYOL the two online
+    passes, then the target's: pass_sizes)."""
     starts: Optional[torch.Tensor]     # (B,) frontend crop starts; None for log-mel batches
     views: PairDraws
     dropout: Optional[List[torch.Tensor]] = None    # AudioNTT: keep masks (B, T/4, hidden)
@@ -127,19 +134,29 @@ class StepDraws:
         return _to_device(self, device)
 
 
+def pass_sizes(cfg, byol: bool = False) -> list:
+    """The (n_mels, frames) input of each encoder forward of a step, in the
+    order of their draws: the two global views and the local crops; for
+    BYOL the online passes over the two global views first (JAX's
+    _view_rngs(ks, 0), (ks, 1)), then the target's over every view
+    (_view_rngs(ks, 2 + i))."""
+    views = [(cfg.n_mels, cfg.crop_frames)] * 2 + \
+        [tuple(cfg.local_crops_size)] * cfg.local_crops_number
+    return views[:2] + views if byol else views
+
+
 def draw_step(gen: torch.Generator, cfg, batch_shape, encoder, device=None,
-              wav: bool = False) -> StepDraws:
+              wav: bool = False, byol: bool = False) -> StepDraws:
     """Draw a step's random numbers from `gen` (a generator on `device`) for
-    `encoder`.  batch_shape: (B, L) raw wavs when `wav`, else
-    (B, 1, n_mels, crop_frames)."""
+    `encoder`, one set per encoder forward (pass_sizes).  batch_shape: (B, L)
+    raw wavs when `wav`, else (B, 1, n_mels, crop_frames)."""
     B = batch_shape[0]
     starts = None
     if wav:
         starts = torch.randint(0, crop_start_bound(cfg, batch_shape[-1]), (B,),
                                generator=gen, device=device, dtype=torch.int32)
     lms_shape = (B, 1, cfg.n_mels, cfg.crop_frames)
-    sizes = [(cfg.n_mels, cfg.crop_frames)] * 2 + \
-        [tuple(cfg.local_crops_size)] * cfg.local_crops_number
+    sizes = pass_sizes(cfg, byol)
     dropout = noise = drop_path = None
     if isinstance(encoder, MaskedAutoencoderViT):
         ph, pw = encoder.spec.patch_size
@@ -155,6 +172,47 @@ def draw_step(gen: torch.Generator, cfg, batch_shape, encoder, device=None,
                    for _, t in sizes]
     return StepDraws(starts, draw_pair_views(gen, cfg, lms_shape, device), dropout, noise,
                      drop_path)
+
+
+def _views(cfg, state: TrainState, batch: torch.Tensor, gen, draws: Optional[StepDraws],
+           frontend, byol: bool = False):
+    """-> (draws, views): the step's draws (drawn from `gen` unless given)
+    and its augmented views of `batch` (through `frontend` first when
+    given); the mixup bank advances."""
+    if draws is None:
+        draws = draw_step(gen, cfg, tuple(batch.shape), state.modules["encoder"],
+                          batch.device, wav=frontend is not None, byol=byol)
+    with torch.no_grad():
+        if frontend is not None:
+            batch = frontend(batch, draws.starts)
+        views = apply_pair_views(batch, state.aug, cfg, draws.views)
+    return draws, views
+
+
+def _encode(cfg, vit: bool, run_encoder, draws: StepDraws, i: int, v: torch.Tensor,
+            masking=None):
+    """Encoder forward i of a step on view v with its draws: AudioNTT's
+    dropout mask, or a ViT's token-mask noise and DropPath masks and, for a
+    masked pass, `masking` (mask_ratio, len_keep, masked_recon)."""
+    if not vit:
+        return run_encoder(v, draws.dropout[i])
+    return run_encoder(v, mean_pool=cfg.use_mean_pool, noise=draws.noise[i],
+                       drop_keep=None if draws.drop_path is None else draws.drop_path[i],
+                       **(masking or {}))
+
+
+def _finish(state: TrainState, loss, bt, recon, monitor):
+    """The optimizer and scheduler step after the backward, the step count,
+    the metrics (and the monitor folded with the loss when given)."""
+    state.optimizer.step()
+    if state.scheduler is not None:
+        state.scheduler.step()
+    state.step += 1
+    loss = loss.detach()
+    metrics = {"loss": loss, "bt_loss": bt.detach(), "recon_loss": recon.detach()}
+    if monitor is None:
+        return metrics
+    return metrics, _fold_monitor(monitor, loss)
 
 
 def make_train_step(cfg, world_scale: float = 1.0, frontend=None):
@@ -174,31 +232,16 @@ def make_train_step(cfg, world_scale: float = 1.0, frontend=None):
         mods = state.modules
         encoder, head, predictor = mods["encoder"], mods["head"], mods["predictor"]
         mods.train()
-        if draws is None:
-            draws = draw_step(gen, cfg, tuple(batch.shape), encoder, batch.device,
-                              wav=frontend is not None)
-        with torch.no_grad():
-            if frontend is not None:
-                batch = frontend(batch, draws.starts)
-            views = apply_pair_views(batch, state.aug, cfg, draws.views)
-
+        draws, views = _views(cfg, state, batch, gen, draws, frontend)
         vit = isinstance(encoder, MaskedAutoencoderViT)
-
-        def encode(i: int, v: torch.Tensor, teacher: bool = False):
-            if not vit:
-                return run_encoder(v, draws.dropout[i])
-            masking = (dict(mask_ratio=mask_ratio, len_keep=len_keep,
-                            masked_recon=cfg.masked_recon) if teacher else {})
-            return run_encoder(v, mean_pool=cfg.use_mean_pool, noise=draws.noise[i],
-                               drop_keep=None if draws.drop_path is None else draws.drop_path[i],
-                               **masking)
+        masking = dict(mask_ratio=mask_ratio, len_keep=len_keep, masked_recon=cfg.masked_recon)
 
         # cuDNN's TF32 flag is read when a kernel is chosen: the backward
         # convolutions run inside loss.backward(), so it stays in the context
         with no_tf32():
             run_encoder = encoder_forward(cfg, encoder)
             # teacher: first global view, masked (a ViT), head + predictor
-            t_out = encode(0, views[0], teacher=True)
+            t_out = _encode(cfg, vit, run_encoder, draws, 0, views[0], masking)
             recon = torch.zeros((), device=batch.device)
             if vit and cfg.masked_recon:
                 t_out, recon = t_out
@@ -206,22 +249,90 @@ def make_train_step(cfg, world_scale: float = 1.0, frontend=None):
             # student: second global view + locals, unmasked
             student_zs = []
             for i, v in enumerate(views[1:], start=1):
-                s_z = head(encode(i, v))
+                s_z = head(_encode(cfg, vit, run_encoder, draws, i, v))
                 student_zs.append(s_z.detach() if cfg.stop_gradient else s_z)
             bt = barlow_twins_loss(student_zs, [t_z], lmbda=cfg.lmbda, alpha=cfg.alpha,
                                    HSIC=cfg.HSIC, world_scale=world_scale)
             loss = bt + recon
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
-        state.step += 1
-        loss = loss.detach()
-        metrics = {"loss": loss, "bt_loss": bt.detach(), "recon_loss": recon.detach()}
-        if monitor is None:
-            return metrics
-        return metrics, _fold_monitor(monitor, loss)
+        return _finish(state, loss, bt, recon, monitor)
+
+    return train_step
+
+
+def ema_update_(target: nn.Module, online: nn.Module, step_size: float) -> None:
+    """target <- step_size * online + (1 - step_size) * target, in place,
+    parameter by parameter (optax.incremental_update: the two products
+    rounded to fp32 and then added; 1 - step_size taken in Python double).
+    Buffers (BatchNorm running statistics) are left alone."""
+    tgt = [p.detach() for p in target.parameters()]
+    new = [p.detach() for p in online.parameters()]
+    torch._foreach_mul_(tgt, 1.0 - step_size)
+    torch._foreach_add_(tgt, torch._foreach_mul(new, step_size))
+
+
+def make_byol_train_step(cfg, world_scale: float = 1.0, frontend=None):
+    """The BYOL-style step (JAX make_byol_train_step, train/steps.py:192-302;
+    reference main_bt_byol.py:40-166), with make_train_step's signature.
+
+    The online encoder and head take both global views, masked as a ViT
+    teacher is (mask_ratio, len_keep); the predictor runs once over their
+    concatenation (BatchNorm over 2B rows); the target's encoder and head
+    take every view, unmasked, in train mode (its running statistics move;
+    its predictor is never applied); the loss pairs each online view with
+    the other view's target.  With --masked_recon the recon loss is the mean
+    of the two online passes'.
+
+    --stop_gradient: the target runs under torch.no_grad() and, after the
+    backward and before the optimizer step, moves to an EMA of the pre-step
+    online parameters, decay cfg.moving_average_decay (a constant).
+    Otherwise the target trains by gradient under the same optimizer, and
+    every parameter the loss does not reach (the target's predictor, a
+    target decoder) gets a zero gradient first, as JAX's grads tree holds
+    zeros there: LARS and AdamW still move it by their weight decay."""
+    step_size = 1.0 - float(cfg.moving_average_decay)
+
+    def train_step(state: TrainState, batch: torch.Tensor, gen=None,
+                   draws: Optional[StepDraws] = None, monitor=None,
+                   mask_ratio: float = 0.0, len_keep: Optional[int] = None):
+        mods = state.modules
+        encoder, head, predictor, target = (mods["encoder"], mods["head"], mods["predictor"],
+                                            mods["target"])
+        mods.train()
+        draws, views = _views(cfg, state, batch, gen, draws, frontend, byol=True)
+        vit = isinstance(encoder, MaskedAutoencoderViT)
+        masking = dict(mask_ratio=mask_ratio, len_keep=len_keep, masked_recon=cfg.masked_recon)
+
+        with no_tf32():
+            run_online = encoder_forward(cfg, encoder)
+            recon = torch.zeros((), device=batch.device)
+            online = []
+            for i, v in enumerate(views[:2]):
+                out = _encode(cfg, vit, run_online, draws, i, v, masking)
+                if vit and cfg.masked_recon:
+                    out, rl = out
+                    recon = recon + rl / 2.0
+                online.append(head(out))
+            online = list(predictor(torch.cat(online)).chunk(2))
+            with torch.no_grad() if cfg.stop_gradient else contextlib.nullcontext():
+                run_target = encoder_forward(cfg, target["encoder"])
+                target_zs = [target["head"](_encode(cfg, vit, run_target, draws, 2 + i, v))
+                             for i, v in enumerate(views)]
+            bt = barlow_twins_loss(online, target_zs[:2], lmbda=cfg.lmbda, alpha=cfg.alpha,
+                                   HSIC=cfg.HSIC, world_scale=world_scale)
+            loss = bt + recon
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        if cfg.stop_gradient:
+            with torch.no_grad():
+                ema_update_(target, nn.ModuleList([encoder, head, predictor]), step_size)
+        else:
+            for group in state.optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+        return _finish(state, loss, bt, recon, monitor)
 
     return train_step
 
@@ -248,7 +359,8 @@ def _stack(metrics: list) -> dict:
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
-def make_multi_train_step(cfg, n_steps: int, world_scale: float = 1.0, frontend=None):
+def make_multi_train_step(cfg, n_steps: int, world_scale: float = 1.0, frontend=None,
+                          byol: bool = False):
     """-> multi_step(state, batches (N, B, ...), mask_ratios (N,), monitor,
     len_keep=None, *, gen) -> (metrics stacked (N,), monitor): N training
     steps in one dispatch (--steps_per_dispatch, JAX's make_multi_train_step).
@@ -272,8 +384,10 @@ def make_multi_train_step(cfg, n_steps: int, world_scale: float = 1.0, frontend=
     loader's pinned slots); after it the host counters advance by N
     (TrainState.advance_host) and the kernels' launch counters by what the
     capture saw.  A failed capture raises: nothing falls back to eager
-    windows."""
-    step = make_train_step(cfg, world_scale=world_scale, frontend=frontend)
+    windows.  byol: windows of make_byol_train_step (the EMA's in-place
+    updates are captured with the rest)."""
+    factory = make_byol_train_step if byol else make_train_step
+    step = factory(cfg, world_scale=world_scale, frontend=frontend)
     graphs: "OrderedDict[Optional[int], _Window]" = OrderedDict()
     static = {"batches": None, "ratios": None, "owner": None}
 

@@ -25,6 +25,18 @@ import torch
 
 from ssl_audio_tpu_torch.ops import fused_attention as fa
 
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """One torch thread per test (tests/test_torch_checkpoint.py says why:
+    under the suite's six workers a pool of threads per worker made this
+    file's tests tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = fa.TILE
 BF16_SPACING = 2.0 ** -7
 REL_L2 = 1e-4

@@ -16,6 +16,18 @@ from ssl_audio_tpu.utils.torch_export import export_audiontt_state_dict
 from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022
 from ssl_audio_tpu_torch.utils.weights import audiontt_state_dict_from_jax
 
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """One torch thread per test (tests/test_torch_checkpoint.py says why:
+    under the suite's six workers a pool of threads per worker made this
+    file's tests tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # embeddings / max|embedding|: fp32 convolutions and 1024-2048-wide matrix
 # products summed in different orders by XLA and PyTorch's CPU kernels
 EMB_RTOL = 1e-5

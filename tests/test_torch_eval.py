@@ -44,6 +44,18 @@ from ssl_audio_tpu_torch.train.state import build_encoder
 from ssl_audio_tpu_torch.utils.weights import (
     audiontt_state_dict_from_jax, mlp_clf_params_from_jax, vit_state_dict_from_jax)
 
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """One torch thread per test (tests/test_torch_checkpoint.py says why:
+    under the suite's six workers a pool of threads per worker made this
+    file's tests tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 SPEC = dict(img_size=(64, 96), patch_size=(16, 16), embed_dim=64, depth=2, num_heads=4,
             decoder_embed_dim=32, decoder_depth=1, decoder_num_heads=2)
@@ -304,12 +316,15 @@ def test_eval_linear_on_the_synthetic_loader(audiontt_pair):
     assert len(res["score_5"]) == 2 and 0.0 <= res["score_5"][0] <= 1.0
 
 
-def test_deferred_eval_options_raise(audiontt_pair, tmp_path):
-    """The per-epoch FSD50K probe of a state with a BYOL target encoder is
-    not ported; --use_fp16_eval is (tests/test_torch_bf16_serving.py holds
-    it against JAX), so it no longer raises and gives fp32 embeddings.
-    Without FSD50K the probe's loaders raise FileNotFoundError (main then
-    disables the hook)."""
+def test_deferred_eval_options_raise(audiontt_pair, tmp_path, monkeypatch):
+    """No eval option is deferred any more: --use_fp16_eval (held against
+    JAX in tests/test_torch_bf16_serving.py) gives fp32 embeddings, and the
+    per-epoch FSD50K probe of a BYOL state also scores its target encoder,
+    without the low-shot protocol, as "teacher_score_all": eval_linear's
+    score over the target (eval_linear is recorded here, not run: the
+    forwards it was handed are checked against the two encoders).  Without
+    FSD50K the probe's loaders raise FileNotFoundError (main then disables
+    the hook)."""
     from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
 
     _, enc = audiontt_pair
@@ -326,10 +341,25 @@ def test_deferred_eval_options_raise(audiontt_pair, tmp_path):
         linear.make_epoch_eval_fn(cfg, data_dir=str(tmp_path / "none"))
     fabricate_fsd50k(str(tmp_path / "data"), 2, 50, n_val=1, n_test=1)
     eval_fn = linear.make_epoch_eval_fn(cfg, data_dir=str(tmp_path / "data"))
-    byol = types.SimpleNamespace(modules=torch.nn.ModuleDict({"encoder": enc,
-                                                              "target_encoder": enc}))
-    with pytest.raises(NotImplementedError, match="BYOL"):
-        eval_fn(byol, 1)
+    target, _ = build_encoder(cfg)
+    byol = types.SimpleNamespace(modules=torch.nn.ModuleDict(
+        {"encoder": enc, "target": torch.nn.ModuleDict({"encoder": target})}))
+    calls = []
+
+    def eval_linear(forward, *loaders, low_shot=True, device=None):
+        calls.append((forward, len(loaders), low_shot, device))
+        return {"score_all": 0.25 * len(calls), **({"score_5": (0.1, 0.0)} if low_shot else {})}
+
+    monkeypatch.setattr(linear, "eval_linear", eval_linear)
+    scores = eval_fn(byol, 1)
+    assert scores == {"score_all": 0.25, "score_5": (0.1, 0.0), "teacher_score_all": 0.5}
+    assert [c[1:] for c in calls] == [(3, True, torch.device("cpu")),
+                                      (3, False, torch.device("cpu"))]
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 1, 64, 96))
+                         .astype(np.float32))
+    for (forward, *_), module in zip(calls, (enc, target)):
+        assert torch.equal(forward(x), linear.make_embedding_forward(cfg, module)(x))
+    assert not torch.equal(calls[0][0](x), calls[1][0](x))
 
 
 # ---------------------------------------------------------------- mlp_clf.py

@@ -22,6 +22,18 @@ from ssl_audio_tpu.utils.torch_export import export_vit_state_dict
 from ssl_audio_tpu_torch.hear import vit as tvit
 from ssl_audio_tpu_torch.utils.weights import vit_state_dict_from_jax
 
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """One torch thread per test (tests/test_torch_checkpoint.py says why:
+    under the suite's six workers a pool of threads per worker made this
+    file's tests tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 EMB_RTOL = 1e-4
 BF16_RTOL = 2.0 ** -7     # one bf16 spacing: a value rounds to its neighbour on one side
 MODELS = {"vit_tiny": ("vit_tiny", "16x16"), "vitc_tiny": ("vitc_tiny", "16x8")}

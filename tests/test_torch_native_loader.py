@@ -116,7 +116,11 @@ def test_libraries_build_under_build_native_keyed_by_source_and_flags():
         assert path.name.startswith(source[:-3] + "-") and path.suffix == ".so"
         native.load(source)
         assert path.is_file()
-    assert native.NATIVE_SRC == native.REPO / "native"
+    # the port's own copies of the JAX side's readers, byte for byte
+    assert native.NATIVE_SRC == native.REPO / "ssl_audio_tpu_torch" / "csrc"
+    for source in native.SIGNATURES:
+        assert (native.NATIVE_SRC / source).read_bytes() == \
+            (native.REPO / "native" / source).read_bytes()
 
 
 def test_a_failed_build_raises(tmp_path, monkeypatch):

@@ -47,6 +47,18 @@ from ssl_audio_tpu_torch.train.steps import (
 from ssl_audio_tpu_torch.utils.weights import lars_state_from_jax, train_state_dicts_from_jax
 from tests.test_torch_augment import jax_pair_draws
 
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """One torch thread per test (tests/test_torch_checkpoint.py says why:
+    under the suite's six workers a pool of threads per worker made this
+    file's tests tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-4
 # The step's ReLU and 2x2-pool decisions are discrete.  The port's views differ
 # from JAX's in the last bits (VIEWS_ATOL: bicubic products, log-mixup-exp and
@@ -388,9 +400,13 @@ def test_deferred_flags_raise():
         with pytest.raises(NotImplementedError):
             require_supported(cfg)
     assert callable(make_train_step(default_config(dataset="synthetic", use_fp16=True)))
-    with pytest.raises(NotImplementedError):
-        init_train_state(default_config(dataset="synthetic"), torch.Generator(), byol=True,
-                         device="cpu")
+    # the BYOL variant is ported: its state holds a target equal to the online net
+    byol = init_train_state(default_config(dataset="synthetic", projector_hidden_dim=64),
+                            torch.Generator(), byol=True, device="cpu")
+    online = {k: v for k, v in byol.modules.state_dict().items() if not k.startswith("target.")}
+    assert {f"target.{k}" for k in online} == set(byol.modules.state_dict()) - set(online)
+    assert all(torch.equal(byol.modules.state_dict()[f"target.{k}"], v)
+               for k, v in online.items())
     if not torch.cuda.is_available():       # device None = the card, never the CPU
         with pytest.raises(RuntimeError):
             init_train_state(default_config(dataset="synthetic"), torch.Generator())

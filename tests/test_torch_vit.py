@@ -27,6 +27,18 @@ from ssl_audio_tpu.utils.torch_export import export_vit_state_dict
 from ssl_audio_tpu_torch.models import vit
 from ssl_audio_tpu_torch.utils.weights import vit_state_dict_from_jax
 
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """One torch thread per test (tests/test_torch_checkpoint.py says why:
+    under the suite's six workers a pool of threads per worker made this
+    file's tests tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, L = 4, 24
 TOL = 1e-4
 SPEC = dict(img_size=(64, 96), patch_size=(16, 16), embed_dim=64, depth=2, num_heads=4,

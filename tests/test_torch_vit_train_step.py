@@ -50,6 +50,18 @@ from ssl_audio_tpu_torch.utils.weights import train_state_dicts_from_jax
 from tests.test_torch_train_step import STATS, port_draws
 from tests.test_torch_vit import JaxDraws
 
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """One torch thread per test (tests/test_torch_checkpoint.py says why:
+    under the suite's six workers a pool of threads per worker made this
+    file's tests tens of times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, L, TOKENS = 4, 8000, 8
 TOL = 1e-4
 # The Barlow Twins loss at B = 4 amplifies fp32 noise: the port's own
