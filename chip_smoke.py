@@ -151,6 +151,34 @@ Phases, each of which exits non-zero on failure:
      share, peak memory; (h) the reproduce chain (tools/reproduce.py) on a
      tree written in a temporary directory: convert, pretrain, probe, HEAR,
      aggregate, each stage's seconds and launches, every score in [0, 1].
+ 14. the rest of the encoder zoo at full width, batch 128, raw 10-s clips
+     in, every step's launches counted: (a) AudioNTT2022
+     --squeeze_excitation at the defaults, an epoch through main with the
+     per-epoch FSD50K probe (log-mel 1, fused forward 2, backward 2 a step;
+     the probe's odd 711-frame crops launch nothing), then an epoch under
+     --use_fp16 (bf16 kernels only); (b) resnet50_ReGP_NRF at the defaults
+     (embedding 16,384), 4 epochs of 3 steps twice and once resumed from
+     model_2.pt (phase 9's check, under cuDNN's deterministic algorithms,
+     deterministic_cudnn says why; log-mel 1 a step, nothing else), resnet18
+     for an epoch and under main_bt_byol --stop_gradient --predictor;
+     (c) SE and resnet18 (deterministic cuDNN) at --steps_per_dispatch 4 and
+     ViT-B --remat, 14-step epochs against one step a dispatch, bit for bit
+     (phase 12's checks; resnet18 timed, with the profiler's kernel
+     events);
+     (d) ViT-B --fused_attention --remat with key-bias masking at 0.75, an
+     epoch through the Trainer in fp32 and in bf16 (attention forward 48,
+     backward 24 a step: the recompute runs the forward again), and one
+     step with remat against the same step without it (losses and
+     gradients within REMAT_RTOL, the largest gap printed); (e) batch-16
+     steps card vs CPU (SE, resnet18_ReGP_NRF, vit_tiny fused with remat);
+     (f) HEAR serving of resnet50 and resnet50_ReGP_NRF with seeded
+     weights: phase 4's requests (log-mel 7 / 1, nothing else), a small
+     request against the CPU, bf16 against fp32, ms, clips/s and the share
+     of the fp32 operation bound, and the timestamp request from (b)'s
+     model_4.pt bit-identical to the trainer's encoder in memory; (g) A B
+     B A timings on a resident batch: SE against no SE, resnet18, resnet50
+     and resnet50_ReGP_NRF beside AudioNTT2022, ViT-B remat against no
+     remat (ms per step, clips/s, device busy and idle, peak memory).
 The `kernels` JSON line lists every ported kernel, the bf16 instantiations
 as entries of their own; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -2532,7 +2560,7 @@ def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int
     overrides = {k: v for k, v in vars(config_from_args(flags)).items()
                  if k in ("model_type", "fused_attention", "use_fp16", "optimizer", "lr",
                           "lr_schedule", "mask", "random_mask_ratio", "mask_beta", "wd",
-                          "stop_gradient", "predictor")}
+                          "stop_gradient", "predictor", "squeeze_excitation", "remat")}
     cfg, state, step, gen = seeded_training(seed, torch.device("cuda"), byol=byol,
                                             **overrides)
     wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).cuda()
@@ -2673,13 +2701,14 @@ CHAIN_TASKS = ("esc50-v2.0.0-full", "speech_commands-v0.0.2-5h")
 
 
 @contextlib.contextmanager
-def byol_steps_counted(per_step: dict, what: str):
-    """Inside: every BYOL step the Trainer makes has its launches counted
+def steps_counted(per_step: dict, what: str, factory: str = "make_byol_train_step"):
+    """Inside: every step the Trainer makes by `factory` (its BYOL steps, or
+    with "make_train_step" its Barlow Twins steps) has its launches counted
     (read just before and just after the step, the device synchronised);
     each must be per_step, checked on leaving."""
     from ssl_audio_tpu_torch.train import loop
 
-    make = loop.make_byol_train_step
+    make = getattr(loop, factory)
     seen = []
 
     def counted_factory(*args, **kwargs):
@@ -2693,17 +2722,17 @@ def byol_steps_counted(per_step: dict, what: str):
             return out
         return counted
 
-    loop.make_byol_train_step = counted_factory
+    setattr(loop, factory, counted_factory)
     try:
         yield seen
     finally:
-        loop.make_byol_train_step = make
+        setattr(loop, factory, make)
     want = counts_with(**per_step)
     bad = [c for c in seen if c != want]
     if not seen or bad:
-        raise SystemExit(f"{what}: {len(bad)} of {len(seen)} BYOL steps launched other than "
+        raise SystemExit(f"{what}: {len(bad)} of {len(seen)} steps launched other than "
                          f"{per_step}: {bad[:2]}")
-    print(f"  {what}: each of {len(seen)} BYOL steps launched {per_step}")
+    print(f"  {what}: each of {len(seen)} steps launched {per_step}")
 
 
 def byol_vs_bt_time(name: str, flags: list[str], seed: int, smi: str) -> dict:
@@ -2829,7 +2858,7 @@ def phase_byol(seed: int, dev: torch.device, smi: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_byol_") as tmp, contextlib.chdir(tmp):
         # (a): the defaults with --stop_gradient --predictor, 4 epochs of 3 steps,
         # twice and once resumed from model_2.pt
-        with byol_steps_counted(BYOL_STEP, "(a)"):
+        with steps_counted(BYOL_STEP, "(a)"):
             out["a_resume"], trainer, _ = resume_check("byol_audiontt", seed, BYOL_FLAGS,
                                                        BYOL_EPOCH_STEPS, BYOL_STEP,
                                                        main_bt_byol.main)
@@ -2844,7 +2873,7 @@ def phase_byol(seed: int, dev: torch.device, smi: str) -> dict:
                  BYOL_BY_GRADIENT_STEP),
                 ("c_vitb", BYOL_VIT_FLAGS, BYOL_VIT_STEP),
                 ("e_bf16", BYOL_FLAGS + ["--use_fp16"], BYOL_BF16_STEP)):
-            with byol_steps_counted(per_step, f"({key[0]})"):
+            with steps_counted(per_step, f"({key[0]})"):
                 trainer, seconds, _, _ = run_main(
                     flags + ["--epochs", "1", "--synthetic_steps_per_epoch",
                              str(BYOL_EPOCH_STEPS), "--seed", str(seed), "--save_base_dir", key],
@@ -2891,6 +2920,398 @@ def phase_byol(seed: int, dev: torch.device, smi: str) -> dict:
     for stage in ("convert", "pretrain", "probe", "hear"):
         out["launches"][f"reproduce_{stage}"] = counts_with(
             **out["h_chain"]["stages"][stage]["launches"])
+    return out
+
+
+# phase 14: the rest of the encoder zoo (SE blocks, --remat, the ResNets).
+# Launches per step: a ResNet runs no hand-written kernel but the log-mel;
+# SE follows the fused block 1, so AudioNTT's counts stand; under --remat
+# every ViT block that takes a gradient runs its attention forward twice
+# (forward and recompute in the backward), the backward once
+ZOO_SE = ["--dataset", "synthetic_wav", "--model_type", "audiontt", "--squeeze_excitation"]
+ZOO_RN50R = ["--dataset", "synthetic_wav", "--model_type", "resnet50_ReGP_NRF"]
+ZOO_RN18 = ["--dataset", "synthetic_wav", "--model_type", "resnet18"]
+ZOO_REMAT = [*VITB, "--remat", "--optimizer", "AdamW", "--mask", "--mask_ratio", "0.75",
+             "--no_token_drop"]
+ZOO_RESNET_STEP = {"log_mel_folded": 1}
+ZOO_REMAT_STEP = {"log_mel_folded": 1, "fused_attention_fwd": 4 * VIT_DEPTH,
+                  "fused_attention_bwd": 2 * VIT_DEPTH}
+ZOO_REMAT_BF16_STEP = {"log_mel_folded": 1, "fused_attention_fwd_bf16": 4 * VIT_DEPTH,
+                       "fused_attention_bwd_bf16": 2 * VIT_DEPTH}
+ZOO_EPOCH_STEPS = 3
+ZOO_PROBE_SPLITS = {"train": 128, "val": 32, "test": 32}   # the per-epoch probe's tree
+ZOO_TIMED_STEPS = 7      # per turn, A B B A: 14 timed steps a side
+REMAT_RTOL = 1e-6        # remat against no remat: the same kernels on the same values
+ZOO_BF16_RTOL = 2e-2     # bf16 HEAR embeddings against fp32, relative L2 (the CPU tests' ceiling)
+HEAR_RESNETS = ("resnet50", "resnet50_ReGP_NRF")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside.  At its default choice two
+    eager runs of a ResNet step part at batch 128 (resnet50_ReGP_NRF: 4
+    epochs of 3 steps apart by 18.2 in a running variance, losses by 1-4 %;
+    PR 13, call 1): the weight-gradient algorithms it picks for some of the
+    ResNets' convolutions sum in no fixed order.  Bit-for-bit checks of the
+    ResNets run under this, as the card tests' do."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def conv_unit_flops(model: torch.nn.Module, unit: torch.Tensor) -> float:
+    """FLOPs of one forward of a conv encoder on a batch-1 unit: 2 x the
+    multiply-adds of every Conv2d and Linear, from the forward's shapes."""
+    macs = []
+
+    def conv(mod, inp, out):
+        macs.append(out.numel() * mod.in_channels // mod.groups * mod.weight[0, 0].numel())
+
+    def linear(mod, inp, out):
+        macs.append(out.numel() * mod.in_features)
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else linear)
+             for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(unit)
+    finally:
+        for h in hooks:
+            h.remove()
+    return 2.0 * sum(macs)
+
+
+def zoo_epoch(flags: list[str], per_step: dict, what: str, seed: int, entry=None,
+              factory: str = "make_train_step") -> dict:
+    """One ZOO_EPOCH_STEPS-step epoch of main (or `entry`) in-process, every
+    step's launches counted (each must be per_step); whatever the run
+    launched besides its steps (the per-epoch probe) is returned beside
+    them."""
+    with steps_counted(per_step, what, factory) as seen:
+        trainer, seconds, total, lines = run_main(
+            flags + ["--epochs", "1", "--synthetic_steps_per_epoch", str(ZOO_EPOCH_STEPS),
+                     "--seed", str(seed), "--save_base_dir",
+                     what.strip("()").replace(" ", "_")], entry)
+    loss = trainer.epoch_losses[1]
+    if loss != loss or abs(loss) == float("inf"):
+        raise SystemExit(f"{what}: the epoch's mean loss is {loss}")
+    besides = {k: total[k] - sum(c[k] for c in seen) for k in total}
+    rec = {"flags": flags, "steps": len(seen), "seconds": seconds, "mean_loss": loss,
+           "launches_per_step": per_step,
+           "launches_besides_the_steps": {k: v for k, v in besides.items() if v},
+           "probe": [line for line in lines if "score" in line.lower()][-2:]}
+    print(f"  {what} {json.dumps(rec)}")
+    del trainer
+    return rec
+
+
+def turns_time(name: str, sides: dict, seed: int, smi: str) -> dict:
+    """The steps of `sides` (label -> seeded_training overrides) on one batch
+    of 128 seeded 10-s clips resident on the card, in turns (the labels in
+    order, then reversed: A B B A for two), ZOO_TIMED_STEPS steps a turn
+    after two warm-ups each: ms per step (median, min), clips/s, one
+    profiled step of each (device busy, idle share) and each side's peak
+    memory above what was allocated when its state was made."""
+    import gc
+
+    from ssl_audio_tpu_torch.tools.serving import profile, seeded_clips
+    from ssl_audio_tpu_torch.tools.train_profile import seeded_training, step_wall_ms
+
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).cuda()
+    runs, peak, times, prof = {}, {}, {k: [] for k in sides}, {}
+    for label, overrides in sides.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, state, step, gen = seeded_training(seed, torch.device("cuda"), **overrides)
+        ratio = 0.75 if overrides.get("mask") else 0.0
+        run = (lambda st=state, sp=step, g=gen, r=ratio: sp(st, wavs, gen=g, mask_ratio=r))
+        run()
+        run()
+        torch.cuda.synchronize()
+        peak[label] = torch.cuda.max_memory_allocated() - base
+        runs[label] = run
+    order = list(sides) + list(sides)[::-1]
+    for label in order:
+        times[label] += step_wall_ms(runs[label], ZOO_TIMED_STEPS)
+    for label in sides:
+        p = profile(runs[label])
+        prof[label] = {"wall_ms": p["wall_ms"], "device_busy_ms": p["device_busy_ms"],
+                       "idle_share": p["idle_share"], "launches_seen": p["launches_seen"],
+                       "top_kernels_ms": {k[:80]: v for k, v in
+                                          list(p["device_ms_by_kernel"].items())[:4]}}
+    med = {k: statistics.median(v) for k, v in times.items()}
+    rec = {"order": ", ".join(order), "steps_timed": {k: len(v) for k, v in times.items()},
+           "ms_per_step_median": med, "ms_per_step_min": {k: min(v) for k, v in times.items()},
+           "clips_per_s": {k: TRAIN_BATCH / v * 1e3 for k, v in med.items()},
+           "profile": prof, "peak_memory_above_start_bytes": peak, "card": smi}
+    print(f"  (g) {name}: {json.dumps(rec)}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def remat_equality(seed: int, dev: torch.device) -> dict:
+    """(d): one step of ViT-B --fused_attention with and without --remat from
+    the same seeded state and draws on a resident batch of 128: the losses
+    and every gradient, the largest relative gap printed; each must stay
+    within REMAT_RTOL."""
+    from ssl_audio_tpu_torch.tools.serving import seeded_clips
+    from ssl_audio_tpu_torch.tools.train_profile import seeded_training
+    from ssl_audio_tpu_torch.train.steps import draw_step
+
+    wavs = seeded_clips(torch.Generator().manual_seed(seed), TRAIN_BATCH, CLIP).to(dev)
+    runs = []
+    for remat in (False, True):
+        cfg, state, step, _ = seeded_training(seed, dev, model_type="vit_base",
+                                              fused_attention=True, optimizer="AdamW",
+                                              mask=True, remat=remat)
+        draws = draw_step(torch.Generator(device=dev).manual_seed(seed + 9), cfg,
+                          tuple(wavs.shape), state.modules["encoder"], dev, wav=True)
+        zero_launch_counts()
+        loss = float(step(state, wavs, draws=draws, mask_ratio=0.75)["loss"])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        grads = {k: p.grad.detach().clone() for k, p in state.modules.named_parameters()
+                 if p.grad is not None}
+        runs.append((loss, grads, launches))
+        del state
+    (l0, g0, c0), (l1, g1, c1) = runs
+    gaps = {k: float((g1[k].double() - g.double()).norm() / max(g.double().norm(), 1e-30))
+            for k, g in g0.items()}
+    worst = max(gaps, key=gaps.get)
+    rec = {"loss": {"no_remat": l0, "remat": l1}, "loss_rel_gap": abs(l1 - l0) / abs(l0),
+           "worst_grad": worst, "worst_grad_rel_l2": gaps[worst],
+           "grads_bit_for_bit": all(torch.equal(g1[k], g) for k, g in g0.items()),
+           "launches": {"no_remat": c0, "remat": c1}}
+    print(f"  (d) remat against no remat, one step: {json.dumps(rec)}")
+    check("remat vs no remat, loss, relative", rec["loss_rel_gap"], REMAT_RTOL,
+          "the same kernels on the same values")
+    check("remat vs no remat, gradients, worst relative L2", gaps[worst], REMAT_RTOL,
+          "the same kernels on the same values")
+    if counts_with(**c1) != counts_with(**ZOO_REMAT_STEP) or set(g0) != set(g1):
+        raise SystemExit(f"(d): the remat step launched {c1}, expected {ZOO_REMAT_STEP}")
+    return rec
+
+
+def hear_resnets(seed: int, dev: torch.device, smi: str, ckpt: str, encoder) -> dict:
+    """(f): hear.conv.load_model("", resnet50 / resnet50_ReGP_NRF): phase 4's
+    timestamp and scene requests (launches, shapes, finite), a small request
+    against the CPU, the same requests in bf16 against fp32, ms per request,
+    clips/s and the share of the fp32 operation bound; then the timestamp
+    request from (b)'s checkpoint against a wrapper handed the trainer's
+    encoder in memory, bit for bit."""
+    from ssl_audio_tpu_torch.hear import conv as hear_conv
+    from ssl_audio_tpu_torch.tools.serving import profile, seeded_clips
+
+    audio = seeded_clips(torch.Generator().manual_seed(seed), N_CLIPS, CLIP)
+    small = audio[:2, :16000]
+    out = {"launches": {}}
+    for mt in HEAR_RESNETS:
+        model = hear_conv.load_model("", mt, fused_conv=True)
+        bf16 = hear_conv.load_model("", mt, compute_dtype="bfloat16")
+        requests = {
+            "timestamp": lambda m: hear_conv.get_timestamp_embeddings(audio, m)[0],
+            "scene": lambda m: hear_conv.get_scene_embeddings(audio, m)}
+        rec = {}
+        for path, request in requests.items():
+            request(model)                               # warm-up: cuDNN's plans
+            zero_launch_counts()
+            emb = request(model)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            windows = emb.shape[0] * (emb.shape[1] if emb.dim() == 3 else 1)
+            chunks = -(-windows // CHUNK) if path == "timestamp" else 1
+            out["launches"][f"hear_{mt}_{path}"] = expect(
+                launches, {"log_mel_folded": chunks}, 1, f"(f) {mt} {path}")
+            if emb.shape[-1] != model.embed_dim or not torch.isfinite(emb).all():
+                raise SystemExit(f"(f) {mt} {path}: {tuple(emb.shape)}, finite "
+                                 f"{bool(torch.isfinite(emb).all())}")
+            emb16 = request(bf16)
+            rel16 = float((emb16.double() - emb.double()).norm() / emb.double().norm())
+            check(f"(f) {mt} {path} bf16 vs fp32, relative L2", rel16, ZOO_BF16_RTOL,
+                  "bf16 roundings through the conv stack (the CPU tests' ceiling)")
+            times = wall_ms(lambda: request(model))
+            # the work: one forward per 96-frame window, or per whole clip
+            frames = 96 if path == "timestamp" else model.mel.num_frames(CLIP)
+            flops = windows * conv_unit_flops(model.model,
+                                              torch.zeros(1, 1, 64, frames, device=dev))
+            prof = profile(lambda: request(model))
+            med = statistics.median(times)
+            rec[path] = {"shape": list(emb.shape), "ms_per_request_median": med,
+                         "ms_per_request": times, "clips_per_s": N_CLIPS / med * 1e3,
+                         "bf16_rel_l2_vs_fp32": rel16, "unit_forwards": windows,
+                         "tflop": flops / 1e12, "fp32_bound_ms": flops / PEAK_FP32_FLOPS * 1e3,
+                         "bound_share": flops / PEAK_FP32_FLOPS * 1e3 / med,
+                         "device_busy_ms": prof["device_busy_ms"],
+                         "idle_share": prof["idle_share"],
+                         "top_kernels_ms": {k[:80]: v for k, v in
+                                            list(prof["device_ms_by_kernel"].items())[:4]}}
+            print(f"  (f) {mt} {path}: {json.dumps(rec[path])}")
+        cpu = hear_conv.load_model("", mt, device="cpu")
+        cpu.model.load_state_dict(model.model.state_dict())
+        for path, fn in (("timestamp", lambda m: hear_conv.get_timestamp_embeddings(small, m)[0]),
+                         ("scene", lambda m: hear_conv.get_scene_embeddings(small, m))):
+            a, b = fn(model), fn(cpu)
+            rec[f"{path}_cpu_check"] = max_err(a, b) / float(b.abs().max())
+            check(f"(f) {mt} {path} embeddings card vs CPU, / max|emb|",
+                  rec[f"{path}_cpu_check"], EMB_RTOL, "fp32 sums in another order")
+        out[mt] = dict(rec, card=smi)
+        del model, bf16, cpu
+        torch.cuda.empty_cache()
+    # the timestamp request from (b)'s checkpoint against the trainer's encoder
+    served = hear_conv.load_model(ckpt, "resnet50_ReGP_NRF")
+    in_memory = hear_conv.load_model("", "resnet50_ReGP_NRF")
+    in_memory.model.load_state_dict(encoder.state_dict())
+    emb, _ = hear_conv.get_timestamp_embeddings(audio, served)
+    emb_mem, _ = hear_conv.get_timestamp_embeddings(audio, in_memory)
+    out["from_checkpoint"] = {"checkpoint": os.path.basename(ckpt), "shape": list(emb.shape),
+                              "bit_identical": bool(torch.equal(emb, emb_mem))}
+    print(f"  (f) timestamp request from the checkpoint: {json.dumps(out['from_checkpoint'])}")
+    if not out["from_checkpoint"]["bit_identical"]:
+        raise SystemExit("(f): the checkpoint's ResNet serves other embeddings than the "
+                         "trainer's")
+    return out
+
+
+def phase_zoo(seed: int, dev: torch.device, smi: str) -> dict:
+    """Phase 14: AudioNTT2022 with SE blocks, the ResNets and ViT-B --remat
+    through main, main_bt_byol, checkpoints and resume, graphs, card vs CPU
+    steps, HEAR serving and A B B A timings."""
+    import gc
+
+    from ssl_audio_tpu_torch import main_bt_byol
+    from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
+
+    print("phase 14: the rest of the encoder zoo (AudioNTT2022 --squeeze_excitation, "
+          "resnet18 / resnet50 / resnet50_ReGP_NRF, ViT-B --remat) at full width, batch 128, "
+          "raw 10-s clips in")
+    out = {"card": smi, "launches": {}, "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(part):
+        out["seconds"][part] = time.perf_counter() - t0 - sum(out["seconds"].values())
+
+    se_step = counts_with(**WAV_STEP_LAUNCHES)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp, contextlib.chdir(tmp):
+        # (a) SE at the defaults, an epoch with the per-epoch probe (FSD50K's
+        # 711-frame crops are odd: the probe's block 1 is the plain one), then
+        # an epoch under --use_fp16
+        fabricate_fsd50k("data", ZOO_PROBE_SPLITS["train"], DISK_FRAMES, seed,
+                         n_val=ZOO_PROBE_SPLITS["val"], n_test=ZOO_PROBE_SPLITS["test"],
+                         n_classes=DISK_CLASSES, max_labels=DISK_MAX_LABELS)
+        out["a_se"] = zoo_epoch(ZOO_SE, WAV_STEP_LAUNCHES, "(a)", seed)
+        if out["a_se"]["launches_besides_the_steps"]:
+            raise SystemExit(f"(a): the probe launched {out['a_se']['launches_besides_the_steps']}"
+                             ", expected nothing (odd 711-frame crops, log-mels in)")
+        out["launches"]["zoo_se_step"] = se_step
+        out["launches"]["zoo_se_probe"] = counts_with()
+        out["a_se_bf16"] = zoo_epoch(
+            ZOO_SE + ["--use_fp16", "--no_eval"],
+            {"log_mel_folded": 1, "fused_conv1_fwd_bf16": 2, "fused_conv1_bwd_bf16": 2},
+            "(a bf16)", seed)
+        out["launches"]["zoo_se_bf16_step"] = counts_with(
+            log_mel_folded=1, fused_conv1_fwd_bf16=2, fused_conv1_bwd_bf16=2)
+        lap("a")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b) resnet50_ReGP_NRF at the defaults: resume (bit for bit under
+        # deterministic cuDNN); resnet18, resnet18 BYOL
+        with steps_counted(ZOO_RESNET_STEP, "(b)", "make_train_step"), deterministic_cudnn():
+            out["b_resume"], trainer, ckpt_last = resume_check(
+                "zoo_resnet50_regp", seed, ZOO_RN50R + ["--no_eval"], ZOO_EPOCH_STEPS,
+                ZOO_RESNET_STEP)
+        out["launches"]["zoo_resnet50_regp_step"] = counts_with(**ZOO_RESNET_STEP)
+        encoder = trainer.state.modules["encoder"]
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["b_resnet18"] = zoo_epoch(ZOO_RN18 + ["--no_eval"], ZOO_RESNET_STEP, "(b resnet18)",
+                                      seed)
+        out["b_resnet18_byol"] = zoo_epoch(
+            ZOO_RN18 + ["--no_eval", "--stop_gradient", "--predictor"], ZOO_RESNET_STEP,
+            "(b resnet18 BYOL)", seed, main_bt_byol.main, "make_byol_train_step")
+        out["launches"]["zoo_resnet18_step"] = counts_with(**ZOO_RESNET_STEP)
+        out["launches"]["zoo_resnet18_byol_step"] = counts_with(**ZOO_RESNET_STEP)
+        lap("b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (f) HEAR ResNets, and the request from (b)'s checkpoint
+        out["f_hear"] = hear_resnets(seed, dev, smi, ckpt_last, encoder)
+        out["launches"].update({k: counts_with(**v)
+                                for k, v in out["f_hear"].pop("launches").items()})
+        lap("f")
+        del encoder
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (c) graphs: SE and resnet18 at 4 a dispatch against one a dispatch (SE's
+    # graph is phase 12's (a) with SE: resnet18 alone is timed, its replay's
+    # kernel events against 4x the step's counters); ViT-B remat.  resnet18's
+    # bit-for-bit epochs under deterministic cuDNN
+    for key, flags, per_step, timed in (("c_se", ZOO_SE, WAV_STEP_LAUNCHES, False),
+                                        ("c_resnet18", ZOO_RN18, ZOO_RESNET_STEP, True),
+                                        ("c_vitb_remat", ZOO_REMAT, ZOO_REMAT_STEP, False)):
+        with deterministic_cudnn() if key == "c_resnet18" else contextlib.nullcontext():
+            out[key] = graphs_vs_eager(key, flags, per_step, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if timed:
+            out[key]["time"] = graphed_vs_eager_time(key, flags, per_step, seed, smi)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["launches"][f"zoo_graph_{key[2:]}"] = counts_with(**{
+            k: v // DISPATCH for k, v in out[key]["launches_per_replay"].items()})
+    lap("c")
+    # (d) ViT-B --fused_attention --remat: an epoch through the Trainer, fp32
+    # and bf16 (key bias at 0.75), and remat against no remat on one step
+    _, launches, out["d_remat_epoch"] = entry_epoch(ZOO_REMAT, counts_with(**ZOO_REMAT_STEP),
+                                                    seed)
+    out["launches"]["zoo_vitb_remat_step"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, launches, out["d_remat_bf16_epoch"] = entry_epoch(
+        ZOO_REMAT + ["--use_fp16"], counts_with(**ZOO_REMAT_BF16_STEP), seed)
+    out["launches"]["zoo_vitb_remat_bf16_step"] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d_remat_equality"] = remat_equality(seed, dev)
+    lap("d")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) batch-16 steps, card vs CPU
+    out["e_cpu_check"] = {
+        "audiontt_se": card_vs_cpu_step(
+            seed, dev, dict(batch_size=16, squeeze_excitation=True), {},
+            ("encoder.features.0.bias", "encoder.features.5.bias"), STEP_LOSS_RTOL,
+            STEP_GRAD_RTOL, "pool and ReLU decisions flip on 1e-7 input differences"),
+        "resnet18_regp_nrf": card_vs_cpu_step(
+            seed, dev, dict(batch_size=16, model_type="resnet18_ReGP_NRF"), {}, (),
+            STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+            "pool and ReLU decisions flip on 1e-7 input differences"),
+        "vit_tiny_fused_remat": card_vs_cpu_step(
+            seed, dev, dict(model_type="vit_tiny", fused_attention=True, remat=True,
+                            batch_size=16, mask=True), dict(mask_ratio=0.75),
+            ("encoder.norm.bias",), STEP_LOSS_RTOL, VIT_FUSED_GRAD_RTOL,
+            "bf16 roundings flipped by 1e-7 differences, amplified", VIT_FUSED_GLOBAL_RTOL)}
+    lap("e")
+    # (g) timed, A B B A
+    out["g_time"] = {
+        "se": turns_time("SE against no SE", {
+            "audiontt": {}, "audiontt_se": dict(squeeze_excitation=True)}, seed, smi),
+        "resnets": turns_time("the ResNets beside AudioNTT2022", {
+            "audiontt": {}, "resnet18": dict(model_type="resnet18"),
+            "resnet50": dict(model_type="resnet50"),
+            "resnet50_ReGP_NRF": dict(model_type="resnet50_ReGP_NRF")}, seed, smi),
+        "remat": turns_time("ViT-B remat against no remat", {
+            "vitb": dict(model_type="vit_base", fused_attention=True, optimizer="AdamW"),
+            "vitb_remat": dict(model_type="vit_base", fused_attention=True, optimizer="AdamW",
+                               remat=True)}, seed, smi)}
+    lap("g")
+    print(f"  phase 14 seconds by part: {json.dumps(out['seconds'])}")
     return out
 
 
@@ -2942,6 +3363,9 @@ def main() -> int:
     t13 = time.perf_counter()
     byol = phase_byol(args.seed, dev, smi)
     print(f"  phase 13: {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    zoo = phase_zoo(args.seed, dev, smi)
+    print(f"  phase 14: {time.perf_counter() - t14:.1f} s")
     next(k for k in kernels if k["name"] == "log_mel_folded")["converter_shape"] = \
         disk["convert_mel_row"]
     # launches on the main paths, per path (timestamp request, scene request,
@@ -2956,12 +3380,15 @@ def main() -> int:
     # AudioNTT2022 and for ViT-B, the bf16 HEAR requests of both models;
     # phase 12: a graphed step of each configuration; phase 13: one BYOL step
     # of each main_bt_byol run, a graphed BYOL step, and the reproduce chain's
-    # convert, pretrain, probe and HEAR stages) and in all
+    # convert, pretrain, probe and HEAR stages; phase 14: one step of each
+    # new encoder's runs, the SE run's probe, a graphed step of each, the
+    # HEAR ResNet requests) and in all
     kernels += bf16_rows
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
                **evaluation["launches"], **pretraining["launches"], **disk["launches"],
-               **bf16["launches"], **graphs["launches"], **byol["launches"]}
+               **bf16["launches"], **graphs["launches"], **byol["launches"],
+               **zoo["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -3,7 +3,8 @@
 The JAX package `ssl_audio_tpu` stays the reference; this package imports
 torch and never jax, and nothing of `ssl_audio_tpu`.  Subpackages mirror the
 JAX ones: `ops` (log-mel frontend, fused conv block forward and backward,
-the nvcc build of the kernels), `models` (AudioNTT2022, heads), `objectives`,
+the nvcc build of the kernels), `models` (AudioNTT2022 with or without SE
+blocks, the ResNets, the ViT family, heads), `objectives`,
 `augment`, `train` (optimizers, state, step, loop), `data` (datasets, the
 C++ batch readers, the loader), `hear` (the HEAR 2021 serving API and the
 results aggregation), `eval`, `tools` and `utils`; `main` is the pretraining

@@ -34,8 +34,7 @@ DATASETS = [
 
 OPTIMIZERS = ["Adam", "AdamW", "SGD", "LARS"]
 
-PORTED_MODELS = ("audiontt", "vit_base", "vit_small", "vit_tiny",
-                 "vitc_base", "vitc_small", "vitc_tiny")
+PORTED_MODELS = tuple(MODELS)
 PORTED_DATASETS = ("fsd50k", "audioset", "librispeech", "fsd50k+librispeech",
                    "audioset+librispeech", "nsynth", "audioset_wav",
                    "synthetic", "synthetic_wav", "synthetic_multicue")
@@ -105,8 +104,8 @@ class Config:
     random_mask_ratio: bool = False
     mask_ratio_schedule: bool = False
     mask_beta: float = 0.3
-    remat: bool = False
-    # N train steps per device dispatch (not ported yet; 1 = step by step)
+    remat: bool = False             # gradient checkpointing of the ViT encoder's blocks
+    # N train steps per device dispatch (CUDA graphs on the card; 1 = step by step)
     steps_per_dispatch: int = 1
     # AudioNTT block 1 through the fused Conv-BN-ReLU-Pool kernels
     # (ops/fused_conv.py).  None = auto: on.  The block computes the same
@@ -214,12 +213,10 @@ def unsupported_settings(cfg: Config) -> List[str]:
     if cfg.dataset not in PORTED_DATASETS:
         bad.append(f"--dataset {cfg.dataset} (ported: {', '.join(PORTED_DATASETS)})")
     for flag, on, what in (
-            ("--squeeze_excitation", cfg.squeeze_excitation, "SE blocks"),
             ("--distributed", cfg.distributed, "data-parallel training"),
             ("--data_axis_size", cfg.data_axis_size not in (0, 1), "data-parallel training"),
             ("--model_parallel > 1", cfg.model_parallel != 1, "tensor parallelism"),
             ("--fsdp", cfg.fsdp, "sharded parameters"),
-            ("--remat", cfg.remat, "gradient checkpointing of ViT blocks"),
             ("--layout_barrier", bool(cfg.layout_barrier), "an XLA layout option")):
         if on:
             bad.append(f"{flag} ({what} not ported yet)")

@@ -1,13 +1,17 @@
-"""HEAR 2021 API for the AudioNTT2022 encoder (port of
+"""HEAR 2021 API for the conv encoders, AudioNTT2022 and the ResNets
+resnet18, resnet18_ReGP_NRF, resnet50 and resnet50_ReGP_NRF (port of
 ssl_audio_tpu/hear/conv.py): load_model, get_scene_embeddings and
 get_timestamp_embeddings, torch tensors in and out, with the model held on
-`device` ("cuda" unless the caller passes another).
+`device` ("cuda" unless the caller passes another).  The embedding size is
+the encoder's: 3072 for AudioNTT2022, 512 / 2048 for resnet18 / resnet50,
+4096 / 16384 for their ReGP-NRF forms.
 
 On a CUDA device the log-mel frontend runs the CUDA log-mel kernel and,
 with fused_conv=True, block 1 of the encoder runs the fused
 Conv-BN-ReLU-Pool kernel on inputs whose H and W are even (the 0.95-s
 timestamp windows; the 10-s scene clips have T = 1001 and take the plain
-block, as in JAX).
+block, as in JAX).  The ResNets run cuDNN convolutions only: fused_conv and
+pool_reorder are accepted and change nothing for them, as in JAX.
 
 compute_dtype="bfloat16" runs the encoder in bf16, as the JAX wrapper
 does (hear/conv.py:83-101): the parameters are cast once at load, the BN
@@ -17,8 +21,12 @@ with fused_conv=True block 1 takes the fused kernel's bf16 instantiation.
 fetch_dtype="bfloat16" rounds the fp32 embeddings before the copy to the
 host, with either compute type.
 
-Not ported yet: the resnet model types and Orbax checkpoints raise
-NotImplementedError.
+A reference `.pth` (or a training checkpoint of the port) loads as the
+JAX importer reads one (utils/weights.py load_reference_weights_): the
+tensors the encoder needs, shapes checked, the file's others ignored, a
+missing one a KeyError; for the ResNets a ResNet-D file's projection too.
+Not ported yet: Orbax checkpoints raise NotImplementedError.  As in JAX,
+there is no SE option here: AudioNTT2022 serves without SE blocks.
 """
 from __future__ import annotations
 
@@ -35,11 +43,12 @@ from ssl_audio_tpu_torch.hear.pipeline import (
     frame_audio_on_device,
     timestamp_pipeline,
 )
+from ssl_audio_tpu_torch.models import resnet
 from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022, init_weights_
 from ssl_audio_tpu_torch.models.precision import cast_params_, compute_dtype as _dtype_of
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram
 from ssl_audio_tpu_torch.utils import resolve_device
-from ssl_audio_tpu_torch.utils.weights import load_reference_state_dict
+from ssl_audio_tpu_torch.utils.weights import load_reference_state_dict, load_reference_weights_
 
 
 class ConvModelWrapper:
@@ -48,9 +57,8 @@ class ConvModelWrapper:
                  fused_conv: bool | None = None,
                  pool_reorder: bool | None = None,
                  compute_dtype: str = "float32", device=None):
-        if model_type != "audiontt":
-            raise NotImplementedError(
-                f"model type {model_type!r} is not ported yet (audiontt only)")
+        if model_type not in ("audiontt", *resnet.MODEL_TYPES):
+            raise NotImplementedError(f"Model type {model_type} is not supported")
         self.dtype = _dtype_of(compute_dtype)
         if fetch_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"fetch_dtype must be float32 or bfloat16, got {fetch_dtype!r}")
@@ -67,7 +75,8 @@ class ConvModelWrapper:
         # before BN, an XLA-level choice); both orders compute the same
         # embeddings to fp32 rounding, and the port runs the plain one
         self.pool_reorder = bool(pool_reorder)
-        self.model = AudioNTT2022(n_mels=cfg.n_mels, fused_conv=bool(fused_conv))
+        self.model = (AudioNTT2022(n_mels=cfg.n_mels, fused_conv=bool(fused_conv))
+                      if model_type == "audiontt" else resnet.FACTORIES[model_type]())
         self.embed_dim = self.model.embed_dim
         self.scene_embedding_size = self.embed_dim
         self.timestamp_embedding_size = self.embed_dim
@@ -79,18 +88,18 @@ class ConvModelWrapper:
     def _load_weights(self, model_file_path: str) -> None:
         if not model_file_path:
             # the JAX wrapper's model.init(key 0), drawn from a torch generator
-            init_weights_(self.model, torch.Generator().manual_seed(0))
+            init = init_weights_ if self.model_type == "audiontt" else resnet.init_resnet_weights_
+            init(self.model, torch.Generator().manual_seed(0))
             return
         if not model_file_path.endswith((".pth", ".pt")):
             raise NotImplementedError(
                 f"{model_file_path}: only reference-layout .pth checkpoints "
                 "load into the port (Orbax checkpoints are not ported yet)")
-        self.model.load_state_dict(load_reference_state_dict(model_file_path),
-                                   strict=True)
+        load_reference_weights_(self.model, load_reference_state_dict(model_file_path))
 
     @torch.no_grad()
     def forward(self, lms: torch.Tensor) -> torch.Tensor:
-        """(B, 1, F, T) normalised log-mels -> (B, 3072) fp32 embeddings."""
+        """(B, 1, F, T) normalised log-mels -> (B, embed_dim) fp32 embeddings."""
         return self.model(lms.to(self.device).to(self.dtype)).float()
 
     @torch.no_grad()
@@ -128,8 +137,8 @@ def get_timestamp_embeddings(
     hop_size: float = TIMESTAMP_HOP_SIZE,
     cfg_path: str = "hear/config.yaml",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(n_sounds, n_samples) audio -> (n_sounds, n_frames, 3072) embeddings
-    and (n_sounds, n_frames) centred timestamps in ms."""
+    """(n_sounds, n_samples) audio -> (n_sounds, n_frames, embed_dim)
+    embeddings and (n_sounds, n_frames) centred timestamps in ms."""
     audio = _as_numpy(audio_list)
     frame_size = int((frame_duration / 1000) * model.cfg.sample_rate)
     flat, timestamps, N = frame_audio_on_device(

@@ -2,9 +2,11 @@
 BYOL-A v2 CNN of the reference model.py:130-210).
 
 Parameter names are the reference's torch layout (`features.{0,1,4,5}`,
-`fc.{0,3}`), so a reference `.pth` loads with strict=True:
+`fc.{0,3}`; with squeeze_excitation=True a block is 5 modules, its SE block
+at `features.{4,9}` with `excitation.{0,2}`, so block 2's conv and BN are
+`features.{5,6}`):
 
-  2 x [Conv3x3(64) - BN - ReLU - MaxPool2x2]          -> (B, 64, F/4, T/4)
+  2 x [Conv3x3(64) - BN - ReLU - MaxPool2x2 (- SE)]   -> (B, 64, F/4, T/4)
   per-timeframe flatten (mel x channel = 1024)          -> (B, T/4, 1024)
   FC: 1024 -> 2048 -> ReLU -> Dropout(0.3) -> 2048 -> ReLU
   stack conv features with FC features                  -> (B, T/4, 3072)
@@ -17,6 +19,12 @@ autograd Function with its hand-written backward in train mode.  Otherwise
 (the 10-s scene clips, T = 1001) it is the plain Conv2d + BatchNorm + ReLU +
 MaxPool2d composition.  The fused block's output is channel-major in memory,
 so block 2 receives a contiguous NCHW tensor either way.
+
+SE (squeeze_excitation=True) follows every block, as in JAX: the mean over
+(F, T) of each channel, Linear(C, C / 16) - ReLU - Linear(C / 16, C) -
+sigmoid, both without bias, scales the channel.  It reads the fused block
+1's channel-major output as it is and hands block 2 a contiguous NCHW
+tensor; in bf16 its Linears run in bf16, as JAX's Dense.
 
 Block 2 runs no hand-written kernel, as in JAX.  In train mode with
 pool_reorder=True it is the pool-reordered composition of the JAX module:
@@ -71,21 +79,39 @@ def mean_max_pooling(frames: torch.Tensor) -> torch.Tensor:
     return frames.amax(dim=1) + frames.mean(dim=1)
 
 
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation (reference model.py:194-210) on an NCHW input:
+    each channel scaled by sigmoid(W2 relu(W1 mean_hw(x)))."""
+
+    def __init__(self, channels: int, r: int = 16):
+        super().__init__()
+        self.excitation = nn.Sequential(
+            nn.Linear(channels, channels // r, bias=False), nn.ReLU(),
+            nn.Linear(channels // r, channels, bias=False), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.excitation(x.mean(dim=(2, 3)))[:, :, None, None]
+
+
 class AudioNTT2022(nn.Module):
     """Pooled encoder: (B, 1, F, T) -> (B, d)."""
 
     def __init__(self, n_mels: int = 64, d: int = 3072, base_d: int = 64,
                  mlp_hidden_d: int = 2048, fused_conv: bool = False,
-                 pool_reorder: bool = False):
+                 pool_reorder: bool = False, squeeze_excitation: bool = False):
         super().__init__()
         self.n_mels, self.d, self.base_d = n_mels, d, base_d
         self.fused_conv = fused_conv
         self.pool_reorder = pool_reorder          # train mode only, as in JAX
-        self.features = nn.Sequential(
-            nn.Conv2d(1, base_d, 3, padding=1), BatchNorm2d(base_d),
-            nn.ReLU(), nn.MaxPool2d(2, 2),
-            nn.Conv2d(base_d, base_d, 3, padding=1), BatchNorm2d(base_d),
-            nn.ReLU(), nn.MaxPool2d(2, 2))
+        self.squeeze_excitation = squeeze_excitation
+        blocks = []
+        for cin in (1, base_d):
+            blocks += [nn.Conv2d(cin, base_d, 3, padding=1), BatchNorm2d(base_d),
+                       nn.ReLU(), nn.MaxPool2d(2, 2)]
+            if squeeze_excitation:
+                blocks.append(SEBlock(base_d))
+        self.block_len = 5 if squeeze_excitation else 4
+        self.features = nn.Sequential(*blocks)
         conv_d = base_d * (n_mels // 4)
         self.fc = nn.Sequential(
             nn.Linear(conv_d, mlp_hidden_d), nn.ReLU(), nn.Dropout(DROPOUT_RATE),
@@ -94,6 +120,10 @@ class AudioNTT2022(nn.Module):
     @property
     def embed_dim(self) -> int:
         return self.d
+
+    def _se(self, i: int, h: torch.Tensor) -> torch.Tensor:
+        """Block i's SE block on h, where the encoder has them."""
+        return self.features[self.block_len * i + 4](h) if self.squeeze_excitation else h
 
     def _block1(self, x: torch.Tensor) -> torch.Tensor:
         conv, bn = self.features[0], self.features[1]
@@ -110,9 +140,10 @@ class AudioNTT2022(nn.Module):
         return self.features[:4](x)
 
     def _block2(self, h: torch.Tensor) -> torch.Tensor:
+        first = self.block_len
         if not (self.training and self.pool_reorder):
-            return self.features[4:](h)
-        conv, bn = self.features[4], self.features[5]
+            return self.features[first:first + 4](h)
+        conv, bn = self.features[first], self.features[first + 1]
         y = conv(h)
         y32 = at_least_fp32(y)
         mean = y32.mean(dim=(0, 2, 3))
@@ -135,7 +166,7 @@ class AudioNTT2022(nn.Module):
         dropout, 1 = keep (kept values are scaled by 1 / 0.7); None draws it
         from torch's global generator."""
         with no_tf32():
-            h = self._block2(self._block1(x))
+            h = self._se(1, self._block2(self._se(0, self._block1(x))))
         B, C, Fp, Tp = h.shape
         h = h.permute(0, 3, 2, 1).reshape(B, Tp, Fp * C)   # (B, T', F'*C)
         if self.training and dropout_mask is not None:
@@ -153,7 +184,8 @@ class AudioNTT2022(nn.Module):
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX module's initialisers, drawn from `generator`: lecun-normal
-    (truncated at 2 std) conv and dense kernels, zero biases, BN scale 1,
+    (truncated at 2 std) conv and dense kernels (SE's Linears too: flax
+    Dense's default), zero biases, BN scale 1,
     shift 0, running mean 0 and running var 1 (the heads' too).  The draws differ from
     jax.random's; tests hand both packages the same weights instead."""
     with torch.no_grad():

@@ -28,6 +28,11 @@ run under ops.no_tf32() here, and whoever calls backward() on the output
 does so under it as well (train/steps.py does).  LayerNorm is PyTorch's
 two-pass one where flax takes E[x^2] - E[x]^2; both have eps 1e-6.
 
+With spec.remat (--remat) the encoder's blocks, not the decoder's, run
+under gradient checkpointing in train mode with gradients on (JAX
+nn.remat): the same outputs and gradients, less activation memory, one
+more forward of each block in the backward (_checkpointed).
+
 Under the bf16 compute mode (models/precision.py: bf16 parameters and
 input) the model runs as the JAX one does with bf16 parameters: linear
 layers, convolutions and the einsum attention's products in bf16 (its
@@ -47,6 +52,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ssl_audio_tpu_torch.models.batchnorm import BatchNorm2d
@@ -205,6 +211,29 @@ class Block(nn.Module):
         return x + self.drop_path(self.mlp(self.norm2(x)), k1)
 
 
+def _checkpointed(blk: Block, x: torch.Tensor, key_bias, keep) -> torch.Tensor:
+    """blk(x, key_bias, keep) under torch.utils.checkpoint (non-reentrant):
+    its activations are dropped and recomputed in the backward, a fused
+    attention block's forward kernel launched again.  The block's parameters
+    go in as explicit inputs and the recompute runs over them
+    (functional_call): under the bf16 compute mode they are the step's bf16
+    copies, which functional_call has swapped out again by the time the
+    backward recomputes.  The RNG state is preserved only for a block that
+    draws: every random number of a step is an input (DropPath's keep masks,
+    the token noise; train/steps.py StepDraws), so the recompute sees the
+    same values without it, and a step captured in a CUDA graph may not read
+    the generators' state; a DropPath with rate > 0 and no keep mask draws
+    from the global generator, and the recompute must draw the same."""
+    names, tensors = zip(*blk.named_parameters())
+
+    def run(x, key_bias, keep, *params):
+        return torch.func.functional_call(blk, dict(zip(names, params)), (x, key_bias, keep))
+
+    draws = keep is None and blk.drop_path.rate > 0
+    return torch.utils.checkpoint.checkpoint(run, x, key_bias, keep, *tensors,
+                                             use_reentrant=False, preserve_rng_state=draws)
+
+
 def len_keep_for(length: int, mask_ratio):
     """floor(L * (1 - r)) in fp32, as the JAX package computes it: an int
     for a number; for a 0-d tensor ratio (a step's ratio in a CUDA graph,
@@ -283,6 +312,10 @@ class ViTSpec:
     # attention through the kernels of ops/fused_attention.py, in encoder and
     # decoder blocks; shapes outside their envelope take the einsum path
     fused_attention: bool = False
+    # gradient checkpointing of the encoder's blocks (--remat; JAX nn.remat):
+    # in train mode with gradients on, each block keeps only its input and
+    # runs its forward again in the backward (forward_encoder)
+    remat: bool = False
 
 
 class MaskedAutoencoderViT(nn.Module):
@@ -391,8 +424,11 @@ class MaskedAutoencoderViT(nn.Module):
         """drop_keep: per block, DropPath's keep masks (2, B), or None."""
         tokens, out_mask, key_bias, ids_keep = self.prepare_tokens(
             x, mask_ratio, mask, len_keep, noise)
+        remat = self.spec.remat and self.training and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            tokens = blk(tokens, key_bias, None if drop_keep is None else drop_keep[i])
+            keep = None if drop_keep is None else drop_keep[i]
+            tokens = (_checkpointed(blk, tokens, key_bias, keep) if remat
+                      else blk(tokens, key_bias, keep))
         return self.norm(tokens), out_mask, ids_keep
 
     def forward_decoder(self, tokens: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,13 @@ from ssl_audio_tpu_torch.augment.transforms import AugmentState, init_augment_st
 from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022, init_weights_
 from ssl_audio_tpu_torch.models.heads import BarlowTwinsHead, BarlowTwinsPredictor
 from ssl_audio_tpu_torch.models.precision import bf16_params, forward_bf16
-from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT, get_mae_vit, init_vit_weights_
+from ssl_audio_tpu_torch.models.resnet import (
+    FACTORIES,
+    MODEL_TYPES as RESNETS,
+    ResNet,
+    init_resnet_weights_,
+)
+from ssl_audio_tpu_torch.models.vit import get_mae_vit, init_vit_weights_
 from ssl_audio_tpu_torch.train import optim as optim_lib
 from ssl_audio_tpu_torch.utils import resolve_device
 
@@ -124,34 +130,40 @@ def encoder_forward(cfg, encoder: nn.Module):
 
 
 def build_encoder(cfg) -> tuple[nn.Module, int]:
-    """-> (encoder, feature_dim).  AudioNTT2022: fused_conv / pool_reorder
-    None = on (the fused block computes the same function on the CPU and on
-    the card).  The ViT family (vit_* and the conv-stem vitc_*): the
-    (n_mels, crop_frames) grid, the decoder when masked_recon, fused
-    attention only with --fused_attention (None = off, as in JAX)."""
+    """-> (encoder, feature_dim), the JAX build_encoder's routing
+    (models/wrapper.py).  AudioNTT2022: --squeeze_excitation, fused_conv /
+    pool_reorder None = on (the fused block computes the same function on
+    the CPU and on the card).  The four ResNet types: the factories'
+    defaults (deep stem, plain projections).  The ViT family (vit_* and the
+    conv-stem vitc_*): the (n_mels, crop_frames) grid, the decoder when
+    masked_recon, --remat, fused attention only with --fused_attention (None
+    = off, as in JAX).  As in JAX, --squeeze_excitation applies to
+    AudioNTT2022 only and --remat to the ViT family only; the other encoders
+    ignore them."""
     if is_vit(cfg):
-        for flag, on in (("--remat", cfg.remat), ("--layout_barrier", cfg.layout_barrier)):
-            if on:
-                raise NotImplementedError(f"{flag} is not ported yet")
+        if cfg.layout_barrier:
+            raise NotImplementedError("--layout_barrier (an XLA layout option) is not "
+                                      "ported yet")
         enc = get_mae_vit(cfg.model_type.split("_")[-1], cfg.patch_size,
                           cfg.model_type.startswith("vitc"),
                           img_size=(cfg.n_mels, cfg.crop_frames),
                           use_decoder=cfg.masked_recon,
                           use_learned_pos_embd=cfg.use_learned_pos_embd,
-                          fused_attention=bool(cfg.fused_attention))
+                          fused_attention=bool(cfg.fused_attention), remat=bool(cfg.remat))
+        return enc, enc.embed_dim
+    if cfg.model_type in RESNETS:
+        enc = FACTORIES[cfg.model_type]()
         return enc, enc.embed_dim
     if cfg.model_type != "audiontt":
-        raise NotImplementedError(
-            f"model type {cfg.model_type!r} is not ported yet (audiontt and the ViT family)")
-    if cfg.squeeze_excitation:
-        raise NotImplementedError("--squeeze_excitation (SE blocks) is not ported yet")
+        raise NotImplementedError(f"Model type {cfg.model_type} is not supported")
     if cfg.n_mels != 64:
         raise ValueError(f"n_mels must be 64 to use the AudioNTT encoder "
                          f"(n_mels set to {cfg.n_mels})")
     enc = AudioNTT2022(
         n_mels=cfg.n_mels,
         fused_conv=cfg.fused_conv is None or bool(cfg.fused_conv),
-        pool_reorder=cfg.pool_reorder is None or bool(cfg.pool_reorder))
+        pool_reorder=cfg.pool_reorder is None or bool(cfg.pool_reorder),
+        squeeze_excitation=bool(cfg.squeeze_excitation))
     return enc, enc.embed_dim
 
 
@@ -172,11 +184,12 @@ def init_train_state(cfg, generator: torch.Generator, niter_per_ep: int = 100,
                                 cfg.projector_hidden_dim, cfg.projector_out_dim),
         "predictor": BarlowTwinsPredictor(cfg.projector_out_dim, use=cfg.predictor),
     })
-    if isinstance(encoder, MaskedAutoencoderViT):
-        init_vit_weights_(encoder, generator)
-        init_weights_(nn.ModuleList([modules["head"], modules["predictor"]]), generator)
-    else:
+    if isinstance(encoder, AudioNTT2022):
         init_weights_(modules, generator)
+    else:
+        init = init_resnet_weights_ if isinstance(encoder, ResNet) else init_vit_weights_
+        init(encoder, generator)
+        init_weights_(nn.ModuleList([modules["head"], modules["predictor"]]), generator)
     # frozen parameters take no gradient, so the optimizer never sees them
     frozen = optim_lib.frozen_param_names(cfg, modules.named_parameters())
     for name, p in modules.named_parameters():

@@ -7,9 +7,9 @@ augmented views -> teacher and student forwards -> Barlow Twins loss (+ the
 masked-reconstruction loss of a ViT with masked_recon) -> backward ->
 optimizer update.  It runs eagerly.  Every random number of a step (crop
 starts, augmentation parameters, AudioNTT's dropout keep masks, a ViT's
-token-mask noise and DropPath keep masks) is drawn up front into a
-StepDraws from a torch.Generator, or handed in by the caller, so two
-implementations can be stepped on the same draws.
+token-mask noise and DropPath keep masks; a ResNet draws none of its own)
+is drawn up front into a StepDraws from a torch.Generator, or handed in by
+the caller, so two implementations can be stepped on the same draws.
 
 For a ViT the teacher view is masked at the step's mask_ratio (key-bias
 masking, or token drop with a static len_keep; train/loop.py picks both per
@@ -49,7 +49,7 @@ from ssl_audio_tpu_torch.augment.transforms import (
     apply_pair_views,
     draw_pair_views,
 )
-from ssl_audio_tpu_torch.models.audiontt import DROPOUT_RATE
+from ssl_audio_tpu_torch.models.audiontt import DROPOUT_RATE, AudioNTT2022
 from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT
 from ssl_audio_tpu_torch.objectives.barlow import barlow_twins_loss
 from ssl_audio_tpu_torch import ops
@@ -124,7 +124,8 @@ class StepDraws:
     passes, then the target's: pass_sizes)."""
     starts: Optional[torch.Tensor]     # (B,) frontend crop starts; None for log-mel batches
     views: PairDraws
-    dropout: Optional[List[torch.Tensor]] = None    # AudioNTT: keep masks (B, T/4, hidden)
+    dropout: Optional[List[torch.Tensor]] = None    # AudioNTT: keep masks (B, T/4, hidden);
+                                                    # None for a ResNet (no dropout)
     noise: Optional[List[torch.Tensor]] = None      # ViT: token-mask noise (B, L)
     # ViT with DropPath: per view, per block, keep masks (2, B), None at rate 0
     drop_path: Optional[List[List[Optional[torch.Tensor]]]] = None
@@ -166,7 +167,7 @@ def draw_step(gen: torch.Generator, cfg, batch_shape, encoder, device=None,
             drop_path = [[torch.rand(2, B, generator=gen, device=device) >= blk.drop_path.rate
                           if blk.drop_path.rate > 0 else None for blk in encoder.blocks]
                          for _ in sizes]
-    else:
+    elif isinstance(encoder, AudioNTT2022):
         hidden = encoder.fc[0].out_features
         dropout = [torch.rand(B, t // 4, hidden, generator=gen, device=device) >= DROPOUT_RATE
                    for _, t in sizes]
@@ -193,9 +194,10 @@ def _encode(cfg, vit: bool, run_encoder, draws: StepDraws, i: int, v: torch.Tens
             masking=None):
     """Encoder forward i of a step on view v with its draws: AudioNTT's
     dropout mask, or a ViT's token-mask noise and DropPath masks and, for a
-    masked pass, `masking` (mask_ratio, len_keep, masked_recon)."""
+    masked pass, `masking` (mask_ratio, len_keep, masked_recon); a ResNet's
+    pass takes none."""
     if not vit:
-        return run_encoder(v, draws.dropout[i])
+        return run_encoder(v) if draws.dropout is None else run_encoder(v, draws.dropout[i])
     return run_encoder(v, mean_pool=cfg.use_mean_pool, noise=draws.noise[i],
                        drop_keep=None if draws.drop_path is None else draws.drop_path[i],
                        **(masking or {}))

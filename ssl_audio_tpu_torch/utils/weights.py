@@ -1,6 +1,7 @@
-"""Weights for the port's AudioNTT2022 and ViT (port of the AudioNTT and ViT
-parts of ssl_audio_tpu/utils/torch_export.py and utils/torch_import.py) and
-for the whole train state (encoder, projector, predictor, LARS momentum).
+"""Weights for the port's encoders: AudioNTT2022 (with or without SE
+blocks), the ResNets and the ViT family (port of ssl_audio_tpu/utils/
+torch_export.py and utils/torch_import.py), and for the whole train state
+(encoder, projector, predictor, LARS momentum).
 
 The port's modules use the reference's torch parameter names, so a
 reference-layout `.pth` loads as it is, and a JAX variable tree converts
@@ -8,6 +9,11 @@ with the same rules torch_export uses: Conv HWIO -> OIHW, Dense (in, out)
 -> (out, in), BatchNorm scale/bias/mean/var -> weight/bias/running_mean/
 running_var (plus a zero num_batches_tracked, as every torch BatchNorm
 state dict has).
+
+A reference `.pth` loads into a port module as the JAX importer reads one
+(load_reference_weights_): every tensor the module needs, with its shape
+checked, and nothing else; a missing one raises KeyError, a file's other
+tensors are ignored.
 """
 from __future__ import annotations
 
@@ -39,20 +45,69 @@ def _conv(w) -> torch.Tensor:
     return _t(np.transpose(np.asarray(w), (3, 2, 0, 1)))
 
 
-def audiontt_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+def _linear(w) -> torch.Tensor:
+    """flax Dense (in, out) -> torch Linear (out, in)."""
+    return _t(np.asarray(w).T)
+
+
+def audiontt_state_dict_from_jax(variables,
+                                 squeeze_excitation: bool = False) -> Dict[str, torch.Tensor]:
     """{"params": {"encoder": ...}, "batch_stats": {"encoder": ...}} of the
-    JAX AudioNTT2022, as numpy arrays -> the port's state dict."""
+    JAX AudioNTT2022, as numpy arrays -> the port's state dict.  With SE
+    blocks a block is 5 modules, its SE at features.{4,9}."""
     p = variables["params"]["encoder"]
     s = variables["batch_stats"]["encoder"]
     sd: Dict[str, torch.Tensor] = {}
+    block_len = 5 if squeeze_excitation else 4
     for layer in range(2):
-        base = 4 * layer
+        base = block_len * layer
         sd[f"features.{base}.weight"] = _conv(p[f"Conv_{layer}"]["kernel"])
         sd[f"features.{base}.bias"] = _t(p[f"Conv_{layer}"]["bias"])
         _bn(sd, f"features.{base + 1}", p[f"BatchNorm_{layer}"], s[f"BatchNorm_{layer}"])
+        if squeeze_excitation:
+            se = p[f"SEBlock_{layer}"]
+            for i, name in ((0, "Dense_0"), (2, "Dense_1")):
+                sd[f"features.{base + 4}.excitation.{i}.weight"] = _linear(se[name]["kernel"])
     for i, name in ((0, "Dense_0"), (3, "Dense_1")):
-        sd[f"fc.{i}.weight"] = _t(np.asarray(p[name]["kernel"]).T)
+        sd[f"fc.{i}.weight"] = _linear(p[name]["kernel"])
         sd[f"fc.{i}.bias"] = _t(p[name]["bias"])
+    return sd
+
+
+def resnet_state_dict_from_jax(variables, model_type: str = "",
+                               D: bool = False) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of a JAX ResNet, as numpy arrays -> the
+    port's state dict under export_resnet_state_dict's names: the stem
+    (conv1.{0,1,3,4,6,7}, or conv1 / bn1 without ResNet-C), the blocks and
+    their projections (downsample.{0,1}), read off the tree, so every
+    factory converts.  D: a ResNet-D, whose strided projections sit at
+    downsample.{1,2} behind the average pool; model_type (a factory's name)
+    then says which blocks have a stride."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    if "stem1" in p:
+        for i, ti in enumerate((0, 3, 6), start=1):
+            sd[f"conv1.{ti}.weight"] = _conv(p[f"stem{i}"]["kernel"])
+            _bn(sd, f"conv1.{ti + 1}", p[f"stem_bn{i}"], s[f"stem_bn{i}"])
+    else:
+        sd["conv1.weight"] = _conv(p["stem"]["kernel"])
+        _bn(sd, "bn1", p["stem_bn"], s["stem_bn"])
+    strided = set()
+    if D:
+        from ssl_audio_tpu_torch.models.resnet import FACTORIES
+
+        strides = FACTORIES[model_type]().strides[1:]
+        strided = {f"layer{i + 1}_0" for i, st in enumerate(strides) if st != (1, 1)}
+    for fx in sorted(k for k in p if k.startswith("layer")):
+        tp = fx.replace("_", ".")
+        for c in (1, 2, 3):
+            if f"conv{c}" in p[fx]:
+                sd[f"{tp}.conv{c}.weight"] = _conv(p[fx][f"conv{c}"]["kernel"])
+                _bn(sd, f"{tp}.bn{c}", p[fx][f"bn{c}"], s[fx][f"bn{c}"])
+        if "down_conv" in p[fx]:
+            at = 1 if fx in strided else 0
+            sd[f"{tp}.downsample.{at}.weight"] = _conv(p[fx]["down_conv"]["kernel"])
+            _bn(sd, f"{tp}.downsample.{at + 1}", p[fx]["down_bn"], s[fx]["down_bn"])
     return sd
 
 
@@ -133,6 +188,37 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
 
 
+def load_reference_weights_(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """Copy a reference-layout state dict (load_reference_state_dict) into
+    `module` as the JAX importer reads it (utils/torch_import.py): every
+    parameter and running statistic the module has must be in `sd` with its
+    shape (KeyError names a missing one, ValueError a shape); the file's
+    other tensors are ignored, and a num_batches_tracked it lacks stays as it
+    is.  A ResNet-D file (its projection's conv at downsample.1, BN at
+    downsample.2) loads into a plain ResNet's downsample.{0,1}, as there."""
+    sd, want = dict(sd), module.state_dict()
+    for k in [k for k in sd if k.endswith(".downsample.1.weight") and sd[k].dim() == 4]:
+        head = k[:-len("1.weight")]                       # "<block>.downsample."
+        if head + "0.weight" in want and head + "0.weight" not in sd:
+            for i in (1, 2):
+                for name in [n for n in sd if n.startswith(f"{head}{i}.")]:
+                    sd[f"{head}{i - 1}.{name[len(head) + 2:]}"] = sd.pop(name)
+    picked = {}
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            if k in sd:
+                picked[k] = sd[k]
+            continue
+        if k not in sd:
+            raise KeyError(f"the checkpoint lacks {k}")
+        if tuple(sd[k].shape) != tuple(v.shape):
+            raise ValueError(f"{k}: the checkpoint's shape {tuple(sd[k].shape)}, the "
+                             f"model's {tuple(v.shape)}")
+        picked[k] = sd[k]
+    missing, _ = module.load_state_dict(picked, strict=False)
+    assert all(k.endswith("num_batches_tracked") for k in missing), missing
+
+
 def _mlp_state_dict_from_jax(params, stats, prefix: str) -> Dict[str, torch.Tensor]:
     """A flax head ({Dense_i, BatchNorm_i} + batch_stats) -> the port's
     Sequential of [Linear, BatchNorm1d, ReLU] * n + Linear under `prefix`."""
@@ -145,20 +231,31 @@ def _mlp_state_dict_from_jax(params, stats, prefix: str) -> Dict[str, torch.Tens
     return sd
 
 
+def encoder_state_dict_from_jax(params, batch_stats, vit_spec=None) -> Dict[str, torch.Tensor]:
+    """The JAX train state's encoder trees (numpy arrays) -> the port
+    encoder's state dict: a ViT's when vit_spec (its ViTSpec) is given; else
+    read off the tree, an AudioNTT2022's (its inner "encoder", SE blocks
+    where it holds them) or a ResNet's."""
+    if vit_spec is not None:
+        return vit_state_dict_from_jax(params, batch_stats, vit_spec)
+    variables = {"params": params, "batch_stats": batch_stats}
+    if "encoder" in params:
+        return audiontt_state_dict_from_jax(
+            variables, squeeze_excitation="SEBlock_0" in params["encoder"])
+    return resnet_state_dict_from_jax(variables)
+
+
 def train_state_dicts_from_jax(params, batch_stats,
                                vit_spec=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """The JAX train state's {"encoder", "head", "predictor"} parameter and
     batch-statistics trees (numpy arrays) -> {"encoder", "head", "predictor"}
     state dicts for the port's modules (train/state.py), so that a step can
     start from the same state in both packages.  vit_spec: the port
-    encoder's ViTSpec when it is a ViT (None: AudioNTT2022).  An empty
-    predictor tree (cfg.predictor off) gives an empty state dict."""
-    if vit_spec is not None:
-        out = {"encoder": vit_state_dict_from_jax(params["encoder"],
+    encoder's ViTSpec when it is a ViT (None: a conv encoder, read off the
+    tree).  An empty predictor tree (cfg.predictor off) gives an empty
+    state dict."""
+    out = {"encoder": encoder_state_dict_from_jax(params["encoder"],
                                                   batch_stats.get("encoder"), vit_spec)}
-    else:
-        out = {"encoder": audiontt_state_dict_from_jax(
-            {"params": params["encoder"], "batch_stats": batch_stats["encoder"]})}
     out["head"] = _mlp_state_dict_from_jax(params["head"], batch_stats["head"], "projector")
     out["predictor"] = _mlp_state_dict_from_jax(
         params.get("predictor") or {}, batch_stats.get("predictor") or {}, "predictor")
@@ -167,8 +264,9 @@ def train_state_dicts_from_jax(params, batch_stats,
 
 def lars_state_from_jax(mu) -> Dict[str, Dict[str, torch.Tensor]]:
     """The LARS momentum tree of the JAX optimizer state (shaped like the
-    parameters) -> per module, momentum tensors under the port's parameter
-    names (running statistics are not parameters and are left out)."""
+    parameters) of a conv encoder's train state -> per module, momentum
+    tensors under the port's parameter names (running statistics are not
+    parameters and are left out)."""
     zeros = {"encoder": _zero_stats_like(mu["encoder"]), "head": _zero_stats_like(mu["head"]),
              "predictor": _zero_stats_like(mu.get("predictor") or {})}
     sds = train_state_dicts_from_jax(mu, zeros)

@@ -105,15 +105,19 @@ def test_fused_block_is_taken_only_for_even_shapes(variables, monkeypatch):
 
 
 def test_train_mode_not_ported():
-    """Train mode itself is ported (it raised NotImplementedError before);
-    what still raises is the part of the encoder that is not: SE blocks."""
+    """Train mode itself is ported (it raised NotImplementedError before), SE
+    blocks too; what still raises in build_encoder is an encoder option that
+    is not: the ViT's --layout_barrier, an XLA layout option."""
     from ssl_audio_tpu_torch.config import default_config
     from ssl_audio_tpu_torch.train.state import build_encoder
 
     out = AudioNTT2022().train()(torch.zeros(2, 1, 64, 96))
     assert out.shape == (2, 3072) and out.requires_grad
+    enc, _ = build_encoder(default_config(dataset="synthetic", squeeze_excitation=True))
+    assert enc.squeeze_excitation
     with pytest.raises(NotImplementedError):
-        build_encoder(default_config(dataset="synthetic", squeeze_excitation=True))
+        build_encoder(default_config(dataset="synthetic", model_type="vit_base",
+                                     layout_barrier=True))
 
 
 @pytest.mark.parametrize("fused_and_reorder", [True, False])

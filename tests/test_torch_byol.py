@@ -148,11 +148,13 @@ class JaxViews:
     """The JAX step jitted with its views as an extra output, and the
     port's step made to take them: the port's own views are made (the mixup
     bank advances) and held against JAX's within VIEWS_ATOL, then JAX's go
-    on.  step(jstate, wav, key, ratio, len_keep) -> (jstate, metrics)."""
+    on.  step(jstate, wav, key, ratio, len_keep) -> (jstate, metrics).
+    factory: the JAX step's maker (make_byol_train_step, or make_train_step
+    for the Barlow Twins step)."""
 
-    def __init__(self, mods, jcfg, monkeypatch):
+    def __init__(self, mods, jcfg, monkeypatch, factory=jax_make_byol_train_step):
         self.views, self.gaps = None, []
-        raw = jax_make_byol_train_step(mods, frontend=jax_frontend(jcfg, STATS), raw=True)
+        raw = factory(mods, frontend=jax_frontend(jcfg, STATS), raw=True)
 
         def step_and_views(jstate, wav, key, ratio, len_keep=None):
             seen = []

@@ -174,8 +174,8 @@ def test_no_silent_cpu_and_unported_options():
             tconv.load_model()
     with pytest.raises(ValueError):         # bfloat16 is ported; other types are not
         tconv.load_model(compute_dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tconv.load_model(model_type="resnet18", device="cpu")
+    with pytest.raises(NotImplementedError):     # not a HEAR conv model type, in JAX either
+        tconv.load_model(model_type="resnet34", device="cpu")
     with pytest.raises(NotImplementedError):
         tconv.load_model("checkpoints/orbax_dir", device="cpu")
 

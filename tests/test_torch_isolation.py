@@ -54,7 +54,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "eval.linear", "data.datasets", "data.native_loader", "linear",
                  "tools.wav_to_lms", "tools.bench_pipeline", "tools.sweep",
                  "augment.augmentations", "ops", "tools.step_determinism", "tools.eager_ab",
-                 "main_bt_byol", "tools.reproduce", "hear.extract_results"):
+                 "main_bt_byol", "tools.reproduce", "hear.extract_results",
+                 "models.resnet", "models.audiontt", "utils.weights", "hear.pipeline"):
         assert f"ssl_audio_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

@@ -68,9 +68,9 @@ def test_without_a_card_it_fails_and_prints_no_result(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--fsdp"], ["--model_parallel", "2"],
-                                   ["--squeeze_excitation"],
-                                   ["--dataset", "cifar10"], ["--model_type", "resnet18"],
-                                   ["--model_type", "vit_tiny", "--remat"]])
+                                   ["--distributed"],
+                                   ["--dataset", "cifar10"], ["--data_axis_size", "2"],
+                                   ["--model_type", "vit_tiny", "--layout_barrier"]])
 def test_deferred_flags_parse_and_raise(flags, tmp_path):
     out = run(tmp_path, "--device", "cpu", *SMALL, *flags)
     assert out.returncode != 0

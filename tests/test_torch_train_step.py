@@ -389,11 +389,14 @@ def test_deferred_flags_raise():
                dict(dataset="fsd50k", load_lms=False), dict(dataset="audioset_wav"),
                dict(dataset="audioset+librispeech"), dict(dataset="nsynth"),
                dict(use_fp16=True), dict(use_fp16_eval=True), dict(steps_per_dispatch=4),
-               dict(profile_dir="x")):
+               dict(profile_dir="x"), dict(squeeze_excitation=True),
+               dict(model_type="resnet18"), dict(model_type="resnet50_ReGP_NRF"),
+               dict(model_type="vit_base", remat=True)):
         assert unsupported_settings(default_config(**{"dataset": "synthetic_wav", **kw})) == []
-    for kw in (dict(squeeze_excitation=True),
-               dict(model_type="resnet18"), dict(dataset="cifar10"), dict(distributed=True),
-               dict(model_type="vit_base", remat=True),
+    for kw in (dict(data_axis_size=2),
+               dict(model_type="vitc_base", layout_barrier=True), dict(dataset="cifar10"),
+               dict(distributed=True),
+               dict(model_type="vit_tiny", layout_barrier=True),
                dict(model_type="vit_base", layout_barrier=True), dict(fsdp=True),
                dict(model_parallel=2)):
         cfg = default_config(**{"dataset": "synthetic_wav", **kw})
