@@ -179,6 +179,22 @@ Phases, each of which exits non-zero on failure:
      B A timings on a resident batch: SE against no SE, resnet18, resnet50
      and resnet50_ReGP_NRF beside AudioNTT2022, ViT-B remat against no
      remat (ms per step, clips/s, device busy and idle, peak memory).
+ 15. data-parallel pretraining (--distributed): (a) main under torchrun at
+     world size 1 over NCCL at the defaults (AudioNTT2022, batch 128, LARS,
+     raw wav in) for an epoch of 8 steps, eagerly and at
+     --steps_per_dispatch 4 (the all-reduces captured in the graph), and
+     main_bt_byol --stop_gradient --predictor likewise eagerly, against each
+     entry point alone from the same seed: the checkpoints bit for bit
+     (parameters, running statistics, optimizer, mixup bank, generators,
+     the BYOL target), the logged and epoch losses equal; (b) one step on two gloo ranks that share the card
+     (NCCL refuses two ranks on one device) of AudioNTT2022 at a global batch
+     of 128 and of ViT-B --fused_attention with key-bias masking at 0.75 at
+     32, each rank's launches counted (the real kernels with the cross-rank
+     sums between their launches), against one process on the global batch
+     with world_scale 2: the loss and the parameters within DP_RTOL, the ranks
+     bit for bit; (c) ms per step under torchrun at world size 1 against one
+     process, eager and graphed (tools/data_parallel.py), beside the card's
+     name and power limit.
 The `kernels` JSON line lists every ported kernel, the bf16 instantiations
 as entries of their own; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -2618,11 +2634,18 @@ def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int
     want = counts_with(**per_step)
     seen = {"eager step": prof_eager["launches_seen"], "replay": prof_graphed["launches_seen"]}
     rec["launches_seen_by_profiler"] = seen
-    print(f"  ({name[0]}) time: {json.dumps(rec)}")
+    # the profiler has once listed no event of a kernel that ran in a
+    # profiled eager resnet18 step (on an H100), whose replays it listed: a
+    # disagreement is profiled once more, and fails if it repeats
+    again = {"eager step": eager, "replay": run_window}
     for what, k in (("eager step", 1), ("replay", DISPATCH)):
         if counts_with(**seen[what]) != {c: k * v for c, v in want.items()}:
-            raise SystemExit(f"{name}: the profiler saw the {what} run {seen[what]}, the "
-                             f"launch counters say {k} x {per_step}")
+            seen[f"{what}, profiled again"] = profile(again[what])["launches_seen"]
+            if counts_with(**seen[f"{what}, profiled again"]) != \
+                    {c: k * v for c, v in want.items()}:
+                raise SystemExit(f"{name}: the profiler saw the {what} run {seen}, the "
+                                 f"launch counters say {k} x {per_step}")
+    print(f"  ({name[0]}) time: {json.dumps(rec)}")
     del state, multi, window
     return rec
 
@@ -3315,6 +3338,210 @@ def phase_zoo(seed: int, dev: torch.device, smi: str) -> dict:
     return out
 
 
+DP_FLAGS = ["--dataset", "synthetic_wav", "--epochs", "1", "--synthetic_steps_per_epoch", "8",
+            "--epoch_save_f", "1", "--no_eval"]
+DP_GRAPHED = ["--steps_per_dispatch", "4"]
+DP_BYOL = ["--stop_gradient", "--predictor"]     # main_bt_byol's run in (a)
+DP_RTOL = 1e-4       # two ranks against one process: loss, and the parameters after the step as
+                     # one vector (relative L2); the batch sums are taken in another order
+DP_FUSED_LOSS_RTOL = 1e-3   # the loss with the fused attention: the ranks' GEMMs over fewer rows
+                     # round otherwise in fp32, and the kernels' bf16 operands turn that into
+                     # ~1e-4 of the loss (vit_tiny at 16 on an H100: 2.6e-4, its fp32
+                     # einsum form 2e-6); the card-vs-CPU step's limit
+DP_RUNS = {          # (b): overrides of train_profile's configuration, global batch, launches,
+                     # the loss's tolerance
+    "dp_audiontt": ({}, 128, WAV_STEP_LAUNCHES, DP_RTOL),
+    "dp_vitb": (dict(model_type="vit_base", fused_attention=True, mask=True, mask_ratio=0.75,
+                     token_drop=False), 32, VIT_STEP, DP_FUSED_LOSS_RTOL),
+}
+
+
+def start_torchrun(args: list[str], log: str):
+    """`python -m torch.distributed.run --nproc_per_node 1 <args>` started in
+    the working directory (the repository on its path), its stdout and
+    stderr into `log`.out / `log`.err -> the process."""
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    with open(f"{log}.out", "w") as out, open(f"{log}.err", "w") as err:
+        return subprocess.Popen([sys.executable, "-m", "torch.distributed.run",
+                                 "--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+                                 "--master_port", str(port), *args],
+                                stdout=out, stderr=err, env=env)
+
+
+def finish_torchrun(proc, log: str, what: str, timeout: int = 300) -> list[str]:
+    """Wait for a start_torchrun process -> its stdout lines; the phase fails
+    with its output when it does (a process past `timeout` is killed)."""
+    import subprocess
+
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = "killed at its time limit"
+    with open(f"{log}.out") as f:
+        lines = f.read().splitlines()
+    if rc != 0:
+        with open(f"{log}.err") as f:
+            err = f.read()
+        raise SystemExit(f"phase 15: {what} failed ({rc}):\n" + "\n".join(lines[-40:])
+                         + "\n" + err[-6000:])
+    return lines
+
+
+def tree_gaps(a, b, path: str = "") -> list[str]:
+    """The paths at which two checkpoint trees differ (tensors bit for bit)."""
+    if isinstance(a, torch.Tensor):
+        return [] if isinstance(b, torch.Tensor) and torch.equal(a, b) else [path]
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return [path]
+        return [g for k in a for g in tree_gaps(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return [path]
+        return [g for i, (x, y) in enumerate(zip(a, b)) for g in tree_gaps(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def entry_point_at_world_size_1() -> dict:
+    """(a): main --distributed under torchrun at world size 1 (NCCL), eager
+    and graphed, and main_bt_byol --distributed, all started at once, and
+    each entry point alone while they run, in the working directory: the
+    checkpoints (parameters, running statistics, optimizer, mixup bank,
+    step, generators; the BYOL target) bit for bit, and the logged losses
+    (the first step's, eagerly) and the epoch's loss line."""
+    from ssl_audio_tpu_torch.main_bt_byol import main as byol_main
+
+    def ran(kind, name):
+        (ck,) = glob.glob(f"{kind}_{name}/results/synthetic_wav/*/model_1.pt")
+        (log,) = glob.glob(f"logs/training/synthetic_wav/*_{kind}_{name}*/log.csv")
+        with open(log) as f:
+            losses = [line.split(",")[5] for line in f if line.startswith("epoch,")]
+        return torch.load(ck, map_location="cpu", weights_only=True), losses
+
+    runs = {"eager": ("main", [*DP_FLAGS]), "graphed": ("main", [*DP_FLAGS, *DP_GRAPHED]),
+            "byol": ("main_bt_byol", [*DP_FLAGS, *DP_BYOL])}
+    t0 = time.perf_counter()
+    procs = {name: start_torchrun(["-m", f"ssl_audio_tpu_torch.{entry}", "--distributed",
+                                   *flags, "--save_base_dir", f"dist_{name}", "--name",
+                                   f"dist_{name}"], f"dist_{name}")
+             for name, (entry, flags) in runs.items()}
+    one = {name: run_main([*flags, "--save_base_dir", f"one_{name}", "--name", f"one_{name}"],
+                          byol_main if entry == "main_bt_byol" else None)
+           for name, (entry, flags) in runs.items()}
+    out = {}
+    for name in runs:
+        lines = finish_torchrun(procs[name], f"dist_{name}", f"{runs[name][0]} --distributed "
+                                f"{name}")
+        (dist_ck, dist_loss), (one_ck, one_loss) = ran("dist", name), ran("one", name)
+        epoch = [next(x for x in ls if x.startswith("Epoch [1/1]")).split(" data_time")[0]
+                 for ls in (lines, one[name][3])]
+        gaps = tree_gaps(dist_ck, one_ck)
+        print(f"  (a) {name}: {runs[name][0]} --distributed (NCCL, world size 1) against "
+              f"{runs[name][0]} alone: "
+              f"{len(gaps)} checkpoint entries differ; logged losses {dist_loss} / {one_loss}; "
+              f"{epoch[0]} / {epoch[1]}")
+        if gaps or dist_loss != one_loss or epoch[0] != epoch[1]:
+            raise SystemExit(f"phase 15 (a) {name}: the world-size-1 run departs from one "
+                             f"process: {gaps[:8]}")
+        out[name] = {"checkpoint_entries_differing": 0,
+                     "logged_losses": [float(x) for x in dist_loss], "epoch_line": epoch[0]}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_dp(seed: int, dev: torch.device, smi: str) -> dict:
+    """Phase 15: data-parallel pretraining (--distributed).  (a) main under
+    torchrun at world size 1 (NCCL), eager and with --steps_per_dispatch 4
+    (its all-reduces captured in the graph), and main_bt_byol
+    --stop_gradient --predictor, against each alone, bit for bit; (b) one step of AudioNTT2022 (global batch 128) and of ViT-B
+    --fused_attention (32) on two gloo ranks sharing the card against one
+    process on the global batch (DP_RTOL; the fused attention's loss
+    DP_FUSED_LOSS_RTOL), the ranks bit for bit, each rank's launches
+    counted; (c) ms per step under torchrun at world size 1 against one
+    process, eager and graphed."""
+    import gc
+
+    from ssl_audio_tpu_torch.tools import data_parallel
+
+    print("phase 15: data parallel (--distributed)")
+    out = {"launches": {}, "seconds": {}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work, contextlib.chdir(work):
+        out["a_world_size_1"] = entry_point_at_world_size_1()
+        out["seconds"]["a"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) the step under torchrun at world size 1 against one process, alone on the card
+        t1 = time.perf_counter()
+        proc = start_torchrun(["-m", "ssl_audio_tpu_torch.tools.data_parallel", "--distributed",
+                               "--seed", str(seed), "--out", "dp.json"], "dp_timed")
+        finish_torchrun(proc, "dp_timed", "the timed steps under torchrun")
+        with open("dp.json") as f:
+            dist = json.load(f)
+    one = data_parallel.timed(seed, 12, 4)
+    out["c_time"] = {"card": smi, "world_size_1_nccl": dist, "one_process": one}
+    for k in ("eager", "graphed"):
+        print(f"  (c) {k}: {dist[k + '_ms_per_step_median']:.3f} ms a step under torchrun "
+              f"(NCCL, world size 1) against {one[k + '_ms_per_step_median']:.3f} ms in one "
+              f"process (batch {one['global_batch']}; {smi})")
+    out["seconds"]["c"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) two gloo ranks on the one card against one process, which steps meanwhile
+    t2 = time.perf_counter()
+    runs = {name: (overrides, batch) for name, (overrides, batch, _, _) in DP_RUNS.items()}
+
+    def references():
+        refs = {}
+        for name, (overrides, batch) in runs.items():
+            refs[name] = data_parallel.one_process_step(seed, overrides, batch)
+            gc.collect()
+            torch.cuda.empty_cache()
+        return refs
+
+    ranks, refs = data_parallel.two_ranks_on_one_card(seed, runs, meanwhile=references)
+    out["b_two_ranks"] = {}
+    for name, (_, batch, want, loss_rtol) in DP_RUNS.items():
+        (r0, r1), ref = ranks[name], refs[name]
+        same = r0["loss"] == r1["loss"] and r0["params_sha256"] == r1["params_sha256"]
+        loss_err = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
+        ref_step = (ref["params"] - ref["params_before"]).double()
+        param_err = float((r0["params"].double() - ref["params"].double()).norm()
+                          / ref["params"].double().norm())
+        step_err = float((r0["params"].double() - ref["params_before"].double() - ref_step)
+                         .norm() / ref_step.norm())
+        out["b_two_ranks"][name] = {
+            "global_batch": batch, "rows_per_rank": batch // 2, "loss": r0["loss"],
+            "loss_one_process": ref["loss"], "loss_rel_err": loss_err,
+            "params_rel_l2": param_err, "step_taken_rel_l2": step_err,
+            "ranks_bit_for_bit": same, "launches_rank0": r0["launches"],
+            "launches_rank1": r1["launches"], "launches_one_process": ref["launches"]}
+        print(f"  (b) {name}: two gloo ranks x {batch // 2} rows on the card against one "
+              f"process on {batch}: loss {r0['loss']:.6f} / {ref['loss']:.6f} (rel "
+              f"{loss_err:.2e}), parameters rel L2 {param_err:.2e} (the step taken "
+              f"{step_err:.2e}), ranks bit for bit {same}")
+        for who, r in (("rank 0", r0), ("rank 1", r1), ("one process", ref)):
+            expect(r["launches"], want, 1, f"phase 15 (b) {name} {who}")
+        if not same or loss_err > loss_rtol or param_err > DP_RTOL:
+            raise SystemExit(f"phase 15 (b) {name}: two ranks depart from one process")
+        out["launches"][name] = r0["launches"]
+    del ranks, refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"]["b"] = time.perf_counter() - t2
+    print(f"  phase 15 seconds by part: {json.dumps(out['seconds'])}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3366,6 +3593,9 @@ def main() -> int:
     t14 = time.perf_counter()
     zoo = phase_zoo(args.seed, dev, smi)
     print(f"  phase 14: {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    dp = phase_dp(args.seed, dev, smi)
+    print(f"  phase 15: {time.perf_counter() - t15:.1f} s")
     next(k for k in kernels if k["name"] == "log_mel_folded")["converter_shape"] = \
         disk["convert_mel_row"]
     # launches on the main paths, per path (timestamp request, scene request,
@@ -3382,13 +3612,14 @@ def main() -> int:
     # of each main_bt_byol run, a graphed BYOL step, and the reproduce chain's
     # convert, pretrain, probe and HEAR stages; phase 14: one step of each
     # new encoder's runs, the SE run's probe, a graphed step of each, the
-    # HEAR ResNet requests) and in all
+    # HEAR ResNet requests; phase 15: rank 0's step of each two-rank run) and
+    # in all
     kernels += bf16_rows
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
                **evaluation["launches"], **pretraining["launches"], **disk["launches"],
                **bf16["launches"], **graphs["launches"], **byol["launches"],
-               **zoo["launches"]}
+               **zoo["launches"], **dp["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

@@ -21,11 +21,14 @@ drew.  The random entry points (`random_resize_crop`, `mixup_byola`,
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from ssl_audio_tpu_torch import parallel
 
 TORCH_EPS = float(np.finfo(np.float32).eps)
 
@@ -180,14 +183,18 @@ def apply_mixup(x: torch.Tensor, state: MixupState, alpha: torch.Tensor,
     """mixed_i = log((1 - a_i) e^{x_i} + a_i e^{bank[idx_i]} + eps); an empty
     bank passes x through (JAX's where(count > 0, mixed, x)).  With
     update_bank the batch is then written into the ring buffer at rows
-    (pos + arange(B)) % n, in place."""
+    (pos + arange(B)) % n, in place.  In a process group x is this rank's
+    rows and the bank is replicated state written with the global batch,
+    as in JAX: the ranks' rows are gathered in rank order before the write,
+    B counts the global batch, and an index may pick any global row."""
     out = torch.where(state.count > 0, log_mixup_exp(x, state.bank[idx], 1.0 - alpha), x)
     if update_bank:
-        n, B = state.bank.shape[0], x.shape[0]
+        xs = parallel.gather_rows(x.detach())
+        n, B = state.bank.shape[0], xs.shape[0]
         if B > n:
             raise ValueError(f"batch {B} larger than the mixup bank {n}")
         rows = (state.pos + torch.arange(B, device=x.device)) % n
-        state.bank[rows] = x.detach().to(state.bank.dtype)
+        state.bank[rows] = xs.to(state.bank.dtype)
         state.count.copy_(torch.clamp(state.count + B, max=n))
         state.pos.copy_((state.pos + B) % n)
     return out
@@ -235,10 +242,21 @@ def mix_gaussian_noise(gen: torch.Generator, lms: torch.Tensor, ratio: float = 0
     return apply_gaussian_noise(lms, *draw_gaussian_noise(gen, lms.shape, ratio, lms.device))
 
 
+def global_mean(x: torch.Tensor, dim, correction: int = 0) -> torch.Tensor:
+    """sum over `dim` / (count - correction), keepdim.  Where `dim` holds
+    the batch axis 0, over the global batch in a process group (one
+    all-reduce of the sum; parallel/)."""
+    count, s = math.prod(x.shape[d] for d in dim), x.sum(dim=dim, keepdim=True)
+    if 0 in dim:
+        count, s = parallel.batch_count(count), parallel.all_reduce_sum(s)
+    return s / (count - correction)
+
+
 def normalize_batch(x: torch.Tensor, dim=(0, 2, 3)) -> torch.Tensor:
-    """Per-batch standardisation with the unbiased std."""
-    mean = x.mean(dim=dim, keepdim=True)
-    std = x.std(dim=dim, keepdim=True, unbiased=True).clamp_min(TORCH_EPS)
+    """Per-batch standardisation with the unbiased std (two passes), over
+    the global batch."""
+    mean = global_mean(x, dim)
+    std = torch.sqrt(global_mean((x - mean) ** 2, dim, correction=1)).clamp_min(TORCH_EPS)
     return (x - mean) / std
 
 
@@ -274,10 +292,10 @@ def running_norm(x: torch.Tensor, state: RunningNormState, max_update: int,
     (mu += (m - mu) / n with n incremented afterwards), frozen after
     max_update updates.  Updates `state` in place, on the device: every
     branch is a select, so a captured step updates it at every replay."""
-    m = x.mean(dim=dim, keepdim=True)
+    m = global_mean(x, dim)
     first, n = state.n == 0, state.n.clamp(min=1).float()
     mu = torch.where(first, m, state.mu + (m - state.mu) / n)
-    d2 = ((x - mu) ** 2).mean(dim=dim, keepdim=True)
+    d2 = global_mean((x - mu) ** 2, dim)
     s2 = torch.where(first, d2, state.s2 + (d2 - state.s2) / n)
     update = state.n < max_update
     state.mu.copy_(torch.where(update, mu, state.mu))

@@ -36,6 +36,12 @@ class AugmentState:
         return {name: None if part is None else part.state_dict()
                 for name, part in (("mixup", self.mixup), ("running_norm", self.running_norm))}
 
+    def tensors(self) -> list:
+        """Every tensor of the state (the bank, its count and position, the
+        running norm's), to broadcast or compare."""
+        return [t for part in (self.mixup, self.running_norm) if part is not None
+                for t in vars(part).values() if isinstance(t, torch.Tensor)]
+
     def load_state_dict(self, sd: dict) -> None:
         for name, part in (("mixup", self.mixup), ("running_norm", self.running_norm)):
             if (part is None) != (sd[name] is None):

@@ -16,6 +16,8 @@ import json
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+from ssl_audio_tpu_torch import parallel
+
 MODELS = [
     "resnet50", "resnet50_ReGP_NRF",
     "resnet18", "resnet18_ReGP_NRF",
@@ -157,7 +159,8 @@ class Config:
     proj_size: int = 256
     proj_dim: int = 4096
 
-    # data-parallel and sharding extensions of the JAX package (not ported yet)
+    # parallelism: data_axis_size 0 or the world size (parallel/); tensor
+    # parallelism and FSDP are not ported yet
     data_axis_size: int = 0
     model_parallel: int = 1
     fsdp: bool = False
@@ -212,9 +215,13 @@ def unsupported_settings(cfg: Config) -> List[str]:
         bad.append(f"--model_type {cfg.model_type} (ported: {', '.join(PORTED_MODELS)})")
     if cfg.dataset not in PORTED_DATASETS:
         bad.append(f"--dataset {cfg.dataset} (ported: {', '.join(PORTED_DATASETS)})")
+    world = parallel.launched_world_size(cfg)
+    if cfg.data_axis_size not in (0, world):
+        bad.append(f"--data_axis_size {cfg.data_axis_size} (a data axis of other than the "
+                   f"world size, {world}: the port runs one process per GPU, so launch N "
+                   f"with torchrun --nproc_per_node N ... --distributed; a mesh of devices "
+                   f"inside one process is not ported yet)")
     for flag, on, what in (
-            ("--distributed", cfg.distributed, "data-parallel training"),
-            ("--data_axis_size", cfg.data_axis_size not in (0, 1), "data-parallel training"),
             ("--model_parallel > 1", cfg.model_parallel != 1, "tensor parallelism"),
             ("--fsdp", cfg.fsdp, "sharded parameters"),
             ("--layout_barrier", bool(cfg.layout_barrier), "an XLA layout option")):

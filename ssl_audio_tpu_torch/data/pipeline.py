@@ -23,7 +23,15 @@ stream of the device after that copy, and the producer waits on a slot's
 event before it writes that slot again.  Otherwise batches are numpy arrays
 and nothing is pinned.  Labels are numpy arrays on every path.
 
-Process sharding (process_index / process_count) is not ported yet.
+Process sharding, as in JAX: `batch_size` is the rows this process
+yields, and with process_count W > 1 global batch b is rows
+idx[b * W * batch_size : (b + 1) * W * batch_size] of the epoch's shuffle,
+of which process p reads the contiguous rows [p * batch_size, (p + 1) *
+batch_size): concatenated in process order, the shards are the
+single-process loader's batch of W * batch_size.  drop_last is required
+there (a ragged last batch would split unevenly).  The C++ readers read
+each process's rows with the batch's seed, so a row's crop draw follows
+its position within the shard, as in the JAX loader.
 """
 from __future__ import annotations
 
@@ -62,7 +70,12 @@ class _PinnedRing:
 class DataLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 8, seed: int = 0,
-                 prefetch: int = 2, device=None, log: Callable[[str], None] = print):
+                 prefetch: int = 2, device=None, log: Callable[[str], None] = print,
+                 process_index: int = 0, process_count: int = 1):
+        if process_count > 1 and not drop_last:
+            raise ValueError("multi-process loading requires drop_last=True")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside 0..{process_count - 1}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -72,6 +85,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.device = None if device is None else torch.device(device)
         self.log = log
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self._said = False
 
@@ -84,11 +99,16 @@ class DataLoader:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         return idx
 
+    @property
+    def global_batch(self) -> int:
+        """Rows of one batch over every process."""
+        return self.batch_size * self.process_count
+
     def __len__(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+            return n // self.global_batch
+        return (n + self.global_batch - 1) // self.global_batch
 
     @property
     def pinned(self) -> bool:
@@ -157,7 +177,8 @@ class DataLoader:
             return self._collate(list(pool.map(self.dataset.__getitem__, rows)))
 
         def make_batch(pool, b):
-            rows = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            first = b * self.global_batch + self.process_index * self.batch_size
+            rows = idx[first:first + self.batch_size]
             if native is not None:
                 paths, labels = self.dataset.batch_paths(rows)
                 out = None

@@ -60,6 +60,7 @@ from torch import nn
 from ssl_audio_tpu_torch.models.batchnorm import (
     BatchNorm2d,
     at_least_fp32,
+    batch_moments,
     update_running_stats_,
 )
 from ssl_audio_tpu_torch.ops import no_tf32
@@ -145,9 +146,7 @@ class AudioNTT2022(nn.Module):
             return self.features[first:first + 4](h)
         conv, bn = self.features[first], self.features[first + 1]
         y = conv(h)
-        y32 = at_least_fp32(y)
-        mean = y32.mean(dim=(0, 2, 3))
-        var = (y32 * y32).mean(dim=(0, 2, 3)) - mean * mean
+        mean, var = batch_moments(at_least_fp32(y), (0, 2, 3))
         update_running_stats_(bn, mean, var)
         # per-window extreme of y: max where gamma > 0, min otherwise
         # (gamma == 0 included, the fused block's convention)

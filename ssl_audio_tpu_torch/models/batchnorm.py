@@ -9,6 +9,10 @@ the fp32 eval mode, the parameter and buffer names (weight, bias,
 running_mean, running_var, num_batches_tracked), so reference state dicts
 load with strict=True.
 
+In a process group (parallel/) the training-mode statistics are those of
+the global batch (batch_moments), so the running buffers move alike on
+every rank; eval mode reads the running buffers and crosses no rank.
+
 Half-precision input (the bf16 compute mode, models/precision.py), as
 flax's BatchNorm does it: the statistics in fp32, the normalisation
 (x - mean) * (rsqrt(var + eps) * weight) + bias in fp32 with bf16 weight
@@ -21,6 +25,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ssl_audio_tpu_torch import parallel
+
 
 class _BiasedVarianceMixin:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -31,8 +37,8 @@ class _BiasedVarianceMixin:
         shape = [1, -1] + [1] * (x.dim() - 2)
         x32 = at_least_fp32(x)
         if self.training:
-            mean = x32.mean(dim=dims)
-            var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            mean, var = batch_moments(x32, dims)
+            var = var.clamp_min(0.0)
             update_running_stats_(self, mean, var)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
@@ -47,6 +53,18 @@ HALF_DTYPES = (torch.float16, torch.bfloat16)
 def at_least_fp32(x: torch.Tensor) -> torch.Tensor:
     """Half-precision activations take their statistics in fp32."""
     return x.float() if x.dtype in HALF_DTYPES else x
+
+
+def batch_moments(x32: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, biased var = mean(x^2) - mean^2) per channel over `dims` of
+    the global batch: the fp32 sums of x and x^2 and the count are summed
+    over ranks (parallel.all_reduce_sum, one all-reduce, differentiable)
+    before the division, SyncBatchNorm with flax's semantics.  Outside a
+    process group the same sums over this process's batch."""
+    n = parallel.batch_count(x32.numel() // x32.shape[1])
+    s = parallel.all_reduce_sum(torch.stack([x32.sum(dim=dims), (x32 * x32).sum(dim=dims)]))
+    mean = s[0] / n
+    return mean, s[1] / n - mean * mean
 
 
 def update_running_stats_(bn: nn.modules.batchnorm._BatchNorm,

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ssl_audio_tpu_torch import parallel
 from ssl_audio_tpu_torch.models.batchnorm import BatchNorm2d
 from ssl_audio_tpu_torch.ops import no_tf32
 from ssl_audio_tpu_torch.ops.fused_attention import fused_attention
@@ -451,7 +452,10 @@ class MaskedAutoencoderViT(nn.Module):
             var = target.var(dim=-1, keepdim=True, unbiased=False)
             target = (target - mean) / (var + 1e-6) ** 0.5
         loss = ((pred - target) ** 2).mean(dim=-1)
-        return (loss * mask).sum() / mask.sum().clamp_min(1.0)
+        # the mean over the global batch's masked patches (one all-reduce of
+        # the two sums in a process group, parallel/)
+        s = parallel.all_reduce_sum(torch.stack([(loss * mask).sum(), mask.sum()]))
+        return s[0] / s[1].clamp_min(1.0)
 
     def forward(self, imgs: torch.Tensor, mask_ratio=0, mean_pool: bool = False,
                 return_all: bool = False, masked_recon: bool = False, mask=None,

@@ -1,30 +1,38 @@
 """Barlow Twins cross-correlation loss (port of
 ssl_audio_tpu/objectives/barlow.py).
 
-Single device: the batch axis holds the whole batch, so the BatchNorm
-statistics and the correlation are global-batch.  `world_scale` reproduces
-the reference's world_size multiplier on the correlation matrix.
+The BatchNorm statistics and the correlation are those of the global
+batch: in a process group (parallel/) each rank holds its rows, and the
+sums over the batch (the mean, the squared deviations, the correlation
+matrix) are summed over ranks with a differentiable all-reduce, so the
+loss reads the same on every rank.  `world_scale` reproduces the
+reference's world_size multiplier on the correlation matrix (the Trainer
+passes the world size W, as the JAX Trainer passes its data-axis size).
 """
 from __future__ import annotations
 
 import torch
 
+from ssl_audio_tpu_torch import parallel
+
 BN_EPS = 1e-5  # torch BatchNorm1d default
 
 
 def _bn(z: torch.Tensor) -> torch.Tensor:
-    """BatchNorm1d(affine=False) in training mode: batch mean, biased
-    variance, eps 1e-5."""
-    mean = z.mean(dim=0, keepdim=True)
-    var = z.var(dim=0, keepdim=True, unbiased=False)
+    """BatchNorm1d(affine=False) in training mode over the global batch:
+    batch mean, biased variance (two passes, as jnp.var), eps 1e-5."""
+    n = parallel.batch_count(z.shape[0])
+    mean = parallel.all_reduce_sum(z.sum(dim=0, keepdim=True)) / n
+    var = parallel.all_reduce_sum(((z - mean) ** 2).sum(dim=0, keepdim=True)) / n
     return (z - mean) / torch.sqrt(var + BN_EPS)
 
 
 def barlow_twins_pair_loss(z1: torch.Tensor, z2: torch.Tensor, lmbda: float = 0.005,
                            alpha: float = 1.0, HSIC: bool = False,
                            world_scale: float = 1.0) -> torch.Tensor:
-    """Loss of one (teacher, student) pair of (B, D) embeddings."""
-    c = (_bn(z1).t() @ _bn(z2)) / z1.shape[0]
+    """Loss of one (teacher, student) pair of (B, D) embeddings (this
+    rank's rows of the global batch)."""
+    c = parallel.all_reduce_sum(_bn(z1).t() @ _bn(z2)) / parallel.batch_count(z1.shape[0])
     c = c * world_scale
     diag = torch.diagonal(c)
     on_diag = ((diag - 1.0) ** 2).sum()

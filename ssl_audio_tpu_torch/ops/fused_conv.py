@@ -32,8 +32,12 @@ needs a gradient, which the encoder's first layer never does.
 Each kernel has a plain version beside it with the kernel's own signature
 (conv2d, unfold and einsum): the CPU path and the kernel's oracle.  A
 wrapper takes it only for a CPU tensor; for a CUDA tensor it launches the
-kernel or raises.  The block is single-device: it takes no process group
-yet, so under data parallelism its batch statistics would be per rank.
+kernel or raises.  In a process group (parallel/) the training block's
+autograd Function takes the global batch's statistics: the forward's s1 and
+s2 and the backward's T1 and T2 are summed over ranks between the kernel
+launches (NCCL outside the kernels), and n counts the global batch; the
+kernels themselves run unchanged on each rank's rows, and the parameter
+gradients stay each rank's share, as in JAX's sharded block.
 
 Precision, the JAX function's contract in both types: x and the conv and
 BN parameters are float32, or bfloat16 under the bf16 compute mode (a
@@ -58,6 +62,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ssl_audio_tpu_torch import parallel
 from ssl_audio_tpu_torch.ops import _build, no_tf32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -418,9 +423,11 @@ class _FusedConv1BnReluPool(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2, wk, bias, gamma, beta, eps):
-        B, H, W = x2.shape
         sel, s1, s2 = fused_conv1_fwd(x2, wk, bias, gamma)
-        n = B * H * W
+        # the moments of the global batch: one (2, C) all-reduce between the
+        # launches (JAX fused_conv.py:431-437)
+        s1, s2 = parallel.all_reduce_(torch.stack([s1, s2]))
+        n = parallel.batch_count(x2.numel())
         mean = s1 / n
         var = s2 / n - mean * mean
         r = torch.rsqrt(var + eps)
@@ -433,18 +440,26 @@ class _FusedConv1BnReluPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dpooled, _dmean, _dvar):
         x2, wk, bias, gamma, beta, mean, r, pooled = ctx.saved_tensors
-        n = float(x2.numel())
+        n = float(parallel.batch_count(x2.numel()))
         if not nchw_memory(dpooled):          # the kernels read the forward's layout
             dpooled = dpooled.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
         args = (x2, wk, bias, gamma, mean, r, pooled, dpooled)
-        t1, t2, sx, a1, a2, gram = sums = fused_conv1_bwd(*args, beta)
-        dwk, db, dgamma, dbeta = param_grads_from_sums(wk, bias, gamma, mean, r, n, *sums)
+        t1, t2, sx, a1, a2, gram = fused_conv1_bwd(*args, beta)
+        # T1 and T2 over the global batch (one (2, C) all-reduce), since the
+        # batch statistics are; Sx, A1, A2 and the Gram stay local, and so do
+        # the parameter gradients: each rank's share, which the gradient
+        # all-reduce combines (JAX fused_conv.py:506-519).  dgamma and
+        # dbeta are the local T2 and T1.
+        t1g, t2g = parallel.all_reduce_(torch.stack([t1, t2]))
+        dwk, db, _, _ = param_grads_from_sums(wk, bias, gamma, mean, r, n, t1g, t2g, sx,
+                                              a1, a2, gram)
+        dgamma, dbeta = t2, t1
         # the JAX rule's types: dW and db in x's, dgamma and dbeta in gamma's
         dwk, db = dwk.to(x2.dtype), db.to(x2.dtype)
         dgamma, dbeta = dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
         dx = None
         if ctx.needs_input_grad[0]:
-            dy = fused_conv1_dx(*args, t1, t2, n)
+            dy = fused_conv1_dx(*args, t1g.contiguous(), t2g.contiguous(), n)
             # dx[h, w] = sum_{s, c} dy[c, h - (dh - 1), w - (dw - 1)] wk[s, c]
             H, W = x2.shape[1:]
             taps = F.pad(dy @ wk.t(), (0, 0, 1, 1, 1, 1))       # (B, H+2, W+2, 9)

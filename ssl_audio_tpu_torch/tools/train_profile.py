@@ -43,11 +43,13 @@ def train_config(**overrides):
     return default_config(**{"dataset": "synthetic_wav", **overrides})
 
 
-def seeded_training(seed: int, device, byol: bool = False, **overrides):
+def seeded_training(seed: int, device, byol: bool = False, world_scale: float = 1.0,
+                    **overrides):
     """-> (cfg, state, train_step, gen): the train state with weights drawn
-    from `seed`, the step (over the device frontend for a wav dataset), and
-    the generator on `device` the step's random numbers come from.  byol:
-    the BYOL-style state (a target network) and step of main_bt_byol."""
+    from `seed`, the step (over the device frontend for a wav dataset, with
+    the loss's world_scale), and the generator on `device` the step's random
+    numbers come from.  byol: the BYOL-style state (a target network) and
+    step of main_bt_byol."""
     from ssl_audio_tpu_torch.train.state import init_train_state
     from ssl_audio_tpu_torch.train.steps import (
         make_byol_train_step,
@@ -58,7 +60,8 @@ def seeded_training(seed: int, device, byol: bool = False, **overrides):
     cfg = train_config(seed=seed, **overrides)
     state = init_train_state(cfg, torch.Generator().manual_seed(seed), byol=byol, device=device)
     frontend = make_device_frontend(cfg, (0.0, 1.0)) if cfg.dataset.endswith("_wav") else None
-    step = (make_byol_train_step if byol else make_train_step)(cfg, frontend=frontend)
+    step = (make_byol_train_step if byol else make_train_step)(cfg, world_scale=world_scale,
+                                                               frontend=frontend)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     return cfg, state, step, gen
 
@@ -79,7 +82,7 @@ class CachedItems:
 
 
 def window_runner(cfg, state, gen, wavs: torch.Tensor, n_steps: int, ratios=None,
-                  len_keep=None, byol: bool = False):
+                  len_keep=None, byol: bool = False, world_scale: float = 1.0):
     """-> (run_window, multi_step): run_window() takes one window of n_steps
     steps on the resident batch `wavs` (raw wav when cfg's dataset is a wav
     one) through make_multi_train_step, every step on the same batch (copied
@@ -88,7 +91,7 @@ def window_runner(cfg, state, gen, wavs: torch.Tensor, n_steps: int, ratios=None
     first call runs the window eagerly, its second captures the graph and
     replays it, every later one replays it; it returns the window's
     metrics.  byol: windows of the BYOL-style step (`state` must hold a
-    target)."""
+    target); world_scale: the loss's."""
     from ssl_audio_tpu_torch.train.steps import (
         init_monitor,
         make_device_frontend,
@@ -96,7 +99,8 @@ def window_runner(cfg, state, gen, wavs: torch.Tensor, n_steps: int, ratios=None
     )
 
     frontend = make_device_frontend(cfg, (0.0, 1.0)) if cfg.dataset.endswith("_wav") else None
-    multi = make_multi_train_step(cfg, n_steps, frontend=frontend, byol=byol)
+    multi = make_multi_train_step(cfg, n_steps, world_scale=world_scale, frontend=frontend,
+                                  byol=byol)
     batches = multi.inputs(tuple(wavs.shape), wavs.device) if wavs.is_cuda else \
         torch.empty(n_steps, *wavs.shape)
     batches.copy_(wavs.expand(n_steps, *wavs.shape))

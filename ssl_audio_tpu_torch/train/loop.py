@@ -15,6 +15,12 @@ train/steps.py make_multi_train_step, a CUDA graph per window on the card)
 and --profile_dir (a torch.profiler trace of steps 10-20 of epoch 1, at
 --steps_per_dispatch 1 only, as in JAX) and the BYOL-style variant
 (Trainer(cfg, byol=True): both paths through the BYOL step).
+
+Data parallel (parallel/, --distributed under torchrun): cfg.batch_size is
+the global batch, each rank's loader yields its B / W rows of it, the steps
+take the global batch's statistics and one gradient, and rank 0 alone
+writes the checkpoints, the CSV log and wandb and runs the per-epoch probe;
+every rank resumes from the same file.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ssl_audio_tpu_torch import parallel
 from ssl_audio_tpu_torch.config import require_supported
 from ssl_audio_tpu_torch.data import datasets as D
 from ssl_audio_tpu_torch.data.pipeline import DataLoader
@@ -155,15 +162,24 @@ class Trainer:
         self.cfg = cfg
         self.byol = byol
         self.log = log
-        self.logger = make_csv_logger(log_dir) if log_dir else None
-        self.wandb_run = wandb_run
+        # in a process group rank 0 alone writes the logs, checkpoints and probe
+        self.lead = parallel.rank() == 0
+        self.logger = make_csv_logger(log_dir) if log_dir and self.lead else None
+        self.wandb_run = wandb_run if self.lead else None
         self.epoch_losses: dict[int, float] = {}
         self.epoch_times: dict[int, tuple[float, float]] = {}
         self.device = resolve_device(cfg.device)
         self.dataset = dataset if dataset is not None else get_train_dataset(cfg, data_dir)
-        self.loader = DataLoader(self.dataset, cfg.batch_size, shuffle=True,
+        # cfg.batch_size is the global batch: each of W ranks loads its
+        # contiguous B / W rows of every batch (JAX train/loop.py:117-133)
+        world = parallel.world_size()
+        if cfg.batch_size % world:
+            raise ValueError(f"--batch_size {cfg.batch_size} must divide across the "
+                             f"{world} processes")
+        self.loader = DataLoader(self.dataset, cfg.batch_size // world, shuffle=True,
                                  drop_last=True, num_workers=cfg.num_workers,
-                                 seed=cfg.seed, device=self.device, log=log)
+                                 seed=cfg.seed, device=self.device, log=log,
+                                 process_index=parallel.rank(), process_count=world)
         self.niter_per_ep = len(self.loader)
         self.state = init_train_state(
             cfg, torch.Generator().manual_seed(cfg.seed),
@@ -174,12 +190,14 @@ class Trainer:
             stats = D.NORM_STATS.get(cfg.dataset.split("+")[0].split("_")[0], (0.0, 1.0))
             frontend = make_device_frontend(cfg, stats)
         step_factory = make_byol_train_step if byol else make_train_step
-        self.train_step = step_factory(cfg, world_scale=1.0, frontend=frontend)
+        # the reference's world_size multiplier on the correlation (JAX
+        # train/loop.py: the data-axis size)
+        self.train_step = step_factory(cfg, world_scale=float(world), frontend=frontend)
         self.multi_step = None
         if int(cfg.steps_per_dispatch) > 1:
             self.multi_step = make_multi_train_step(cfg, int(cfg.steps_per_dispatch),
-                                                    world_scale=1.0, frontend=frontend,
-                                                    byol=byol)
+                                                    world_scale=float(world),
+                                                    frontend=frontend, byol=byol)
         self._profiler = None
         # the step's random numbers are drawn on the device
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
@@ -336,7 +354,8 @@ class Trainer:
             t_data += dt_i
             iteration = self.niter_per_ep * (epoch - 1) + it
             # --profile_dir: a torch.profiler trace of steps 10-20 of epoch 1
-            if cfg.profile_dir and epoch == 1:
+            # (rank 0's, in a process group)
+            if cfg.profile_dir and epoch == 1 and self.lead:
                 if iteration == first:
                     self._start_trace()
                 elif iteration == PROFILE_STEPS[1] and self._profiler is not None:
@@ -401,9 +420,12 @@ class Trainer:
                 ckpt_lib.save_checkpoint(path, self.state, epoch + 1,
                                          ckpt_lib.encode_rng(self.gen, self.host_rng))
                 self.log(f"Saved checkpoint {path}")
-            if eval_fn and not cfg.no_eval and (epoch % cfg.epoch_eval_f == 0 or last):
-                scores = eval_fn(self.state, epoch)
-                if scores:
-                    self._record("epoch,{},step,{},linear_score,{}".format(
-                        epoch, self.niter_per_ep * epoch, scores))
+            if not cfg.no_eval and (epoch % cfg.epoch_eval_f == 0 or last):
+                # rank 0 alone probes (JAX loop.py:451-466); the others wait
+                if eval_fn and self.lead:
+                    scores = eval_fn(self.state, epoch)
+                    if scores:
+                        self._record("epoch,{},step,{},linear_score,{}".format(
+                            epoch, self.niter_per_ep * epoch, scores))
+                parallel.barrier()
         return self.state

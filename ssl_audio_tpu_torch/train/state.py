@@ -11,7 +11,11 @@ through a checkpoint.
 The BYOL variant (byol=True, ssl_audio_tpu/train/state.py:121-185) adds a
 "target" ModuleDict (encoder, head, predictor) beside the online modules,
 deep-copied from them after init, so its parameters and running statistics
-travel in state_dict()["model"] as target.encoder.* and so on.  With
+travel in state_dict()["model"] as target.encoder.* and so on.
+
+In a process group (parallel/) init_train_state broadcasts rank 0's
+parameters, buffers and augmentation state, so every rank starts from one
+replica; the steps keep them equal (one gradient, global statistics).  With
 --stop_gradient the target takes no gradient and sits in no optimizer
 group (the step moves it by an EMA of the online net); without it one
 optimizer spans both stacks.
@@ -32,6 +36,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ssl_audio_tpu_torch import parallel
 from ssl_audio_tpu_torch.augment.transforms import AugmentState, init_augment_state
 from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022, init_weights_
 from ssl_audio_tpu_torch.models.heads import BarlowTwinsHead, BarlowTwinsPredictor
@@ -202,5 +207,8 @@ def init_train_state(cfg, generator: torch.Generator, niter_per_ep: int = 100,
             modules["target"].requires_grad_(False)
     modules.to(device)
     optimizer, scheduler = optim_lib.make_optimizer(cfg, modules.parameters(), niter_per_ep)
+    aug = init_augment_state(cfg, device=device)
+    # in a process group every rank starts from rank 0's replica
+    parallel.broadcast_([*modules.parameters(), *modules.buffers(), *aug.tensors()])
     return TrainState(cfg=cfg, step=0, modules=modules, optimizer=optimizer,
-                      scheduler=scheduler, aug=init_augment_state(cfg, device=device))
+                      scheduler=scheduler, aug=aug)

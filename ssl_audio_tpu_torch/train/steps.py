@@ -30,6 +30,14 @@ counter, the mixup ring's count and position, the running norm, the
 generator the draws come from, a ViT teacher's mask ratio as a tensor), so a
 replay takes N real steps.  On the CPU the same function runs the N steps
 eagerly, in order.
+
+Data parallel (parallel/): in a process group `batch` is this rank's B / W
+rows of the global batch; the step draws the global batch's random numbers
+and keeps its rows, every batch reduction (BatchNorm, the fused block, the
+loss, the mixup bank) is global, the loss is the same on every rank and
+carries world_scale = W (the Trainer passes it), and the gradients are
+averaged over ranks in one flat all-reduce before the optimizer step; a
+captured window holds those all-reduces (NCCL) like the rest.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ from ssl_audio_tpu_torch.augment.transforms import (
 from ssl_audio_tpu_torch.models.audiontt import DROPOUT_RATE, AudioNTT2022
 from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT
 from ssl_audio_tpu_torch.objectives.barlow import barlow_twins_loss
-from ssl_audio_tpu_torch import ops
+from ssl_audio_tpu_torch import ops, parallel
 from ssl_audio_tpu_torch.ops import no_tf32
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram_cropped
 from ssl_audio_tpu_torch.train.state import TrainState, encoder_forward
@@ -103,17 +111,18 @@ def make_device_frontend(cfg, norm_stats):
     return frontend
 
 
-def _to_device(obj, device):
-    """obj with every tensor in it (tuples, lists, dataclasses) on `device`."""
+def _map_tensors(obj, fn):
+    """obj with fn applied to every tensor in it (tuples, lists,
+    dataclasses)."""
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return fn(obj)
     if dataclasses.is_dataclass(obj):
-        return type(obj)(**{f.name: _to_device(getattr(obj, f.name), device)
+        return type(obj)(**{f.name: _map_tensors(getattr(obj, f.name), fn)
                             for f in dataclasses.fields(obj)})
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(_to_device(v, device) for v in obj))
+        return type(obj)(*(_map_tensors(v, fn) for v in obj))
     if isinstance(obj, (tuple, list)):
-        return type(obj)(_to_device(v, device) for v in obj)
+        return type(obj)(_map_tensors(v, fn) for v in obj)
     return obj
 
 
@@ -132,7 +141,17 @@ class StepDraws:
 
     def to(self, device) -> "StepDraws":
         """The same draws on another device (to step two devices alike)."""
-        return _to_device(self, device)
+        return _map_tensors(self, lambda t: t.to(device))
+
+    def rows(self, lo: int, hi: int) -> "StepDraws":
+        """The draws of rows lo..hi-1 of the batch (a rank's share of the
+        global batch's draws): every tensor's first axis, a DropPath keep
+        mask's second."""
+        out = _map_tensors(dataclasses.replace(self, drop_path=None), lambda t: t[lo:hi])
+        if self.drop_path is not None:
+            out.drop_path = [[None if k is None else k[:, lo:hi] for k in view]
+                             for view in self.drop_path]
+        return out
 
 
 def pass_sizes(cfg, byol: bool = False) -> list:
@@ -179,10 +198,17 @@ def _views(cfg, state: TrainState, batch: torch.Tensor, gen, draws: Optional[Ste
            frontend, byol: bool = False):
     """-> (draws, views): the step's draws (drawn from `gen` unless given)
     and its augmented views of `batch` (through `frontend` first when
-    given); the mixup bank advances."""
+    given); the mixup bank advances.  The draws are the global batch's:
+    in a process group `batch` is this rank's B rows, every rank draws the
+    W B rows' numbers from the same generator and keeps its own rows, so a
+    run of W ranks takes the draws of one process on the global batch."""
+    B = batch.shape[0]
     if draws is None:
-        draws = draw_step(gen, cfg, tuple(batch.shape), state.modules["encoder"],
-                          batch.device, wav=frontend is not None, byol=byol)
+        draws = draw_step(gen, cfg, (parallel.batch_count(B), *batch.shape[1:]),
+                          state.modules["encoder"], batch.device, wav=frontend is not None,
+                          byol=byol)
+    lo = parallel.rank() * B
+    draws = draws.rows(lo, lo + B)
     with torch.no_grad():
         if frontend is not None:
             batch = frontend(batch, draws.starts)
@@ -204,8 +230,11 @@ def _encode(cfg, vit: bool, run_encoder, draws: StepDraws, i: int, v: torch.Tens
 
 
 def _finish(state: TrainState, loss, bt, recon, monitor):
-    """The optimizer and scheduler step after the backward, the step count,
-    the metrics (and the monitor folded with the loss when given)."""
+    """The gradients' mean over ranks (in a process group), the optimizer
+    and scheduler step after the backward, the step count, the metrics (and
+    the monitor folded with the loss when given).  The loss and its terms
+    are the global batch's, the same on every rank."""
+    parallel.all_reduce_grads_(state.optimizer)
     state.optimizer.step()
     if state.scheduler is not None:
         state.scheduler.step()

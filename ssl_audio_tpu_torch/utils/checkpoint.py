@@ -26,6 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ssl_audio_tpu_torch import parallel
+
 _STATE_KEYS = ("model", "optimizer", "scheduler", "augment", "step")
 
 
@@ -92,15 +94,22 @@ def _read(path: str) -> dict:
 def save_checkpoint(path: str, state, epoch: int, rng: Optional[dict] = None) -> None:
     """Write `state` (a TrainState) with `epoch`, the epoch a resumed run
     starts at (the Trainer passes the finished epoch + 1, as JAX does), and
-    encode_rng's dict."""
-    _save(path, {**state.state_dict(), "epoch": int(epoch), "rng": rng})
+    encode_rng's dict.  In a process group every rank calls it, rank 0
+    alone writes (the replicas are equal), and every rank returns once the
+    file is there."""
+    if parallel.rank() == 0:
+        _save(path, {**state.state_dict(), "epoch": int(epoch), "rng": rng})
+    parallel.barrier()
 
 
 def load_checkpoint(path: str, state) -> tuple[object, int, Optional[dict]]:
     """Restore `state` in place from `path` -> (state, the epoch to start at,
     the rng dict or None).  FileNotFoundError for a missing file, ValueError
     for a file that is not a training checkpoint; the state's own errors
-    where the file belongs to another configuration."""
+    where the file belongs to another configuration.  In a process group
+    every rank reads the same file, after a barrier (rank 0 may have just
+    written it)."""
+    parallel.barrier()
     ck = _read(path)
     missing = [k for k in _STATE_KEYS + ("epoch",) if k not in ck]
     if missing:

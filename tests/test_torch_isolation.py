@@ -55,7 +55,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "tools.wav_to_lms", "tools.bench_pipeline", "tools.sweep",
                  "augment.augmentations", "ops", "tools.step_determinism", "tools.eager_ab",
                  "main_bt_byol", "tools.reproduce", "hear.extract_results",
-                 "models.resnet", "models.audiontt", "utils.weights", "hear.pipeline"):
+                 "models.resnet", "models.audiontt", "utils.weights", "hear.pipeline",
+                 "parallel"):
         assert f"ssl_audio_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

@@ -833,3 +833,32 @@ def test_zoo_step_card_matches_cpu(dev, rng, overrides, per_step, zero_grad, gra
     for k, g in grads_c.items():
         if k not in zero_grad:
             assert float((grads_d[k] - g).norm() / g.norm()) <= grad_rtol, k
+
+
+@pytest.mark.parametrize("overrides,batch,per_step,loss_rtol", [
+    ({}, 16, {"log_mel_folded": 1, "fused_conv1_fwd": 2, "fused_conv1_bwd": 2}, 1e-4),
+    (dict(model_type="vit_tiny", fused_attention=True, mask=True, mask_ratio=0.75,
+          token_drop=False), 16,
+     {"log_mel_folded": 1, "fused_attention_fwd": 24, "fused_attention_bwd": 24}, 1e-3),
+], ids=["audiontt", "vit_tiny_fused"])
+def test_two_gloo_ranks_on_one_card_are_one_process(dev, overrides, batch, per_step, loss_rtol):
+    """One data-parallel step on two gloo ranks sharing the card (each 8 of
+    the batch's 16 rows; the real kernels with the cross-rank sums between
+    their launches) against one process on the whole batch with world_scale
+    2: the ranks bit for bit, the loss within chip_smoke.py's DP_RTOL
+    (DP_FUSED_LOSS_RTOL with the fused attention, whose bf16 operands turn
+    the ranks' other fp32 GEMM roundings into 2.6e-4 of the loss at these
+    shapes) and the parameters after the step as one vector within
+    DP_RTOL, every launch counted on each rank."""
+    from ssl_audio_tpu_torch.tools import data_parallel
+
+    ref = data_parallel.one_process_step(0, overrides, batch)
+    ranks, _ = data_parallel.two_ranks_on_one_card(0, {"run": (overrides, batch)})
+    r0, r1 = ranks["run"]
+    assert r0["loss"] == r1["loss"] and r0["params_sha256"] == r1["params_sha256"]
+    assert data_parallel.digest(r0["params"]) == r0["params_sha256"]
+    assert abs(r0["loss"] - ref["loss"]) <= loss_rtol * abs(ref["loss"])
+    gap = (r0["params"].double() - ref["params"].double()).norm()
+    assert float(gap / ref["params"].double().norm()) <= 1e-4
+    for r in (r0, r1, ref):
+        assert {k: v for k, v in r["launches"].items() if v} == per_step

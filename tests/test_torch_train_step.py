@@ -391,11 +391,12 @@ def test_deferred_flags_raise():
                dict(use_fp16=True), dict(use_fp16_eval=True), dict(steps_per_dispatch=4),
                dict(profile_dir="x"), dict(squeeze_excitation=True),
                dict(model_type="resnet18"), dict(model_type="resnet50_ReGP_NRF"),
-               dict(model_type="vit_base", remat=True)):
+               dict(model_type="vit_base", remat=True), dict(distributed=True),
+               dict(data_axis_size=1)):
         assert unsupported_settings(default_config(**{"dataset": "synthetic_wav", **kw})) == []
-    for kw in (dict(data_axis_size=2),
+    for kw in (dict(data_axis_size=3),
                dict(model_type="vitc_base", layout_barrier=True), dict(dataset="cifar10"),
-               dict(distributed=True),
+               dict(distributed=True, fsdp=True),
                dict(model_type="vit_tiny", layout_barrier=True),
                dict(model_type="vit_base", layout_barrier=True), dict(fsdp=True),
                dict(model_parallel=2)):
