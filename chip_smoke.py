@@ -64,18 +64,18 @@ Phases, each of which exits non-zero on failure:
      against the same encoder on the CPU;
   9. the pretraining run: `ssl_audio_tpu_torch.main.main` in-process at
      the defaults (AudioNTT2022, batch 128, LARS, mixup bank 2,048, raw wav
-     in) for 4 epochs of 3 steps, twice uninterrupted and once resumed from
+     in) for 3 epochs of 3 steps, twice uninterrupted and once resumed from
      the first run's model_2.pt, in a temporary directory: the per-epoch
      losses, the largest parameter difference resumed vs uninterrupted
      beside uninterrupted vs uninterrupted (the resumed run may differ by no
      more; bit-identical where the two uninterrupted runs are), the
      checkpoint's bytes and its save and load seconds; the same for ViT-B
-     (--fused_attention, AdamW, --lr_schedule, 4 epochs of 2 steps); HEAR
-     serving of the timestamp request from the AudioNTT run's model_4.pt
+     (--fused_attention, AdamW, --lr_schedule, 3 epochs of 2 steps); HEAR
+     serving of the timestamp request from the AudioNTT run's model_3.pt
      with fused_conv=True, bit-identical to a model given the trainer's
      encoder in memory (log-mel folded 7, fused forward 7); and a 3-epoch
      learning proof (tools/prove_learning.py: SyntheticMultiCue, batch 128,
-     100 steps per epoch, Adam 1e-3, the probe at init and after each epoch
+     50 steps per epoch, Adam 1e-3, the probe at init and after each epoch
      through Trainer.fit's eval_fn hook), its losses finite and its scores
      in [0, 1], launches counted per step and per probe;
  10. the on-disk data path, in a temporary directory with `data/` in it, as
@@ -107,7 +107,7 @@ Phases, each of which exits non-zero on failure:
      N = 7) against their plain versions in bf16, timed beside their bf16
      bounds and the library's bf16 calls; main --use_fp16 for 3 steps of
      AudioNTT2022 at the defaults and of ViT-B --fused_attention (each step
-     must launch the bf16 kernels and no fp32 one); 14 steps of each on a
+     must launch the bf16 kernels and no fp32 one); TRAIN_STEPS + 2 steps of each on a
      resident batch of 128 beside the fp32 step (fp32, bf16, bf16, fp32),
      each profiled once (device busy, idle); a batch-16 bf16 step against the
      CPU's and against the card's fp32 step (AudioNTT2022, vit_tiny fused);
@@ -135,7 +135,7 @@ Phases, each of which exits non-zero on failure:
      log-mel and fused conv kernels.
  13. the BYOL-style variant (main_bt_byol) over SyntheticWav at full width,
      batch 128, every BYOL step's launches counted: (a) the defaults
-     (AudioNTT2022, LARS, fp32) with --stop_gradient --predictor, 4 epochs of
+     (AudioNTT2022, LARS, fp32) with --stop_gradient --predictor, 3 epochs of
      3 steps twice and once resumed from model_2.pt (phase 9's resume check,
      the target in the train state; log-mel 1, fused forward 4, backward 2
      a step); (b) the same without --stop_gradient for an epoch (forward 4,
@@ -157,7 +157,7 @@ Phases, each of which exits non-zero on failure:
      per-epoch FSD50K probe (log-mel 1, fused forward 2, backward 2 a step;
      the probe's odd 711-frame crops launch nothing), then an epoch under
      --use_fp16 (bf16 kernels only); (b) resnet50_ReGP_NRF at the defaults
-     (embedding 16,384), 4 epochs of 3 steps twice and once resumed from
+     (embedding 16,384), 3 epochs of 2 steps twice and once resumed from
      model_2.pt (phase 9's check, under cuDNN's deterministic algorithms,
      deterministic_cudnn says why; log-mel 1 a step, nothing else), resnet18
      for an epoch and under main_bt_byol --stop_gradient --predictor;
@@ -175,7 +175,7 @@ Phases, each of which exits non-zero on failure:
      weights: phase 4's requests (log-mel 7 / 1, nothing else), a small
      request against the CPU, bf16 against fp32, ms, clips/s and the share
      of the fp32 operation bound, and the timestamp request from (b)'s
-     model_4.pt bit-identical to the trainer's encoder in memory; (g) A B
+     model_3.pt bit-identical to the trainer's encoder in memory; (g) A B
      B A timings on a resident batch: SE against no SE, resnet18, resnet50
      and resnet50_ReGP_NRF beside AudioNTT2022, ViT-B remat against no
      remat (ms per step, clips/s, device busy and idle, peak memory).
@@ -194,7 +194,27 @@ Phases, each of which exits non-zero on failure:
      with world_scale 2: the loss and the parameters within DP_RTOL, the ranks
      bit for bit; (c) ms per step under torchrun at world size 1 against one
      process, eager and graphed (tools/data_parallel.py), beside the card's
-     name and power limit.
+     name and power limit;
+ 16. the legacy families through ssl_audio_tpu_torch.main_pretrain's
+     LegacyTrainer at full width, batch 128, log-mels in (--dataset
+     synthetic), one epoch of LEGACY_EPOCH_STEPS steps each, the counters
+     zeroed just before each step and read just after it: (a) --method dino
+     on AudioNTT2022 through run_legacy (its checkpoint written; fused fwd 4
+     / bwd 2 a step: the teacher's block 1 under no_grad launches the
+     forward alone), (b) --method dino on ViT-B --fused_attention with two
+     16x16 local crops (attention fwd 72 / bwd 48 a step, 24 of the forwards
+     at N = 2, counted by sequence length), (c) --method byola --use_fp16 on
+     AudioNTT2022 (the bf16 rows 1b 4 / 4b 2); each timed on a resident batch
+     (median ms, a profiled step's idle share, peak memory); (d) (a)'s
+     checkpoint through the linear CLI's loader (load_encoder_checkpoint
+     grafts its encoder, which must equal the trainer's) scored by
+     eval_linear; (e) batch-16 steps of DINO AudioNTT2022 and of DINO
+     vit_tiny --fused_attention with two local crops against the same steps
+     on the CPU (loss, gradients, the centre).
+Phase 3 also holds the attention kernels at DINO's local crops (N = 2, the
+ViT-B 16x16 crop; N = 3, the vitc 16x8 crop) and phase 11 their bf16
+instantiations; the fused block's Function under torch.no_grad() must
+launch its forward alone.
 The `kernels` JSON line lists every ported kernel, the bf16 instantiations
 as entries of their own; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
@@ -284,15 +304,19 @@ N_CLIPS = 16         # clips per serving request
 CLIP = 160000        # 10 s at 16 kHz: one scene clip
 TRAIN_BATCH = 128    # config.py batch_size
 TRAIN_FRAMES = 96    # config.py crop_frames
-TRAIN_STEPS = 12     # timed steps after the warm-up steps
+TRAIN_STEPS = 8      # timed steps after the warm-up steps
 ENTRY_STEPS = 6      # steps of the epoch that the Trainer runs over its DataLoader
 VIT_FLAGS = ["--dataset", "synthetic_wav", "--model_type", "vit_base", "--fused_attention",
              "--mask", "--mask_ratio", "0.75", "--no_token_drop"]
 VIT_DEPTH, VIT_HEADS, VIT_DIM, VIT_TOKENS = 12, 12, 768, 25
+# the attention kernels at DINO's 16x16 local crops: one patch + CLS (ViT-B,
+# 16x16 patches) and two patches + CLS (vitc, 16x8 patches), unmasked
+LOCAL_CROP_SHAPES = {"N=2, local crop": (2, 0.0), "N=3, vitc local crop": (3, 0.0)}
+LOCAL_CROP_KEYS = {"local_crop": "N=2, local crop", "vitc_local_crop": "N=3, vitc local crop"}
 EVAL_ITEMS = {"train": 1024, "val": 256, "test": 256}   # SyntheticLMS clips per loader
 EVAL_CLASSES = 10
 EVAL_MAX_ITER = 20   # probe epochs (eval_linear's max_iter)
-RESUME_EPOCHS = 4    # phase 9: epochs of each pretraining run; the resumed run starts at 3
+RESUME_EPOCHS = 3    # phase 9: epochs of each pretraining run; the resumed run starts at 3
 PRETRAIN = {         # phase 9: each run's flags, steps per epoch and launches per step
     "pretrain_audiontt": (["--dataset", "synthetic_wav", "--model_type", "audiontt"], 3,
                           {"log_mel_folded": 1, "fused_conv1_fwd": 2, "fused_conv1_bwd": 2}),
@@ -301,7 +325,7 @@ PRETRAIN = {         # phase 9: each run's flags, steps per epoch and launches p
                      {"log_mel_folded": 1, "fused_attention_fwd": 2 * 12,
                       "fused_attention_bwd": 2 * 12})}
 PROOF_FLAGS = ["--dataset", "synthetic_multicue", "--model_type", "audiontt", "--epochs", "3",
-               "--batch_size", "128", "--synthetic_steps_per_epoch", "100",
+               "--batch_size", "128", "--synthetic_steps_per_epoch", "50",
                "--optimizer", "Adam", "--lr", "1e-3"]
 PROOF_STEP = {"fused_conv1_fwd": 2, "fused_conv1_bwd": 2}     # log-mels in: no frontend
 PROOF_PROBE = {"fused_conv1_fwd": 8}   # eval batches of 128: 400 + 200 + 200 clips
@@ -655,7 +679,35 @@ def backward_rows(gen: torch.Generator, dev: torch.device) -> tuple[list[dict], 
                                                eps=1e-5)
             return torch.nn.functional.max_pool2d(torch.relu(z), 2)
 
+    # the legacy teacher's launch: the Function under torch.no_grad() runs the
+    # statistics-mode forward alone, keeps no graph, and gives the bits it
+    # gives with a graph; held against the plain versions on the CPU
+    def no_grad_block():
+        with torch.no_grad():
+            return fc.fused_conv1_bn_relu_pool(x[..., None], kernel_hwio, bias, gamma, beta)
+
+    zero_launch_counts()
+    ng = no_grad_block()
+    torch.cuda.synchronize()
+    ng_launches = launch_counts()
+    if ng_launches != counts_with(fused_conv1_fwd=1) or ng[0].grad_fn is not None:
+        raise SystemExit(f"the Function under no_grad launched {ng_launches}, "
+                         f"grad_fn {ng[0].grad_fn}")
+    with_graph = fc.fused_conv1_bn_relu_pool(x[..., None], kernel_hwio.clone().requires_grad_(),
+                                             bias, gamma, beta)
+    if not all(torch.equal(a, b) for a, b in zip(ng, with_graph)):
+        raise SystemExit("the Function gave other bits under no_grad")
+    with torch.no_grad():
+        ng_cpu = fc.fused_conv1_bn_relu_pool(x[..., None].cpu(), kernel_hwio.cpu(), bias.cpu(),
+                                             gamma.cpu(), beta.cpu())
+    ng_err = max_err(ng[0].cpu(), ng_cpu[0])
+    check("fused block under no_grad (the teacher's), card vs CPU plain", ng_err, CONV_ATOL,
+          "fp32 conv sums in another order")
+    no_grad_row = {"launches": {"fused_conv1_fwd": 1, "fused_conv1_bwd": 0},
+                   "max_abs_err": ng_err, "function_ms": cuda_ms(no_grad_block)}
+    print("  fused block under no_grad: " + json.dumps(no_grad_row))
     fwd_row = {"shape": f"{(B, H, W)} -> sel {tuple(pooled.shape)}, s1, s2",
+               "no_grad_function": no_grad_row,
                **device_times(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
                "per_launch_ms": per_launch_ms(lambda: fc.fused_conv1_fwd_cuda(x, wk, bias, gamma)),
                **conv_grid(B, H, W, backward=False),
@@ -706,7 +758,7 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
     B, C, H = TRAIN_BATCH, VIT_DIM, VIT_HEADS
     hd = C // H
     shapes = {"N=25": (VIT_TOKENS, 0.0), "N=25, masked keys": (VIT_TOKENS, 0.75),
-              "N=7, token drop": (7, 0.0)}
+              "N=7, token drop": (7, 0.0), **LOCAL_CROP_SHAPES}
     inputs, errs = {}, {"fwd": 0.0, "bwd": 0.0}
     for label, (N, drop) in shapes.items():
         qkv = torch.randn(B, N, 3 * C, generator=gen)
@@ -756,7 +808,7 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
         fa.fused_attention(x, bias, H).backward(dout)
 
     rows = {"fwd": {}, "bwd": {}}
-    for label in ("N=25", "N=7, token drop"):
+    for label in ("N=25", "N=7, token drop", *LOCAL_CROP_SHAPES):
         qkv, bias, dout = inputs[label]
         N = qkv.shape[1]
         lib = library_fwd(qkv, bias).transpose(1, 2).reshape(B, N, C).float()
@@ -812,14 +864,16 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
                       "without; host_ms: the wrapper's host time per call",
              "library_is": "split + transpose of the raw qkv, scaled_dot_product_attention "
                            "on bf16 q, k, v with the additive mask",
-             "token_drop": rows["fwd"]["N=7, token drop"]},
+             "token_drop": rows["fwd"]["N=7, token drop"],
+             **{key: rows["fwd"][label] for key, label in LOCAL_CROP_KEYS.items()}},
             {"name": "fused_attention_bwd", "route": "cuda", "source": src,
              "replaces": "ssl_audio_tpu/ops/fused_attention.py:187",
              "max_abs_err": errs["bwd"], **rows["bwd"]["N=25"],
              "library_is": "the same yardstick's backward alone (torch.autograd.grad of its "
                            "output, forward run once); library_fwd_bwd_ms: forward and "
                            "backward through autograd",
-             "token_drop": rows["bwd"]["N=7, token drop"]}]
+             "token_drop": rows["bwd"]["N=7, token drop"],
+             **{key: rows["bwd"][label] for key, label in LOCAL_CROP_KEYS.items()}}]
 
 
 def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
@@ -1151,7 +1205,7 @@ def bf16_kernel_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
     hd = Cv // Hv
     errs, inputs = {"fwd": 0.0, "bwd": 0.0}, {}
     for label, (N, drop) in {"N=25": (VIT_TOKENS, 0.0), "N=25, masked keys": (VIT_TOKENS, 0.75),
-                             "N=7, token drop": (7, 0.0)}.items():
+                             "N=7, token drop": (7, 0.0), **LOCAL_CROP_SHAPES}.items():
         qkv = torch.randn(Bv, N, 3 * Cv, generator=gen)
         bias_k = torch.zeros(Bv, N)
         if drop:
@@ -1191,7 +1245,7 @@ def bf16_kernel_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=b[:, None, None, :].to(bf))
 
     att = {"fwd": {}, "bwd": {}}
-    for label in ("N=25", "N=7, token drop"):
+    for label in ("N=25", "N=7, token drop", *LOCAL_CROP_SHAPES):
         qkv, bias_k, dout = inputs[label]
         N = qkv.shape[1]
         xg = qkv.detach().requires_grad_()
@@ -1226,12 +1280,14 @@ def bf16_kernel_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
                  "max_abs_err": errs["fwd"], **att["fwd"]["N=25"],
                  "library_is": "split + transpose of the raw bf16 qkv, "
                                "scaled_dot_product_attention with the additive mask",
-                 "token_drop": att["fwd"]["N=7, token drop"]})
+                 "token_drop": att["fwd"]["N=7, token drop"],
+                 **{key: att["fwd"][label] for key, label in LOCAL_CROP_KEYS.items()}})
     rows.append({"name": "fused_attention_bwd_bf16", "route": "cuda", "source": src,
                  "replaces": "ssl_audio_tpu/ops/fused_attention.py:187",
                  "max_abs_err": errs["bwd"], **att["bwd"]["N=25"],
                  "library_is": "the same yardstick's backward alone",
-                 "token_drop": att["bwd"]["N=7, token drop"]})
+                 "token_drop": att["bwd"]["N=7, token drop"],
+                 **{key: att["bwd"][label] for key, label in LOCAL_CROP_KEYS.items()}})
     return rows
 
 
@@ -2427,7 +2483,7 @@ def phase_disk(seed: int, dev: torch.device, smi: str, resident_wav_ms: float) -
 DISPATCH = 4
 GRAPH_STEPS = 14     # (a)-(d): windows [0-3] eager, [4-7] captured and replayed,
                      # [8-11] replayed (static inputs refilled), tail [12, 13]
-GRAPH_WINDOWS = 4    # timed windows per graphed turn: 8 windows, 32 replayed steps
+GRAPH_WINDOWS = 1    # timed windows per graphed turn: 2 windows, 8 replayed steps
 VITB = ["--dataset", "synthetic_wav", "--model_type", "vit_base", "--fused_attention"]
 VIT_STEP = {"log_mel_folded": 1, "fused_attention_fwd": 2 * VIT_DEPTH,
             "fused_attention_bwd": 2 * VIT_DEPTH}
@@ -2557,7 +2613,7 @@ def graphs_vs_eager(name: str, flags: list[str], per_step: dict, seed: int,
 def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int,
                           smi: str, byol: bool = False) -> dict:
     """(a)-(d) timed on a batch of 128 seeded 10-s clips resident on the
-    card, in turns (A B B A): eager steps (A, 12 after two warm-ups per
+    card, in turns (A B B A): eager steps (A, TRAIN_STEPS after two warm-ups per
     turn) and graphed windows of DISPATCH steps (B, GRAPH_WINDOWS windows per
     turn after the warm-up window and the capture), ms per step (the median
     over the windows of a window's host-clock ms / DISPATCH), the capture's
@@ -2651,16 +2707,19 @@ def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int
 
 
 def profile_dir_trace(seed: int) -> dict:
-    """main's --profile_dir at one step a dispatch: an 11-step epoch of the
-    defaults traces iteration 10; the trace must name the log-mel kernel
-    (B2) and both fused conv kernels (B1, B4)."""
+    """main's --profile_dir at one step a dispatch: a 12-step epoch of the
+    defaults traces iterations 10 and 11; the trace must name the log-mel
+    kernel (B2) and both fused conv kernels (B1, B4).  Two steps, not one:
+    the log-mel kernel is the first launch after the profiler starts, and
+    a one-step trace has once missed its events on an H100 (the fused conv
+    kernels of the same step were in it)."""
     from ssl_audio_tpu_torch.config import config_from_args
     from ssl_audio_tpu_torch.train.loop import Trainer
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
         lines = []
         cfg = config_from_args(["--dataset", "synthetic_wav", "--epochs", "1",
-                                "--synthetic_steps_per_epoch", "11", "--seed", str(seed),
+                                "--synthetic_steps_per_epoch", "12", "--seed", str(seed),
                                 "--profile_dir", tmp])
         Trainer(cfg, log=lines.append).train_one_epoch(1)
         (path,) = glob.glob(os.path.join(tmp, "*.json"))
@@ -2718,7 +2777,7 @@ BYOL_VIT_STEP = {"log_mel_folded": 1, "fused_attention_fwd": 4 * VIT_DEPTH,
                  "fused_attention_bwd": 2 * VIT_DEPTH}
 BYOL_BF16_STEP = {"log_mel_folded": 1, "fused_conv1_fwd_bf16": 4, "fused_conv1_bwd_bf16": 2}
 BYOL_EPOCH_STEPS = 3
-BYOL_TIMED_STEPS = 7   # per turn, A B B A: 14 timed steps of each side
+BYOL_TIMED_STEPS = 4   # per turn, A B B A: 8 timed steps of each side
 EMA_RTOL = 1e-6        # the BYOL target after one step, card vs CPU: the EMA of equal values
 CHAIN_TASKS = ("esc50-v2.0.0-full", "speech_commands-v0.0.2-5h")
 
@@ -2879,7 +2938,7 @@ def phase_byol(seed: int, dev: torch.device, smi: str) -> dict:
           "target) at full width, batch 128, raw 10-s clips in, and the reproduce chain")
     out = {"card": smi, "launches": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_byol_") as tmp, contextlib.chdir(tmp):
-        # (a): the defaults with --stop_gradient --predictor, 4 epochs of 3 steps,
+        # (a): the defaults with --stop_gradient --predictor, 3 epochs of 3 steps,
         # twice and once resumed from model_2.pt
         with steps_counted(BYOL_STEP, "(a)"):
             out["a_resume"], trainer, _ = resume_check("byol_audiontt", seed, BYOL_FLAGS,
@@ -2961,9 +3020,9 @@ ZOO_REMAT_STEP = {"log_mel_folded": 1, "fused_attention_fwd": 4 * VIT_DEPTH,
                   "fused_attention_bwd": 2 * VIT_DEPTH}
 ZOO_REMAT_BF16_STEP = {"log_mel_folded": 1, "fused_attention_fwd_bf16": 4 * VIT_DEPTH,
                        "fused_attention_bwd_bf16": 2 * VIT_DEPTH}
-ZOO_EPOCH_STEPS = 3
+ZOO_EPOCH_STEPS = 2
 ZOO_PROBE_SPLITS = {"train": 128, "val": 32, "test": 32}   # the per-epoch probe's tree
-ZOO_TIMED_STEPS = 7      # per turn, A B B A: 14 timed steps a side
+ZOO_TIMED_STEPS = 4      # per turn, A B B A: 8 timed steps a side
 REMAT_RTOL = 1e-6        # remat against no remat: the same kernels on the same values
 ZOO_BF16_RTOL = 2e-2     # bf16 HEAR embeddings against fp32, relative L2 (the CPU tests' ceiling)
 HEAR_RESNETS = ("resnet50", "resnet50_ReGP_NRF")
@@ -3348,6 +3407,7 @@ DP_FUSED_LOSS_RTOL = 1e-3   # the loss with the fused attention: the ranks' GEMM
                      # round otherwise in fp32, and the kernels' bf16 operands turn that into
                      # ~1e-4 of the loss (vit_tiny at 16 on an H100: 2.6e-4, its fp32
                      # einsum form 2e-6); the card-vs-CPU step's limit
+DP_TIMED_STEPS = 8   # (c): timed steps a side, eager, and in windows of 4
 DP_RUNS = {          # (b): overrides of train_profile's configuration, global batch, launches,
                      # the loss's tolerance
     "dp_audiontt": ({}, 128, WAV_STEP_LAUNCHES, DP_RTOL),
@@ -3411,15 +3471,34 @@ def tree_gaps(a, b, path: str = "") -> list[str]:
     return [] if a == b else [path]
 
 
-def entry_point_at_world_size_1() -> dict:
+WS1_RUNS = {"eager": ("main", [*DP_FLAGS]), "graphed": ("main", [*DP_FLAGS, *DP_GRAPHED]),
+            "byol": ("main_bt_byol", [*DP_FLAGS, *DP_BYOL])}
+
+
+def start_world_size_1() -> dict:
     """(a): main --distributed under torchrun at world size 1 (NCCL), eager
-    and graphed, and main_bt_byol --distributed, all started at once, and
-    each entry point alone while they run, in the working directory: the
-    checkpoints (parameters, running statistics, optimizer, mixup bank,
-    step, generators; the BYOL target) bit for bit, and the logged losses
-    (the first step's, eagerly) and the epoch's loss line."""
+    and graphed, and main_bt_byol --distributed, all started at once in the
+    working directory -> {name: process}."""
+    return {name: start_torchrun(["-m", f"ssl_audio_tpu_torch.{entry}", "--distributed",
+                                  *flags, "--save_base_dir", f"dist_{name}", "--name",
+                                  f"dist_{name}"], f"dist_{name}")
+            for name, (entry, flags) in WS1_RUNS.items()}
+
+
+def world_size_1_alone() -> dict:
+    """(a): each entry point alone, in this process -> {name: run_main's result}."""
     from ssl_audio_tpu_torch.main_bt_byol import main as byol_main
 
+    return {name: run_main([*flags, "--save_base_dir", f"one_{name}", "--name", f"one_{name}"],
+                           byol_main if entry == "main_bt_byol" else None)
+            for name, (entry, flags) in WS1_RUNS.items()}
+
+
+def finish_world_size_1(procs: dict, one: dict) -> dict:
+    """(a): the torchrun runs against the runs alone: the checkpoints
+    (parameters, running statistics, optimizer, mixup bank, step,
+    generators; the BYOL target) bit for bit, and the logged losses (the
+    first step's, eagerly) and the epoch's loss line."""
     def ran(kind, name):
         (ck,) = glob.glob(f"{kind}_{name}/results/synthetic_wav/*/model_1.pt")
         (log,) = glob.glob(f"logs/training/synthetic_wav/*_{kind}_{name}*/log.csv")
@@ -3427,34 +3506,21 @@ def entry_point_at_world_size_1() -> dict:
             losses = [line.split(",")[5] for line in f if line.startswith("epoch,")]
         return torch.load(ck, map_location="cpu", weights_only=True), losses
 
-    runs = {"eager": ("main", [*DP_FLAGS]), "graphed": ("main", [*DP_FLAGS, *DP_GRAPHED]),
-            "byol": ("main_bt_byol", [*DP_FLAGS, *DP_BYOL])}
-    t0 = time.perf_counter()
-    procs = {name: start_torchrun(["-m", f"ssl_audio_tpu_torch.{entry}", "--distributed",
-                                   *flags, "--save_base_dir", f"dist_{name}", "--name",
-                                   f"dist_{name}"], f"dist_{name}")
-             for name, (entry, flags) in runs.items()}
-    one = {name: run_main([*flags, "--save_base_dir", f"one_{name}", "--name", f"one_{name}"],
-                          byol_main if entry == "main_bt_byol" else None)
-           for name, (entry, flags) in runs.items()}
     out = {}
-    for name in runs:
-        lines = finish_torchrun(procs[name], f"dist_{name}", f"{runs[name][0]} --distributed "
-                                f"{name}")
+    for name, (entry, _) in WS1_RUNS.items():
+        lines = finish_torchrun(procs[name], f"dist_{name}", f"{entry} --distributed {name}")
         (dist_ck, dist_loss), (one_ck, one_loss) = ran("dist", name), ran("one", name)
         epoch = [next(x for x in ls if x.startswith("Epoch [1/1]")).split(" data_time")[0]
                  for ls in (lines, one[name][3])]
         gaps = tree_gaps(dist_ck, one_ck)
-        print(f"  (a) {name}: {runs[name][0]} --distributed (NCCL, world size 1) against "
-              f"{runs[name][0]} alone: "
-              f"{len(gaps)} checkpoint entries differ; logged losses {dist_loss} / {one_loss}; "
-              f"{epoch[0]} / {epoch[1]}")
+        print(f"  (a) {name}: {entry} --distributed (NCCL, world size 1) against {entry} "
+              f"alone: {len(gaps)} checkpoint entries differ; logged losses {dist_loss} / "
+              f"{one_loss}; {epoch[0]} / {epoch[1]}")
         if gaps or dist_loss != one_loss or epoch[0] != epoch[1]:
             raise SystemExit(f"phase 15 (a) {name}: the world-size-1 run departs from one "
                              f"process: {gaps[:8]}")
         out[name] = {"checkpoint_entries_differing": 0,
                      "logged_losses": [float(x) for x in dist_loss], "epoch_line": epoch[0]}
-    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3475,32 +3541,12 @@ def phase_dp(seed: int, dev: torch.device, smi: str) -> dict:
     print("phase 15: data parallel (--distributed)")
     out = {"launches": {}, "seconds": {}}
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as work, contextlib.chdir(work):
-        out["a_world_size_1"] = entry_point_at_world_size_1()
-        out["seconds"]["a"] = time.perf_counter() - t0
-        gc.collect()
-        torch.cuda.empty_cache()
-        # (c) the step under torchrun at world size 1 against one process, alone on the card
-        t1 = time.perf_counter()
-        proc = start_torchrun(["-m", "ssl_audio_tpu_torch.tools.data_parallel", "--distributed",
-                               "--seed", str(seed), "--out", "dp.json"], "dp_timed")
-        finish_torchrun(proc, "dp_timed", "the timed steps under torchrun")
-        with open("dp.json") as f:
-            dist = json.load(f)
-    one = data_parallel.timed(seed, 12, 4)
-    out["c_time"] = {"card": smi, "world_size_1_nccl": dist, "one_process": one}
-    for k in ("eager", "graphed"):
-        print(f"  (c) {k}: {dist[k + '_ms_per_step_median']:.3f} ms a step under torchrun "
-              f"(NCCL, world size 1) against {one[k + '_ms_per_step_median']:.3f} ms in one "
-              f"process (batch {one['global_batch']}; {smi})")
-    out["seconds"]["c"] = time.perf_counter() - t1
-    gc.collect()
-    torch.cuda.empty_cache()
-    # (b) two gloo ranks on the one card against one process, which steps meanwhile
-    t2 = time.perf_counter()
     runs = {name: (overrides, batch) for name, (overrides, batch, _, _) in DP_RUNS.items()}
+    one = {}
 
-    def references():
+    def meanwhile():
+        """(a)'s runs alone, then (b)'s one-process references."""
+        one.update(world_size_1_alone())
         refs = {}
         for name, (overrides, batch) in runs.items():
             refs[name] = data_parallel.one_process_step(seed, overrides, batch)
@@ -3508,7 +3554,35 @@ def phase_dp(seed: int, dev: torch.device, smi: str) -> dict:
             torch.cuda.empty_cache()
         return refs
 
-    ranks, refs = data_parallel.two_ranks_on_one_card(seed, runs, meanwhile=references)
+    with tempfile.TemporaryDirectory() as work, contextlib.chdir(work):
+        # (a) and (b) at once, neither of them timed: (a)'s torchrun processes
+        # and (b)'s two gloo ranks on the card beside this process, which
+        # makes (a)'s runs alone and (b)'s references meanwhile
+        procs = start_world_size_1()
+        ranks, refs = data_parallel.two_ranks_on_one_card(seed, runs, meanwhile=meanwhile)
+        out["a_world_size_1"] = finish_world_size_1(procs, one)
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds"]["a_b"] = time.perf_counter() - t0
+        # (c) the step under torchrun at world size 1 against one process, alone on the card
+        t1 = time.perf_counter()
+        proc = start_torchrun(["-m", "ssl_audio_tpu_torch.tools.data_parallel", "--distributed",
+                               "--seed", str(seed), "--steps", str(DP_TIMED_STEPS),
+                               "--out", "dp.json"], "dp_timed")
+        finish_torchrun(proc, "dp_timed", "the timed steps under torchrun")
+        with open("dp.json") as f:
+            dist = json.load(f)
+    alone = data_parallel.timed(seed, DP_TIMED_STEPS, 4)
+    out["c_time"] = {"card": smi, "world_size_1_nccl": dist, "one_process": alone}
+    for k in ("eager", "graphed"):
+        print(f"  (c) {k}: {dist[k + '_ms_per_step_median']:.3f} ms a step under torchrun "
+              f"(NCCL, world size 1) against {alone[k + '_ms_per_step_median']:.3f} ms in one "
+              f"process (batch {alone['global_batch']}; {smi})")
+    out["seconds"]["c"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) two gloo ranks on the one card against one process
     out["b_two_ranks"] = {}
     for name, (_, batch, want, loss_rtol) in DP_RUNS.items():
         (r0, r1), ref = ranks[name], refs[name]
@@ -3537,8 +3611,298 @@ def phase_dp(seed: int, dev: torch.device, smi: str) -> dict:
     del ranks, refs
     gc.collect()
     torch.cuda.empty_cache()
-    out["seconds"]["b"] = time.perf_counter() - t2
     print(f"  phase 15 seconds by part: {json.dumps(out['seconds'])}")
+    return out
+
+
+# phase 16: the legacy DINO and BYOL-A families (main_pretrain --method
+# dino|byola) at full width, batch 128, log-mels in.  Launches per step: the
+# student's (online) two global views and the teacher's (target) two in
+# train mode, the backward through the student's only; DINO ViT-B with two
+# 16x16 local crops runs the student on four views (the locals at one patch
+# + CLS, N = 2) and the teacher on two
+LEGACY_BASE = ["--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH), "--epochs", "1",
+               "--num_workers", "4"]
+LEGACY_RUNS = {
+    "dino_audiontt": (["--method", "dino", "--model_type", "audiontt"],
+                      {"fused_conv1_fwd": 4, "fused_conv1_bwd": 2}),
+    "dino_vitb_multicrop": (["--method", "dino", "--model_type", "vit_base",
+                             "--fused_attention", "--local_crops_number", "2"],
+                            {"fused_attention_fwd": 6 * VIT_DEPTH,
+                             "fused_attention_bwd": 4 * VIT_DEPTH}),
+    "byola_audiontt_bf16": (["--method", "byola", "--model_type", "audiontt", "--use_fp16"],
+                            {"fused_conv1_fwd_bf16": 4, "fused_conv1_bwd_bf16": 2})}
+LEGACY_EPOCH_STEPS = 3
+LEGACY_TIMED_STEPS = 8
+# the attention forwards of a DINO ViT-B multi-crop step by sequence length:
+# the student's two global views and the teacher's two at 24 patches + CLS,
+# the student's two local crops at N = 2
+LEGACY_VIT_N = {VIT_TOKENS: 4 * VIT_DEPTH, 2: 2 * VIT_DEPTH}
+
+
+@contextlib.contextmanager
+def legacy_steps_counted(per_step: dict, what: str):
+    """Inside: every step main_pretrain's LegacyTrainer makes
+    (train/legacy_steps.py make_dino_train_step / make_byola_train_step) has
+    the counters zeroed just before it and read just after (the device
+    synchronised); each must be per_step, checked on leaving."""
+    from ssl_audio_tpu_torch.train import legacy_steps
+
+    makers = {n: getattr(legacy_steps, n) for n in ("make_dino_train_step",
+                                                    "make_byola_train_step")}
+    seen = []
+
+    def counted_factory(make):
+        def factory(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def counted(*a, **kw):
+                zero_launch_counts()
+                out = step(*a, **kw)
+                torch.cuda.synchronize()
+                seen.append(launch_counts())
+                return out
+            return counted
+        return factory
+
+    for n, make in makers.items():
+        setattr(legacy_steps, n, counted_factory(make))
+    try:
+        yield seen
+    finally:
+        for n, make in makers.items():
+            setattr(legacy_steps, n, make)
+    want = counts_with(**per_step)
+    bad = [c for c in seen if c != want]
+    if not seen or bad:
+        raise SystemExit(f"{what}: {len(bad)} of {len(seen)} steps launched other than "
+                         f"{per_step}: {bad[:2]}")
+    print(f"  {what}: each of {len(seen)} steps launched {per_step}")
+
+
+def attention_lengths(trainer) -> tuple[dict, list]:
+    """Forward pre-hooks on every attention module of the student and the
+    teacher: -> (a count of their inputs' sequence lengths, the hooks)."""
+    from ssl_audio_tpu_torch.models.vit import AttentionKBiasZero
+
+    seen: dict = {}
+    hooks = []
+    for m in trainer.state.modules.modules():
+        if isinstance(m, AttentionKBiasZero):
+            hooks.append(m.register_forward_pre_hook(
+                lambda mod, args: seen.__setitem__(args[0].shape[1],
+                                                   seen.get(args[0].shape[1], 0) + 1)))
+    return seen, hooks
+
+
+def legacy_resident_time(trainer, seed: int, smi: str) -> dict:
+    """The trainer's step on one seeded log-mel batch resident on the card:
+    two warm-ups, LEGACY_TIMED_STEPS timed (median ms, clips/s), one step
+    profiled (device busy, idle share)."""
+    from ssl_audio_tpu_torch.tools.serving import profile
+    from ssl_audio_tpu_torch.tools.train_profile import step_wall_ms
+
+    cfg = trainer.cfg
+    batch = torch.randn(TRAIN_BATCH, 1, cfg.n_mels, cfg.crop_frames,
+                        generator=torch.Generator().manual_seed(seed + 3)).cuda()
+    args = ((0.04, 0.998) if trainer.method == "dino" else ())
+
+    def run():
+        return trainer.step(trainer.state, batch, *args, gen=trainer.gen)
+
+    losses = [float(run()["loss"]) for _ in range(2)]
+    times = step_wall_ms(run, LEGACY_TIMED_STEPS)
+    p = profile(run)
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        raise SystemExit(f"non-finite loss among {losses}")
+    med = statistics.median(times)
+    return {"ms_per_step_median": med, "ms_per_step_min": min(times),
+            "steps_timed": len(times), "clips_per_s": TRAIN_BATCH / med * 1e3,
+            "profile": {"wall_ms": p["wall_ms"], "device_busy_ms": p["device_busy_ms"],
+                        "idle_share": p["idle_share"], "launches_seen": p["launches_seen"]},
+            "card": smi}
+
+
+def legacy_card_vs_cpu(seed: int, dev: torch.device, method: str, overrides: dict,
+                       zero_grad: tuple, grad_rtol: float, why: str,
+                       global_rtol: float | None = None) -> dict:
+    """One batch-16 legacy step on the card against the same step on the CPU
+    (plain versions): the same seeded weights, batch and draws.  Limits: the
+    loss (STEP_LOSS_RTOL, relative), the worst gradient tensor (relative L2)
+    and, if given, all gradients at once; the target after the EMA and the
+    DINO centre within EMA_RTOL (the EMA of the updated parameters: Adam's
+    first step, ~lr sign(g), moves an element whose gradient is float noise
+    by up to 2 lr the other way, so the online parameters are not held)."""
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.train import legacy_steps
+
+    batch = torch.randn(16, 1, 64, TRAIN_FRAMES, generator=torch.Generator().manual_seed(seed + 7))
+    runs = []
+    for where in ("cpu", dev):
+        # no warm-up: the first step's lr is not 0, so the target's EMA moves
+        cfg = default_config(method=method, dataset="synthetic", batch_size=16,
+                             device=str(where), seed=seed, warmup_epochs=0, **overrides)
+        state = legacy_steps.init_legacy_state(cfg, torch.Generator().manual_seed(seed), method,
+                                               niter_per_ep=4, device=where)
+        draws = legacy_steps.draw_legacy_step(torch.Generator().manual_seed(seed + 9), cfg,
+                                              tuple(batch.shape), state.modules["encoder"])
+        if method == "dino":
+            step = legacy_steps.make_dino_train_step(cfg)
+            m = step(state, batch.to(where), 0.04, 0.996, draws=draws.to(where))
+        else:
+            m = legacy_steps.make_byola_train_step(cfg)(state, batch.to(where),
+                                                        draws=draws.to(where))
+        grads = {f"{name}.{k}": p.grad.detach().cpu() for name, m in state.modules.items()
+                 if name != "target" for k, p in m.named_parameters() if p.grad is not None}
+        target = {k: p.detach().cpu() for k, p in state.modules["target"].named_parameters()}
+        center = None if state.center is None else state.center.cpu()
+        runs.append((float(m["loss"]), grads, target, center))
+    (loss_c, grads_c, tgt_c, ctr_c), (loss_d, grads_d, tgt_d, ctr_d) = runs
+    loss_err = abs(loss_d - loss_c) / abs(loss_c)
+    worst, worst_name, sq_diff, sq_ref = 0.0, "", 0.0, 0.0
+    for k, g in grads_c.items():
+        if k in zero_grad or not g.any():
+            continue
+        diff = grads_d[k].double() - g.double()
+        rel = float(diff.norm() / g.double().norm())
+        sq_diff += float(diff.norm()) ** 2
+        sq_ref += float(g.double().norm()) ** 2
+        if rel > worst:
+            worst, worst_name = rel, k
+    overall = (sq_diff / sq_ref) ** 0.5
+    gaps = {k: float((tgt_d[k].double() - v.double()).abs().max() / v.abs().max().clamp_min(1e-30))
+            for k, v in tgt_c.items() if v.any()}
+    tgt_worst = max(gaps, key=gaps.get)
+    label = f"{method} {overrides}, card vs CPU"
+    print(f"  small step (batch 16, {label}): loss {loss_d!r} vs {loss_c!r}; gradients worst "
+          f"relative L2 {worst:.2e} ({worst_name}), all at once {overall:.2e}; target after "
+          f"the EMA largest gap {gaps[tgt_worst]:.2e} ({tgt_worst})")
+    check(f"legacy step loss, {label}, relative", loss_err, STEP_LOSS_RTOL, why)
+    check(f"legacy step gradients, {label}, relative L2 per tensor", worst, grad_rtol, why)
+    if global_rtol is not None:
+        check(f"legacy step gradients, {label}, relative L2 all at once", overall, global_rtol,
+              why)
+    out = {"loss_rel_err": loss_err, "grad_rel_l2_err": worst, "worst_grad": worst_name,
+           "grad_rel_l2_err_all": overall, "target_worst": tgt_worst,
+           "target_rel_gap_after_ema": gaps[tgt_worst]}
+    if ctr_c is not None:
+        out["center_rel_err"] = float((ctr_d - ctr_c).abs().max() / ctr_c.abs().max())
+        check(f"DINO centre, {label}, / max|centre|", out["center_rel_err"], STEP_LOSS_RTOL,
+              "the teacher's outputs: fp32 through the encoder in another order")
+    return out
+
+
+def legacy_probe(ckpt: str, seed: int, dev: torch.device) -> dict:
+    """(a)'s checkpoint through the linear CLI's model loader (a Barlow Twins
+    state whose encoder load_encoder_checkpoint grafts from the legacy
+    file), scored by eval_linear over phase 8's seeded loaders; the
+    grafted encoder must equal the trainer's."""
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.data.datasets import SyntheticLMS
+    from ssl_audio_tpu_torch.data.pipeline import DataLoader
+    from ssl_audio_tpu_torch.eval.linear import eval_linear, make_embedding_forward
+    from ssl_audio_tpu_torch.linear import load_model
+
+    cfg = default_config(dataset="synthetic", seed=seed)
+    encoder = load_model(cfg, ckpt)
+    loaders = [DataLoader(SyntheticLMS(cfg, length=n, n_classes=EVAL_CLASSES, seed=i),
+                          batch_size=cfg.batch_size, shuffle=False, drop_last=False,
+                          num_workers=4)
+               for i, n in enumerate(EVAL_ITEMS.values())]
+    forward = make_embedding_forward(cfg, encoder)
+    forward(torch.zeros(2, 1, 64, 96, device=dev))     # warm-up
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = eval_linear(forward, *loaders, max_iter=EVAL_MAX_ITER, device=dev)
+    torch.cuda.synchronize()
+    rec = {"score_all_map": scores["score_all"], "score_5_map_mean_std": list(scores["score_5"]),
+           "eval_linear_s": time.perf_counter() - t0, "launches": launch_counts()}
+    if not 0.0 < rec["score_all_map"] <= 1.0:
+        raise SystemExit(f"(d) legacy checkpoint probe: score {rec['score_all_map']}")
+    return rec, encoder
+
+
+def phase_legacy(seed: int, dev: torch.device, smi: str) -> dict:
+    """Phase 16: (a)-(c) main_pretrain's LegacyTrainer for each LEGACY_RUNS
+    entry (one epoch of LEGACY_EPOCH_STEPS steps, each step's launches
+    counted; (a) through run_legacy, its checkpoint written), then timed on a
+    resident batch; (d) (a)'s checkpoint scored through
+    load_encoder_checkpoint; (e) small steps card vs CPU."""
+    import gc
+
+    from ssl_audio_tpu_torch import main_pretrain
+
+    print("phase 16: the legacy DINO and BYOL-A families (main_pretrain --method dino|byola) "
+          "at full width, batch 128, log-mels in")
+    out = {"card": smi, "launches": {}, "seconds": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_legacy_") as tmp, contextlib.chdir(tmp):
+        for key, (flags, per_step) in LEGACY_RUNS.items():
+            t0 = time.perf_counter()
+            cfg, method = main_pretrain.config_for(
+                flags + LEGACY_BASE + ["--synthetic_steps_per_epoch", str(LEGACY_EPOCH_STEPS),
+                                       "--seed", str(seed)])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            log = io.StringIO()
+            with legacy_steps_counted(per_step, f"({key})"), contextlib.redirect_stdout(log):
+                if key == "dino_audiontt":
+                    trainer = main_pretrain.run_legacy(cfg, method)
+                else:
+                    trainer = main_pretrain.LegacyTrainer(cfg, method)
+                    lengths, hooks = attention_lengths(trainer)
+                    trainer.fit()
+                    for h in hooks:
+                        h.remove()
+            if trainer.device.type != "cuda":
+                raise SystemExit(f"({key}) trained on {trainer.device}, not the card")
+            lines = [ln for ln in log.getvalue().splitlines()
+                     if ln.startswith(f"[{method}] epoch")]
+            if len(lines) != 1 or not lines[0].startswith(f"[{method}] epoch 1/1 loss="):
+                raise SystemExit(f"({key}): the epoch lines {lines}")
+            rec = {"flags": flags, "steps": LEGACY_EPOCH_STEPS,
+                   "mean_loss": trainer.epoch_losses[1], "launches_per_step": per_step,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated() - base}
+            if key == "dino_vitb_multicrop":
+                want = {n: LEGACY_EPOCH_STEPS * c for n, c in LEGACY_VIT_N.items()}
+                if lengths != want:
+                    raise SystemExit(f"({key}): attention forwards by sequence length "
+                                     f"{lengths}, expected {want}")
+                rec["attention_forwards_by_n"] = {str(n): c for n, c in lengths.items()}
+            out["launches"][f"legacy_{key}"] = counts_with(**per_step)
+            if key == "dino_audiontt":
+                ckpt = os.path.join(tmp, "results", "synthetic", "dino_audiontt", "model_1.pt")
+                probe, encoder = legacy_probe(ckpt, seed, dev)
+                want = trainer.state.modules["encoder"].state_dict()
+                if not all(torch.equal(v, want[k]) for k, v in encoder.state_dict().items()):
+                    raise SystemExit("(d): the grafted encoder is not the trainer's")
+                out["d_probe"] = probe
+                out["launches"]["legacy_probe"] = probe["launches"]
+                print(f"  (d) the DINO checkpoint through load_encoder_checkpoint: "
+                      f"{json.dumps(probe)}")
+                del encoder
+            # the resident batch's steps move the state on: after the checkpoint's check
+            rec["time"] = legacy_resident_time(trainer, seed, smi)
+            out[key] = rec
+            out["seconds"][key] = time.perf_counter() - t0
+            print(f"  ({key}) {json.dumps(rec)}")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["e_cpu_check"] = {
+        "dino_audiontt": legacy_card_vs_cpu(
+            seed, dev, "dino", dict(dino_out_dim=1024), ("encoder.features.0.bias",
+                                                         "encoder.features.4.bias"),
+            STEP_GRAD_RTOL, "pool and ReLU decisions flip on 1e-7 input differences"),
+        "dino_vit_tiny_multicrop_fused": legacy_card_vs_cpu(
+            seed, dev, "dino", dict(model_type="vit_tiny", fused_attention=True,
+                                    local_crops_number=2, dino_out_dim=1024), (),
+            VIT_FUSED_GRAD_RTOL, "bf16 roundings flipped by 1e-7 differences, amplified",
+            VIT_FUSED_GLOBAL_RTOL)}
+    out["seconds"]["e_cpu_check"] = time.perf_counter() - t0
+    print(f"  phase 16 seconds by part: {json.dumps(out['seconds'])}")
     return out
 
 
@@ -3596,6 +3960,9 @@ def main() -> int:
     t15 = time.perf_counter()
     dp = phase_dp(args.seed, dev, smi)
     print(f"  phase 15: {time.perf_counter() - t15:.1f} s")
+    t16 = time.perf_counter()
+    legacy = phase_legacy(args.seed, dev, smi)
+    print(f"  phase 16: {time.perf_counter() - t16:.1f} s")
     next(k for k in kernels if k["name"] == "log_mel_folded")["converter_shape"] = \
         disk["convert_mel_row"]
     # launches on the main paths, per path (timestamp request, scene request,
@@ -3612,14 +3979,16 @@ def main() -> int:
     # of each main_bt_byol run, a graphed BYOL step, and the reproduce chain's
     # convert, pretrain, probe and HEAR stages; phase 14: one step of each
     # new encoder's runs, the SE run's probe, a graphed step of each, the
-    # HEAR ResNet requests; phase 15: rank 0's step of each two-rank run) and
+    # HEAR ResNet requests; phase 15: rank 0's step of each two-rank run;
+    # phase 16: one step of DINO AudioNTT2022, of DINO ViT-B with two local
+    # crops and of BYOL-A --use_fp16, and the DINO checkpoint's probe) and
     # in all
     kernels += bf16_rows
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
                **evaluation["launches"], **pretraining["launches"], **disk["launches"],
                **bf16["launches"], **graphs["launches"], **byol["launches"],
-               **zoo["launches"], **dp["launches"]}
+               **zoo["launches"], **dp["launches"], **legacy["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

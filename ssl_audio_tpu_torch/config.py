@@ -145,8 +145,8 @@ class Config:
     # BYOL variant
     moving_average_decay: float = 0.99
 
-    # recipe knobs of the legacy DINO / BYOL-A trainers (main_pretrain, not
-    # ported yet; nothing in this package reads them)
+    # recipe knobs of the legacy DINO / BYOL-A trainers (main_pretrain
+    # --method dino|byola, train/legacy_steps.py)
     base_lr: Optional[float] = None
     final_lr: float = 1.0e-6
     final_wd: Optional[float] = None
@@ -187,10 +187,26 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-def setup_model_defaults(cfg: Config) -> Config:
+def setup_model_defaults(cfg: Config, method: Optional[str] = None) -> Config:
     """The reference's model-conditional optimizer defaults: ViT -> AdamW,
     conv -> LARS, learning rates scaled by batch_size / 128.  Explicit
-    values win."""
+    values win.
+
+    method "dino" or "byola" first puts in the legacy trainer's own recipe
+    (AdamW with cosine lr and weight-decay schedules, base_lr 5e-4, wd 0.04
+    -> final_wd 0.4; plain Adam at base_lr 3e-4): explicit values win, and
+    the recipe wins over the model-type fill below."""
+    if method == "dino":
+        cfg = cfg.replace(
+            optimizer="AdamW",
+            base_lr=cfg.base_lr if cfg.base_lr is not None else 5.0e-4,
+            wd=cfg.wd if cfg.wd is not None else 0.04,
+            final_wd=cfg.final_wd if cfg.final_wd is not None else 0.4)
+    elif method == "byola":
+        cfg = cfg.replace(
+            optimizer="Adam",
+            base_lr=cfg.base_lr if cfg.base_lr is not None else 3.0e-4,
+            wd=cfg.wd if cfg.wd is not None else 0.0)
     if "vit" in cfg.model_type:
         opt = cfg.optimizer or "AdamW"
         lr = cfg.lr if cfg.lr is not None else 1e-4 * cfg.batch_size / 128
@@ -203,8 +219,8 @@ def setup_model_defaults(cfg: Config) -> Config:
     return cfg.replace(optimizer=opt, lr_weights=lr_w, lr_biases=lr_b, wd=wd)
 
 
-def default_config(**kw) -> Config:
-    return setup_model_defaults(Config(**kw))
+def default_config(method: Optional[str] = None, **kw) -> Config:
+    return setup_model_defaults(Config(**kw), method=method)
 
 
 def unsupported_settings(cfg: Config) -> List[str]:

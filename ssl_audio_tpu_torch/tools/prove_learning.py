@@ -1,7 +1,9 @@
 """Learning proof: a short pretraining run whose per-epoch linear probe rises
 above the random-init probe (port of the JAX package's
-tools/prove_learning.py, --method barlow; the reference validates with the
-same per-epoch probe hooks, main.py:479-519).
+tools/prove_learning.py; the reference validates with the same per-epoch
+probe hooks, main.py:479-519).  --method barlow (the default) trains
+through the Trainer, dino and byola through main_pretrain's LegacyTrainer
+with their recipes.
 
     python -m ssl_audio_tpu_torch.tools.prove_learning \\
         --dataset synthetic_multicue --model_type audiontt --epochs 24 \\
@@ -33,6 +35,7 @@ from ssl_audio_tpu_torch.config import (
 )
 from ssl_audio_tpu_torch.data import datasets as D
 from ssl_audio_tpu_torch.data.pipeline import DataLoader
+from ssl_audio_tpu_torch.main_pretrain import LegacyTrainer
 from ssl_audio_tpu_torch.ops import launch_counts
 from ssl_audio_tpu_torch.tools.sweep import CLASSES, get_eval_loaders, probe_score
 from ssl_audio_tpu_torch.train.loop import Trainer
@@ -42,7 +45,8 @@ from ssl_audio_tpu_torch.utils import resolve_device
 def build_parser():
     parser = build_argparser()
     parser.add_argument("--eval", type=str, default="linear", choices=["linear", "knn"])
-    # the JAX tool's objective families; only Barlow Twins is ported
+    # the objective family: barlow through the Trainer, the legacy dino and
+    # byola through main_pretrain's LegacyTrainer
     parser.add_argument("--method", type=str, default="barlow",
                         choices=["barlow", "dino", "byola"])
     parser.add_argument("--out", type=str, default="learning_proof.json")
@@ -56,7 +60,22 @@ def build_parser():
     parser.add_argument("--noise", type=float, default=None)
     # probe every N epochs (the reference's epoch_eval_f protocol); 1 = every epoch
     parser.add_argument("--eval_every", type=int, default=1)
+    # dino / byola: start from these weights ({"encoder", "head"[,
+    # "predictor"]} state dicts, e.g. tools/jax_legacy_init.py's), online
+    # and target alike, instead of the port's own initialisation
+    parser.add_argument("--init_from", type=str, default=None)
     return parser
+
+
+def load_initial_weights_(state, path: str) -> None:
+    """The online modules and their target copies from `path`."""
+    import torch
+
+    sds = torch.load(path, map_location="cpu", weights_only=True)
+    for name, module in state.modules.items():
+        if name != "target":
+            module.load_state_dict(sds[name], strict=True)
+            state.modules["target"][name].load_state_dict(sds[name], strict=True)
 
 
 def build_task(cfg, args):
@@ -95,12 +114,10 @@ def _delta(after: dict, before: dict) -> dict:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.method != "barlow":
-        raise NotImplementedError(f"--method {args.method}: the legacy DINO / BYOL-A "
-                                  "trainers are not ported yet")
     known = {f.name for f in dataclasses.fields(Config)}
     cfg = setup_model_defaults(
-        Config(**{k: v for k, v in vars(args).items() if k in known})
+        Config(**{k: v for k, v in vars(args).items() if k in known}),
+        method=None if args.method == "barlow" else args.method,
     ).replace(no_eval=False, epoch_eval_f=args.eval_every)
     device = resolve_device(cfg.device)
     card = None
@@ -111,7 +128,12 @@ def main(argv=None) -> dict:
     print(f"device={device} card={card}")
 
     train_ds, eval_loaders, n_classes = build_task(cfg, args)
-    trainer = Trainer(cfg, dataset=train_ds)
+    if args.init_from and args.method == "barlow":
+        raise ValueError("--init_from takes the weights of a legacy family (dino, byola)")
+    trainer = (Trainer(cfg, dataset=train_ds) if args.method == "barlow"
+               else LegacyTrainer(cfg, args.method, dataset=train_ds))
+    if args.init_from:
+        load_initial_weights_(trainer.state, args.init_from)
     resolved, cfg_hash = config_fingerprint(cfg)
     # a record made under another configuration is about to be replaced: say so
     if os.path.exists(args.out):
@@ -125,7 +147,8 @@ def main(argv=None) -> dict:
             pass
     record = {"config": {"dataset": cfg.dataset, "model_type": cfg.model_type,
                          "batch_size": cfg.batch_size, "epochs": cfg.epochs,
-                         "eval": args.eval, "method": args.method},
+                         "eval": args.eval, "method": args.method,
+                         "init_from": args.init_from and os.path.basename(args.init_from)},
               "config_hash": cfg_hash, "resolved_config": resolved,
               "device": str(device), "card": card,
               "steps_per_epoch": trainer.niter_per_ep, "epochs": []}

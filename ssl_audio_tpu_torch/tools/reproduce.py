@@ -3,7 +3,8 @@ tools/reproduce.py; reference readme protocol, hear/extract_results.py:12-90):
 one script running
 
     wav tree -> tools.wav_to_lms          (offline log-mel conversion)
-             -> main                      (Barlow Twins pretraining)
+             -> main                      (Barlow Twins pretraining; main_pretrain
+                                           for --method dino / byola)
              -> linear                    (FSD50K linear probe + low-shot)
              -> HEAR scene embeddings + a probe score per task
              -> hear.extract_results      (18-task aggregation -> results.json)
@@ -30,8 +31,9 @@ Usage:
     python -m ssl_audio_tpu_torch.tools.reproduce --root . --stages probe,hear,aggregate \\
         --ckpt results/fsd50k/<run>/model_100.pt
 
-Only the Barlow Twins family pretrains here: --method dino and byola (the
-legacy families) raise NotImplementedError.
+--method dino and byola pretrain the legacy families through main_pretrain
+(a configuration they cannot run raises before any stage writes); the
+later stages read the checkpoint's encoder as they read a Barlow Twins one.
 """
 from __future__ import annotations
 
@@ -66,9 +68,32 @@ def stage_convert(args) -> None:
                         + (["--fast"] if args.fast_mel else []) + _device_args(args))
 
 
+def legacy_pretrain_argv(args) -> list:
+    """main_pretrain's arguments for a dino / byola pretrain stage on FSD50K."""
+    return ["--method", args.method, "--dataset", "fsd50k", "--model_type", args.model_type,
+            "--epochs", str(args.epochs), "--batch_size", str(args.batch_size),
+            "--no_eval"] + _device_args(args) + args.extra_pretrain_args
+
+
 def stage_pretrain(args) -> str:
-    """Pretrain through main (Barlow Twins on FSD50K) -> the path of the
-    last epoch's checkpoint, model_{epochs}.pt."""
+    """Pretrain through the family's entry point -> the path of the last
+    epoch's checkpoint: main for Barlow Twins on FSD50K, model_{epochs}.pt
+    under results/fsd50k/{model_type}_{name}*; main_pretrain for dino /
+    byola, results/fsd50k/{method}_{model_type}/model_{epochs}.pt.  The
+    probe and HEAR stages read any family's encoder
+    (utils/checkpoint.py load_encoder_checkpoint)."""
+    if args.method != "barlow":
+        from ssl_audio_tpu_torch import main_pretrain
+
+        argv = legacy_pretrain_argv(args)
+        print(f"[pretrain] main_pretrain {' '.join(argv)}")
+        main_pretrain.main(argv)
+        ckpt = os.path.join("results", "fsd50k", f"{args.method}_{args.model_type}",
+                            f"model_{args.epochs}.pt")
+        if not os.path.isfile(ckpt):
+            raise FileNotFoundError(f"pretrain produced no checkpoint {ckpt}")
+        print(f"[pretrain] checkpoint: {ckpt}")
+        return ckpt
     from ssl_audio_tpu_torch import main as main_mod
 
     argv = [
@@ -256,7 +281,7 @@ def main(argv=None) -> dict:
     p.add_argument("--stages", default=",".join(ALL_STAGES))
     p.add_argument("--model_type", default="audiontt")
     p.add_argument("--method", default="barlow", choices=["barlow", "dino", "byola"],
-                   help="SSL family of the pretrain stage (only barlow is ported)")
+                   help="SSL family of the pretrain stage")
     p.add_argument("--patch_size", default="16x16")
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=256)
@@ -276,14 +301,15 @@ def main(argv=None) -> dict:
                    help='"cuda" by default; "cpu" runs every stage on the plain PyTorch path')
     p.add_argument("--extra_pretrain_args", nargs=argparse.REMAINDER, default=[])
     args = p.parse_args(argv)
-    if args.method != "barlow":
-        raise NotImplementedError(
-            f"--method {args.method}: the legacy DINO / BYOL-A families are not ported yet "
-            "(ROADMAP.md queue A, item 7)")
     stages = [s.strip() for s in args.stages.split(",") if s.strip()]
     unknown = set(stages) - set(ALL_STAGES)
     if unknown:
         raise SystemExit(f"unknown stages {unknown}; pick from {ALL_STAGES}")
+    if args.method != "barlow" and "pretrain" in stages:
+        # a legacy run that cannot start raises before any stage writes
+        from ssl_audio_tpu_torch.main_pretrain import config_for, require_legacy_runnable
+
+        require_legacy_runnable(*config_for(legacy_pretrain_argv(args)))
 
     os.chdir(args.root)
     args.work_dir = os.path.abspath(args.work_dir)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 
@@ -268,3 +269,96 @@ def make_optimizer(cfg, params: Iterable, niter_per_ep: int):
         opt = SGD(groups, lr=groups[0]["lr"])
     _own_lr_tensors(opt, capturable)
     return opt, DeviceLR(opt, LRSchedule(factor, n_steps, device), cfg.lr)
+
+
+def legacy_cosine_factor(base_value: float, final_value: float, epochs: int,
+                         niter_per_ep: int, warmup_epochs: int = 0,
+                         start_warmup_value: float = 0.0) -> Callable[[int], float]:
+    """The legacy trainers' per-iteration cosine schedule as a function of
+    the step, in the JAX function's fp32 arithmetic
+    (ssl_audio_tpu/train/optim.py legacy_cosine_factor): step i of the
+    warm-up gets start + (base - start) * i / (warmup_iters - 1), as
+    np.linspace does (utils/schedules.py cosine_scheduler), then
+    final + (base - final) / 2 * (1 + cos(pi j / span)); steps past the
+    budget keep final_value."""
+    f32 = np.float32
+    warmup_iters = int(warmup_epochs * niter_per_ep)
+    span = max(int(epochs * niter_per_ep) - warmup_iters, 1)
+    half_range, final = f32(0.5 * (base_value - final_value)), f32(final_value)
+
+    def factor(step: int) -> float:
+        s = f32(step)
+        if s < warmup_iters:
+            if warmup_iters <= 1:
+                return float(f32(start_warmup_value))
+            return float(f32(start_warmup_value) + f32(base_value - start_warmup_value)
+                         * (s / f32(warmup_iters - 1)))
+        j = np.clip(s - f32(warmup_iters), f32(0), f32(span))
+        # the cosine of the fp32 argument rounded to fp32 (XLA's fp32 cos,
+        # a polynomial of its own, lands within one ulp of it)
+        cos = f32(np.cos(np.float64(f32(np.pi) * j / f32(span))))
+        return float(final + half_range * (f32(1) + cos))
+
+    return factor
+
+
+class LegacySchedule:
+    """The DINO recipe's schedules on the host: before each step every
+    group's lr is lr_fn(count) and each decayed group's weight_decay
+    wd_fn(count), written as floats (optax.inject_hyperparams reads its
+    schedules at the update's count); step() moves on to the next.  The
+    count travels in state_dict()."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, lr_fn: Callable[[int], float],
+                 wd_fn: Callable[[int], float]):
+        self.optimizer, self.lr_fn, self.wd_fn = optimizer, lr_fn, wd_fn
+        self.count = 0
+        self._write()
+
+    def _write(self) -> None:
+        lr, wd = self.lr_fn(self.count), self.wd_fn(self.count)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+            if group["decay"]:
+                group["weight_decay"] = wd
+
+    def step(self) -> None:
+        self.count += 1
+        self._write()
+
+    def state_dict(self) -> dict:
+        return {"count": self.count}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.count = int(state_dict["count"])
+        self._write()
+
+
+def make_legacy_optimizer(cfg, method: str, params: Iterable, niter_per_ep: int):
+    """-> (optimizer, scheduler or None): the legacy trainers' own
+    optimizers (JAX make_legacy_optimizer), not the Barlow Twins recipe.
+
+    dino: AdamW (b1 0.9, b2 0.999, eps 1e-8) with the lr base_lr *
+    batch_size / 256 on a cosine to final_lr after warmup_epochs of linear
+    warm-up (step 0 has lr 0), and the weight decay on a cosine from wd to
+    final_wd, on ndim > 1 parameters only (a LegacySchedule writes both
+    every step).  byola: Adam at the constant lr base_lr over every
+    parameter.  The defaults (5e-4, 0.04 -> 0.4; 3e-4) are setup_model_defaults'
+    method recipes, for a configuration made without them."""
+    params = [p for p in params if p.requires_grad]
+    if method == "byola":
+        lr = cfg.base_lr if cfg.base_lr is not None else 3.0e-4
+        return torch.optim.Adam(params, lr=lr), None
+    if method != "dino":
+        raise ValueError(f"no legacy optimizer for method {method!r}")
+    base = cfg.base_lr if cfg.base_lr is not None else 5.0e-4
+    # the linear scaling rule of the reference, on the global batch
+    lr_fn = legacy_cosine_factor(base * cfg.batch_size / 256.0, cfg.final_lr, cfg.epochs,
+                                 niter_per_ep, warmup_epochs=cfg.warmup_epochs)
+    wd_fn = legacy_cosine_factor(cfg.wd if cfg.wd is not None else 0.04,
+                                 cfg.final_wd if cfg.final_wd is not None else 0.4,
+                                 cfg.epochs, niter_per_ep)
+    groups = _decay_groups(params, 0.0)
+    groups[0]["decay"], groups[1]["decay"] = True, False
+    opt = torch.optim.AdamW(groups, lr=0.0)
+    return opt, LegacySchedule(opt, lr_fn, wd_fn)

@@ -162,9 +162,11 @@ def load_encoder_checkpoint(path: str, state):
 
     Where the file is a whole train state of this configuration, all of it
     is restored (a probe that wants the head has it).  Otherwise only the
-    encoder is grafted from the file's "model" entry (a params-only file, or
-    a run with another head or optimizer): its names, shapes and dtypes must
-    equal the encoder's, else ValueError names the differences.
+    encoder is grafted from the file's "model" entry (a params-only file, a
+    run with another head or optimizer, or a legacy DINO / BYOL-A state,
+    whose online encoder.* is taken and its target.* left): its names,
+    shapes and dtypes must equal the encoder's, else ValueError names the
+    differences.
     FileNotFoundError for a missing file."""
     ck = _read(path)
     if _same_training_layout(state, ck):

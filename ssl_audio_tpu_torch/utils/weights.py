@@ -1,7 +1,8 @@
 """Weights for the port's encoders: AudioNTT2022 (with or without SE
 blocks), the ResNets and the ViT family (port of ssl_audio_tpu/utils/
 torch_export.py and utils/torch_import.py), and for the whole train state
-(encoder, projector, predictor, LARS momentum).
+(encoder, projector, predictor, LARS momentum) and the legacy DINO /
+BYOL-A states (legacy_state_dicts_from_jax).
 
 The port's modules use the reference's torch parameter names, so a
 reference-layout `.pth` loads as it is, and a JAX variable tree converts
@@ -259,6 +260,60 @@ def train_state_dicts_from_jax(params, batch_stats,
     out["head"] = _mlp_state_dict_from_jax(params["head"], batch_stats["head"], "projector")
     out["predictor"] = _mlp_state_dict_from_jax(
         params.get("predictor") or {}, batch_stats.get("predictor") or {}, "predictor")
+    return out
+
+
+def dino_head_state_dict_from_jax(params, stats=None) -> Dict[str, torch.Tensor]:
+    """The JAX DINOHead's tree -> the port's DINOHead state dict: Dense_i
+    (kernel transposed, bias) at mlp.{2i} (mlp.{3i}, with BatchNorm_i at
+    mlp.{3i+1}, where the head has BatchNorms), last_layer_v (bottleneck,
+    out) -> last_layer.weight_v (out, bottleneck), last_layer_g (out,) ->
+    last_layer.weight_g (out, 1)."""
+    stats = stats or {}
+    n_dense = sum(1 for k in params if k.startswith("Dense_"))
+    stride = 3 if "BatchNorm_0" in params else 2
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(n_dense):
+        sd[f"mlp.{stride * i}.weight"] = _linear(params[f"Dense_{i}"]["kernel"])
+        sd[f"mlp.{stride * i}.bias"] = _t(params[f"Dense_{i}"]["bias"])
+        if stride == 3 and i < n_dense - 1:
+            _bn(sd, f"mlp.{3 * i + 1}", params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"])
+    sd["last_layer.weight_g"] = _t(np.asarray(params["last_layer_g"])[:, None])
+    sd["last_layer.weight_v"] = _linear(params["last_layer_v"])
+    return sd
+
+
+def byola_head_state_dict_from_jax(params, stats) -> Dict[str, torch.Tensor]:
+    """The JAX BYOL-A _MLPHead's tree (Dense_0, BatchNorm_0, Dense_1) -> the
+    port's MLPHead state dict (net.0, net.1, net.3)."""
+    sd = {"net.0.weight": _linear(params["Dense_0"]["kernel"]),
+          "net.0.bias": _t(params["Dense_0"]["bias"])}
+    _bn(sd, "net.1", params["BatchNorm_0"], stats["BatchNorm_0"])
+    sd["net.3.weight"] = _linear(params["Dense_1"]["kernel"])
+    sd["net.3.bias"] = _t(params["Dense_1"]["bias"])
+    return sd
+
+
+def legacy_state_dicts_from_jax(params, batch_stats, method: str, vit_spec=None,
+                                center=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One stack of a JAX legacy train state (its params and batch_stats, or
+    its target_params and target_batch_stats; numpy arrays) -> the port's
+    state dicts (train/legacy_steps.py): {"encoder", "head"} for DINO,
+    {"encoder", "head", "predictor"} for BYOL-A, and "center" (the JAX
+    state's extra["center"]) as a tensor where it is given.  vit_spec: the
+    port encoder's ViTSpec when it is a ViT."""
+    out = {"encoder": encoder_state_dict_from_jax(params["encoder"],
+                                                  batch_stats.get("encoder"), vit_spec)}
+    if method == "dino":
+        out["head"] = dino_head_state_dict_from_jax(params["head"], batch_stats.get("head"))
+    elif method == "byola":
+        out["head"] = byola_head_state_dict_from_jax(params["head"], batch_stats["head"])
+        out["predictor"] = byola_head_state_dict_from_jax(params["predictor"],
+                                                          batch_stats["predictor"])
+    else:
+        raise ValueError(f"no legacy family {method!r}")
+    if center is not None:
+        out["center"] = _t(center)
     return out
 
 

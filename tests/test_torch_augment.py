@@ -16,6 +16,7 @@ from ssl_audio_tpu.config import default_config as jax_config
 from ssl_audio_tpu_torch.augment import augmentations as A
 from ssl_audio_tpu_torch.augment import transforms as T
 from ssl_audio_tpu_torch.config import default_config
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 GLOBAL = dict(freq_scale=(0.6, 1.5), time_scale=(0.6, 1.5))

@@ -32,6 +32,7 @@ from ssl_audio_tpu.ops import fused_conv as jfc
 from ssl_audio_tpu_torch import ops
 from ssl_audio_tpu_torch.ops import fused_attention as fa
 from ssl_audio_tpu_torch.ops import fused_conv as fc
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 GAP_FACTOR = 2.0      # the port's gap to JAX bf16 <= 2 x JAX's own bf16-to-fp32 gap
 EMB_CEIL = 2e-2       # ... and <= this relative L2 for forward outputs

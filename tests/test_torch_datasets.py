@@ -23,6 +23,7 @@ from ssl_audio_tpu_torch.data import datasets as D
 from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
 from ssl_audio_tpu_torch.train import loop
 from tests.test_audioset_wav import fabricate_audioset
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 LOAD_WAV_TOL = 1e-4     # normalised log-mels: fp32 DFT / mel sums in another order
 SR = 16000

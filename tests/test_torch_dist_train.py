@@ -252,11 +252,17 @@ def runs(tmp_path_factory):
         steps=[dict(wav=(0.3 * rng.standard_normal((B, L))).astype(np.float32), gen_seed=5,
                     mask_ratio=r, len_keep=lk) for r, lk in FUSED_STEPS])
     out = tmp_path_factory.mktemp("dist_train")
-    ranks = worker.spawn({"checks": list(checks.items()), "vit_sizes": SMALL_VIT}, str(out))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(vit, "_SIZES", dict(SMALL_VIT))
-        one = {name: worker.check_steps(0, 1, world_scale=float(W), **kw)
-               for name, kw in checks.items()}
+    one = {}
+
+    def one_process():
+        """The same checks in this process, while the ranks run."""
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(vit, "_SIZES", dict(SMALL_VIT))
+            one.update({name: worker.check_steps(0, 1, world_scale=float(W), **kw)
+                        for name, kw in checks.items()})
+
+    ranks = worker.spawn({"checks": list(checks.items()), "vit_sizes": SMALL_VIT}, str(out),
+                         meanwhile=one_process)
     return jax_side, ranks, one
 
 

@@ -28,6 +28,7 @@ import torch
 from ssl_audio_tpu.models.vit import NEG_INF
 from ssl_audio_tpu.ops import fused_attention as jfa
 from ssl_audio_tpu_torch.ops import fused_attention as fa
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 B, C, HEADS = 2, 32, 2
 BF16_SPACING = 2.0 ** -7     # bf16 keeps 8 significant bits: spacing <= 2^-7 of a value

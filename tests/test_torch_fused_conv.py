@@ -20,6 +20,7 @@ from ssl_audio_tpu_torch.ops.fused_conv import (
     fused_conv1_fwd_cuda,
     fused_conv1_fwd_plain,
 )
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 # fp32 convolutions of 9 taps and pooled values of O(1): the two frameworks
 # round the sums in different orders, the tolerance of tests/test_fused_conv.py

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ssl_audio_tpu_torch.ops import fused_conv as fc
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 CONV_ATOL = 1e-4
 SUMS_RTOL = 1e-4

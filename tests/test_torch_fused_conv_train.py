@@ -20,6 +20,7 @@ from ssl_audio_tpu_torch.ops.fused_conv import (
     fused_conv1_bwd_plain,
     fused_conv1_dx_plain,
 )
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4            # fp32 (BASELINE.md); sums of a few thousand terms in other orders
 DB_ATOL = 1e-4        # db is mathematically 0: float noise on both sides, absolute only

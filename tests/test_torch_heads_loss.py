@@ -15,6 +15,7 @@ from ssl_audio_tpu.objectives.barlow import barlow_twins_loss as jax_loss
 from ssl_audio_tpu_torch.models.heads import BarlowTwinsHead, BarlowTwinsPredictor
 from ssl_audio_tpu_torch.objectives.barlow import barlow_twins_loss
 from ssl_audio_tpu_torch.utils.weights import _mlp_state_dict_from_jax
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4   # fp32 (BASELINE.md)
 

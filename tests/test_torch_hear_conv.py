@@ -19,6 +19,7 @@ from ssl_audio_tpu_torch.hear import conv as tconv
 from ssl_audio_tpu_torch.hear import pipeline
 from ssl_audio_tpu_torch.hear import utils as tutils
 from ssl_audio_tpu_torch.utils.weights import audiontt_state_dict_from_jax
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 # embeddings / max|embedding|: fp32 through the frontend and four layers,
 # summed in different orders by XLA and PyTorch's CPU kernels

@@ -32,7 +32,7 @@ print(json.dumps({"modules": names, "bad": bad}))
 
 
 def _env():
-    env = dict(os.environ)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     env.pop("PYTHONPATH", None)
     return env
 

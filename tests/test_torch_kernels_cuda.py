@@ -324,6 +324,23 @@ def test_fused_block_function_card_matches_cpu(dev, rng):
         torch.testing.assert_close(a, p, atol=1e-4 * scale, rtol=1e-4, msg=name)
 
 
+def test_fused_block_function_under_no_grad_launches_the_forward_alone(dev, rng):
+    """The legacy teacher's block 1: under torch.no_grad() the Function
+    launches the statistics-mode forward once, no backward kernel, keeps no
+    graph, and gives the bits it gives with a graph."""
+    x, wk, b, g, be, _, _ = _conv_inputs(rng, 8, 32, 48)
+    ts = [t.to(dev) for t in (x[..., None], wk.reshape(3, 3, 1, -1), b, g, be)]
+    before = (fused_conv1_fwd_cuda.launches, fused_conv1_bwd_cuda.launches)
+    with torch.no_grad():
+        out = fused_conv1_bn_relu_pool(*ts)
+    torch.cuda.synchronize()
+    assert (fused_conv1_fwd_cuda.launches, fused_conv1_bwd_cuda.launches) == \
+        (before[0] + 1, before[1])
+    assert all(t.grad_fn is None for t in out)
+    graphed = fused_conv1_bn_relu_pool(ts[0], ts[1].clone().requires_grad_(), *ts[2:])
+    assert all(torch.equal(a, c) for a, c in zip(out, graphed))
+
+
 def test_max_pool2d_backward_routes_ties_to_the_first_element_on_the_card(dev):
     """Block 2's reordered pool relies on it, as on the CPU."""
     x = torch.zeros(2, 3, 4, 6, device=dev, requires_grad=True)
@@ -375,6 +392,7 @@ def _attention_close(got, want, what, rel_l2=ATTN_REL_L2):
 @pytest.mark.parametrize("B,N,C,H,masked", [
     (128, 25, 768, 12, False), (128, 25, 768, 12, True),   # ViT-B step, both maskings
     (128, 7, 768, 12, False),                               # token-drop teacher
+    (128, 2, 768, 12, False), (128, 3, 768, 12, False),    # DINO local crops: ViT-B, vitc
     (6, 49, 384, 6, True), (3, 33, 64, 2, True),           # two query tiles, hd 64 / 32
     (2, 256, 512, 4, True)])                                # the envelope: N 256, hd 128
 def test_fused_attention_kernels_match_plain(dev, rng, B, N, C, H, masked):
@@ -593,7 +611,8 @@ def test_fused_conv_bf16_kernels_match_plain(dev, rng, shape):
 
 @pytest.mark.parametrize("B,N,C,H,masked", [
     (128, 25, 768, 12, True), (128, 7, 768, 12, False), (3, 33, 64, 2, True),
-    (2, 256, 512, 4, True)])                      # the envelope: rounds of query tiles
+    (2, 256, 512, 4, True),                       # the envelope: rounds of query tiles
+    (128, 2, 768, 12, False), (128, 3, 768, 12, False)])   # DINO local crops
 def test_fused_attention_bf16_kernels_match_plain(dev, rng, B, N, C, H, masked):
     """The bf16 instantiations: qkv, dO, O and dqkv bf16, the bias and its
     cotangent fp32; against the plain versions in bf16; two backward

@@ -234,5 +234,8 @@ def test_prove_learning_tool_writes_the_jax_record(tmp_path, capsys):
     assert saved["config"]["method"] == "barlow" and saved["config"]["epochs"] == 2
     assert saved["resolved_config"]["dataset"] == "synthetic_multicue"
     assert "probe@init=" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        prove_learning.main(["--device", "cpu", "--method", "dino", "--out", str(out)])
+    # a legacy family's run that cannot start here raises before training
+    with pytest.raises(NotImplementedError, match="item 7"):
+        prove_learning.main(["--device", "cpu", "--method", "dino", "--distributed",
+                             "--dataset", "synthetic_multicue", "--batch_size", "8",
+                             "--synthetic_steps_per_epoch", "2", "--out", str(out)])

@@ -12,6 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
+
 REPO = Path(__file__).resolve().parents[1]
 SMALL = ["--dataset", "synthetic_wav", "--batch_size", "4", "--epochs", "1",
          "--synthetic_steps_per_epoch", "2", "--crop_frames", "32",

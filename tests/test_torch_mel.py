@@ -15,6 +15,7 @@ from ssl_audio_tpu.ops import mel as jmel
 from ssl_audio_tpu.ops.mel_pallas import log_mel_spectrogram_pallas
 from ssl_audio_tpu_torch.ops import mel as tmel
 from ssl_audio_tpu_torch.ops.mel_kernel import FCH, kernel_operands
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 HEAR = dict(win_length=400)        # hear/config.yaml frontend
 TRAIN = dict(win_length=1024)      # the training frontend (MelSpec defaults)

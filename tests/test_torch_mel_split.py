@@ -23,6 +23,7 @@ from ssl_audio_tpu_torch.ops.mel_kernel import (
     tf32_round,
     tf32_split,
 )
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 SPECS = [pytest.param(dict(win_length=400), id="hear"),
          pytest.param(dict(win_length=1024), id="train")]

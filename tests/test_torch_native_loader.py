@@ -24,6 +24,7 @@ from ssl_audio_tpu_torch.data import native_loader as native
 from ssl_audio_tpu_torch.data.pipeline import DataLoader
 from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_audioset_wav, fabricate_fsd50k
 from tests.test_torch_datasets import write_npy_tree
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 LOAD_WAV_TOL = 1e-4     # as tests/test_torch_datasets.py
 

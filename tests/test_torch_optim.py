@@ -13,6 +13,7 @@ from ssl_audio_tpu.config import default_config as jax_config
 from ssl_audio_tpu.train import optim as jax_optim
 from ssl_audio_tpu_torch.config import default_config
 from ssl_audio_tpu_torch.train import optim
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 TOL = 1e-5   # a handful of fp32 elementwise operations per step
 

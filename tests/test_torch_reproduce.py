@@ -4,8 +4,10 @@ conversion, main's pretraining, the linear CLI's probe, HEAR scene
 embeddings and a probe score for each of the 18 tasks, and the results.json
 aggregation, which must equal the JAX package's hear/extract_results
 aggregation of the same scores directory; the port's copy of the
-aggregation against JAX's on heareval-layout trees; --method dino and byola
-refused."""
+aggregation against JAX's on heareval-layout trees; --method dino through
+convert, pretrain and probe, and a legacy run that cannot start refused
+before anything is written."""
+import functools
 import json
 import os
 
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from hear import extract_results as jax_extract
+from ssl_audio_tpu_torch import linear as linear_cli
 from ssl_audio_tpu_torch.hear import extract_results
 from ssl_audio_tpu_torch.tools import reproduce
 from tests.test_reproduce import fabricate_tree
@@ -91,6 +94,33 @@ def test_aggregation_is_the_jax_aggregation(tmp_path):
 
 @pytest.mark.parametrize("method", ["dino", "byola"])
 def test_legacy_methods_raise(tmp_path, method):
+    """A legacy family's run that cannot start (here --distributed) raises
+    before any stage writes."""
     with pytest.raises(NotImplementedError, match="item 7"):
-        reproduce.main(["--root", str(tmp_path), "--method", method, "--device", "cpu"])
+        reproduce.main(["--root", str(tmp_path), "--method", method, "--device", "cpu",
+                        "--extra_pretrain_args", "--distributed"])
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("method", ["dino"])
+def test_legacy_chain_pretrains_and_probes(tmp_path, monkeypatch, method):
+    """--method dino: the converted tree pretrains through main_pretrain, and
+    the linear CLI probes the legacy checkpoint's encoder (its MLP probe at
+    20 epochs instead of 500, as the full chain's HEAR probes)."""
+    monkeypatch.setattr(linear_cli, "eval_linear",
+                        functools.partial(linear_cli.eval_linear, max_iter=20))
+    root = fabricate_tree(str(tmp_path))
+    cwd = os.getcwd()
+    try:
+        results = reproduce.main([
+            "--root", root, "--work_dir", os.path.join(root, "out"), "--device", "cpu",
+            "--stages", "convert,pretrain,probe", "--method", method,
+            "--model_type", "audiontt", "--epochs", "1", "--batch_size", "8",
+            "--name", "smoke", "--extra_pretrain_args", "--dino_out_dim", "16",
+            "--mixup_n_memory", "8", "--num_workers", "0"])
+    finally:
+        os.chdir(cwd)
+    assert set(results["timings_s"]) == {"convert", "pretrain", "probe"}
+    ckpt = os.path.join(root, "results", "fsd50k", f"{method}_audiontt", "model_1.pt")
+    assert os.path.isfile(ckpt)
+    assert 0.0 <= results["linear"]["score_all"] <= 1.0

@@ -24,6 +24,7 @@ from ssl_audio_tpu.config import default_config as jax_config
 from ssl_audio_tpu.data.pipeline import DataLoader as JaxDataLoader
 from ssl_audio_tpu.train.loop import get_train_dataset as jax_get_train_dataset
 from ssl_audio_tpu.objectives.barlow import barlow_twins_loss as jax_barlow_twins_loss
+from ssl_audio_tpu.train.state import Modules
 from ssl_audio_tpu.train.state import init_train_state as jax_init_train_state
 from ssl_audio_tpu.train.steps import _split_rngs, _view_rngs
 from ssl_audio_tpu.train.steps import init_monitor as jax_init_monitor
@@ -103,6 +104,20 @@ def port_draws(key, cfg, hidden=2048) -> StepDraws:
     return StepDraws(starts=starts.to(torch.int32), views=views, dropout=keep)
 
 
+_JAX_STATES = {}
+
+
+def jax_initial_state(jcfg, niter_per_ep: int = 2):
+    """(mods, jstate) of the JAX init_train_state for jcfg and key 0, made
+    once per module (flax's eager init compiles op by op; the state is
+    immutable, the tests share it)."""
+    key = (repr(jcfg), niter_per_ep)
+    if key not in _JAX_STATES:
+        _JAX_STATES[key] = jax_init_train_state(jcfg, jax.random.key(0),
+                                                niter_per_ep=niter_per_ep)
+    return _JAX_STATES[key]
+
+
 def jax_state_dicts(jstate):
     return train_state_dicts_from_jax(jax.tree.map(np.asarray, jstate.params),
                                       jax.tree.map(np.asarray, jstate.batch_stats))
@@ -145,7 +160,7 @@ def test_two_train_steps_match_jax(monkeypatch, options):
     monkeypatch.setattr(flax.linen.Dropout, "__call__",
                         lambda self, inputs, deterministic=None, rng=None: inputs)
     jcfg, cfg = jax_config(**KW, **options), default_config(**KW, **options, device="cpu")
-    mods, jstate = jax_init_train_state(jcfg, jax.random.key(0), niter_per_ep=2)
+    mods, jstate = jax_initial_state(jcfg)
     jstep = jax_make_train_step(mods, frontend=jax_frontend(jcfg, STATS), raw=True)
 
     state = init_train_state(cfg, torch.Generator().manual_seed(0), niter_per_ep=2,
@@ -217,8 +232,8 @@ def test_one_fsd50k_epoch_matches_jax(tmp_path, monkeypatch):
 
 def jax_loss_and_grads(mods, jcfg, jstate, views, ks, dtype):
     """The JAX step's loss function (train/steps.py loss_fn, masking off) and
-    its gradients in `dtype`, on views the caller made: the test's witness
-    when dtype is float64 (under jax.enable_x64)."""
+    its gradients in `dtype`, jitted as the JAX step is, on views the caller
+    made: the test's witness when dtype is float64 (under jax.enable_x64)."""
     def cast(tree):
         return jax.tree.map(
             lambda x: x.astype(dtype) if jnp.issubdtype(x.dtype, jnp.floating) else x, tree)
@@ -236,7 +251,7 @@ def jax_loss_and_grads(mods, jcfg, jstate, views, ks, dtype):
         return jax_barlow_twins_loss([s_z], [t_z], lmbda=jcfg.lmbda, alpha=jcfg.alpha,
                                      HSIC=jcfg.HSIC, world_scale=1.0)
 
-    loss, grads = jax.value_and_grad(loss_fn)(cast(jstate.params))
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(cast(jstate.params))
     assert loss.dtype == dtype
     return float(loss), lars_state_from_jax(jax.tree.map(np.asarray, grads))
 
@@ -271,10 +286,9 @@ def test_fp32_gradient_noise_is_measured_against_fp64(monkeypatch, options):
     monkeypatch.setattr(flax.linen.Dropout, "__call__",
                         lambda self, inputs, deterministic=None, rng=None: inputs)
     jcfg, cfg = jax_config(**KW, **options), default_config(**KW, **options, device="cpu")
-    mods, jstate = jax_init_train_state(jcfg, jax.random.key(0), niter_per_ep=2)
-    unfused, _ = jax_init_train_state(
-        jax_config(**{**KW, **options, "fused_conv": False, "pool_reorder": False}),
-        jax.random.key(0), niter_per_ep=2)
+    mods, jstate = jax_initial_state(jcfg)
+    unfused = Modules(jax_config(**{**KW, **options, "fused_conv": False,
+                                    "pool_reorder": False}))
     wav = (0.3 * np.random.default_rng(0).standard_normal((B, L))).astype(np.float32)
     key = jax.random.key(100)
     ks = _split_rngs(key)

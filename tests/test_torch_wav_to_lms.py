@@ -12,6 +12,7 @@ from scipy.io import wavfile
 
 from ssl_audio_tpu_torch.tools import wav_to_lms
 from tools import wav_to_lms as jax_wav_to_lms
+from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 TOL = 1e-4
 SR = 16000

@@ -30,14 +30,21 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(job: dict, out_dir: str, world: int = WORLD) -> list:
-    """Runs `job` on `world` gloo ranks; -> [rank 0's results, rank 1's, ...]."""
+def spawn(job: dict, out_dir: str, world: int = WORLD, meanwhile=None) -> list:
+    """Runs `job` on `world` gloo ranks, calling `meanwhile()` in this
+    process while they run; -> [rank 0's results, rank 1's, ...]."""
     import torch.multiprocessing as mp
 
     job = {**job, "ports": [free_port() for _ in range(1 + len(job["checks"]))]}
     path = os.path.join(out_dir, "job.pt")
     torch.save(job, path)
-    mp.spawn(_rank_main, args=(world, path, out_dir), nprocs=world, join=True)
+    ctx = mp.spawn(_rank_main, args=(world, path, out_dir), nprocs=world, join=False)
+    try:
+        if meanwhile is not None:
+            meanwhile()
+    finally:
+        while not ctx.join():
+            pass
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
