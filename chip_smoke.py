@@ -211,8 +211,27 @@ Phases, each of which exits non-zero on failure:
      eval_linear; (e) batch-16 steps of DINO AudioNTT2022 and of DINO
      vit_tiny --fused_attention with two local crops against the same steps
      on the CPU (loss, gradients, the centre).
+ 17. CIFAR-10 pretraining and the supervised evaluation entry, in a temporary
+     directory with `data/` in it: a CIFAR-10 tree in the published pickle
+     layout (CIFAR_ROWS rows a batch: 2,560 train, 512 test) and an FSD50K
+     tree (EVAL_FSD50K) are written from the seed; (a) main --dataset cifar10
+     --model_type vit_base --fused_attention at 4x4 patches (N = 65) for a
+     20-step epoch with the kNN monitor after it, the same --use_fp16 (bf16
+     kernels only), then 3 steps at the default 16x16 patches (N = 5), every
+     step's launches counted (attention fwd 24 / bwd 24) and the monitor's by
+     difference, and a batch-16 vit_tiny step at N = 65 against the CPU;
+     (b) python -m ssl_audio_tpu_torch.evaluate --mode finetune --specaug
+     --eval_mixup 0.2 on AudioNTT2022 from phase 9's checkpoint over FSD50K
+     for 2 epochs (fused forward 1 / backward 1 a step, dx 0), --mode linear
+     (the eval instantiation 1 a step), ViT-B --fused_attention --mode
+     finetune on synthetic (attention fwd 12 / bwd 12 a step), every
+     classifier step counted and the prediction batches by difference;
+     (c) extract_embeddings of the FSD50K test split (711-frame crops: block 1
+     unfused, nothing launched); (d) CUDA-event medians of a CIFAR ViT-B step
+     at N = 65 and N = 5, an AudioNTT2022 finetune step and a linear step.
 Phase 3 also holds the attention kernels at DINO's local crops (N = 2, the
-ViT-B 16x16 crop; N = 3, the vitc 16x8 crop) and phase 11 their bf16
+ViT-B 16x16 crop; N = 3, the vitc 16x8 crop) and at CIFAR-10's ViT-B (N = 5
+and N = 65, with a zero and a random key bias), and phase 11 their bf16
 instantiations; the fused block's Function under torch.no_grad() must
 launch its forward alone.
 The `kernels` JSON line lists every ported kernel, the bf16 instantiations
@@ -228,6 +247,7 @@ import glob
 import io
 import json
 import os
+import shutil
 import statistics
 import sys
 import tempfile
@@ -313,6 +333,11 @@ VIT_DEPTH, VIT_HEADS, VIT_DIM, VIT_TOKENS = 12, 12, 768, 25
 # 16x16 patches) and two patches + CLS (vitc, 16x8 patches), unmasked
 LOCAL_CROP_SHAPES = {"N=2, local crop": (2, 0.0), "N=3, vitc local crop": (3, 0.0)}
 LOCAL_CROP_KEYS = {"local_crop": "N=2, local crop", "vitc_local_crop": "N=3, vitc local crop"}
+# CIFAR-10's ViT-B (phase 17): 2 x 2 patches + CLS at 16x16, 8 x 8 + CLS at 4x4
+# (two 64-query tiles), each with a zero and with a random (Gaussian) key bias
+CIFAR_SHAPES = {"N=5, CIFAR 16x16": (5, 0.0), "N=5, CIFAR, random bias": (5, "random"),
+                "N=65, CIFAR 4x4": (65, 0.0), "N=65, CIFAR, random bias": (65, "random")}
+CIFAR_KEYS = {"cifar_n5": "N=5, CIFAR 16x16", "cifar_n65": "N=65, CIFAR 4x4"}
 EVAL_ITEMS = {"train": 1024, "val": 256, "test": 256}   # SyntheticLMS clips per loader
 EVAL_CLASSES = 10
 EVAL_MAX_ITER = 20   # probe epochs (eval_linear's max_iter)
@@ -739,6 +764,27 @@ def attention_check(name: str, got: torch.Tensor, ref: torch.Tensor,
     return err
 
 
+def plain_iters(N: int) -> int:
+    """Calls of an attention plain version that device_ms queues at once:
+    its backward sums dK and dV one query at a time (two launches a query),
+    and at N = 65 five calls' ~1,500 launches overfill the launch queue,
+    so the host waits on the sleeping device."""
+    return 5 if N <= 32 else 2
+
+
+def key_bias(gen: torch.Generator, B: int, N: int, drop) -> torch.Tensor:
+    """(B, N) key bias: zeros; -1e9 on a `drop` share of the patch keys (CLS
+    visible); or, for drop "random", N(0, 1) on every key."""
+    if drop == "random":
+        return torch.randn(B, N, generator=gen)
+    bias = torch.zeros(B, N)
+    if drop:
+        dead = torch.rand(B, N, generator=gen) < drop
+        dead[:, 0] = False
+        bias[dead] = -1e9
+    return bias
+
+
 def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
     """fused_attention_fwd_cuda and fused_attention_bwd_cuda against their
     plain versions at the ViT-B step's shapes: qkv (128, 25, 2304) with zero
@@ -758,15 +804,11 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
     B, C, H = TRAIN_BATCH, VIT_DIM, VIT_HEADS
     hd = C // H
     shapes = {"N=25": (VIT_TOKENS, 0.0), "N=25, masked keys": (VIT_TOKENS, 0.75),
-              "N=7, token drop": (7, 0.0), **LOCAL_CROP_SHAPES}
+              "N=7, token drop": (7, 0.0), **LOCAL_CROP_SHAPES, **CIFAR_SHAPES}
     inputs, errs = {}, {"fwd": 0.0, "bwd": 0.0}
     for label, (N, drop) in shapes.items():
         qkv = torch.randn(B, N, 3 * C, generator=gen)
-        bias = torch.zeros(B, N)
-        if drop:
-            dead = torch.rand(B, N, generator=gen) < drop
-            dead[:, 0] = False
-            bias[dead] = -1e9
+        bias = key_bias(gen, B, N, drop)
         dout = torch.randn(B, N, C, generator=gen)
         qkv, bias, dout = inputs[label] = tuple(t.to(dev) for t in (qkv, bias, dout))
         out = fa.fused_attention_fwd_cuda(qkv, bias, H)
@@ -808,7 +850,7 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
         fa.fused_attention(x, bias, H).backward(dout)
 
     rows = {"fwd": {}, "bwd": {}}
-    for label in ("N=25", "N=7, token drop", *LOCAL_CROP_SHAPES):
+    for label in ("N=25", "N=7, token drop", *LOCAL_CROP_SHAPES, *CIFAR_KEYS.values()):
         qkv, bias, dout = inputs[label]
         N = qkv.shape[1]
         lib = library_fwd(qkv, bias).transpose(1, 2).reshape(B, N, C).float()
@@ -840,7 +882,8 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
                                else f" -> ({B}, {N}, {C})"),
                    "ms": device_ms(fn, cold=True), "ms_warm": device_ms(fn),
                    "host_ms": host_ms(fn), "cuda_events_ms": cuda_ms(fn),
-                   "plain_ms": device_ms(plain, iters=5), "bound_ms": bound, "bound_by": by,
+                   "plain_ms": device_ms(plain, iters=plain_iters(N)), "bound_ms": bound,
+                   "bound_by": by,
                    "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
                    "ops_bound_ms": flops / PEAK_BF16_FLOPS * 1e3,
                    "library_ms": device_ms(library),
@@ -865,7 +908,8 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
              "library_is": "split + transpose of the raw qkv, scaled_dot_product_attention "
                            "on bf16 q, k, v with the additive mask",
              "token_drop": rows["fwd"]["N=7, token drop"],
-             **{key: rows["fwd"][label] for key, label in LOCAL_CROP_KEYS.items()}},
+             **{key: rows["fwd"][label]
+                for key, label in {**LOCAL_CROP_KEYS, **CIFAR_KEYS}.items()}},
             {"name": "fused_attention_bwd", "route": "cuda", "source": src,
              "replaces": "ssl_audio_tpu/ops/fused_attention.py:187",
              "max_abs_err": errs["bwd"], **rows["bwd"]["N=25"],
@@ -873,7 +917,8 @@ def attention_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
                            "output, forward run once); library_fwd_bwd_ms: forward and "
                            "backward through autograd",
              "token_drop": rows["bwd"]["N=7, token drop"],
-             **{key: rows["bwd"][label] for key, label in LOCAL_CROP_KEYS.items()}}]
+             **{key: rows["bwd"][label]
+                for key, label in {**LOCAL_CROP_KEYS, **CIFAR_KEYS}.items()}}]
 
 
 def phase_kernels(gen: torch.Generator, dev: torch.device) -> list[dict]:
@@ -1205,13 +1250,10 @@ def bf16_kernel_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
     hd = Cv // Hv
     errs, inputs = {"fwd": 0.0, "bwd": 0.0}, {}
     for label, (N, drop) in {"N=25": (VIT_TOKENS, 0.0), "N=25, masked keys": (VIT_TOKENS, 0.75),
-                             "N=7, token drop": (7, 0.0), **LOCAL_CROP_SHAPES}.items():
+                             "N=7, token drop": (7, 0.0), **LOCAL_CROP_SHAPES,
+                             **CIFAR_SHAPES}.items():
         qkv = torch.randn(Bv, N, 3 * Cv, generator=gen)
-        bias_k = torch.zeros(Bv, N)
-        if drop:
-            dead = torch.rand(Bv, N, generator=gen) < drop
-            dead[:, 0] = False
-            bias_k[dead] = -1e9
+        bias_k = key_bias(gen, Bv, N, drop)
         dout = torch.randn(Bv, N, Cv, generator=gen)
         qkv, dout = qkv.to(dev).to(bf), dout.to(dev).to(bf)
         bias_k = bias_k.to(dev)
@@ -1245,7 +1287,7 @@ def bf16_kernel_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
         return F.scaled_dot_product_attention(q, k, v, attn_mask=b[:, None, None, :].to(bf))
 
     att = {"fwd": {}, "bwd": {}}
-    for label in ("N=25", "N=7, token drop", *LOCAL_CROP_SHAPES):
+    for label in ("N=25", "N=7, token drop", *LOCAL_CROP_SHAPES, *CIFAR_KEYS.values()):
         qkv, bias_k, dout = inputs[label]
         N = qkv.shape[1]
         xg = qkv.detach().requires_grad_()
@@ -1271,7 +1313,8 @@ def bf16_kernel_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
                          + (", dout bf16 -> dqkv bf16, dbias fp32" if kind == "bwd"
                             else " -> out bf16"),
                 "ms": device_ms(fn, cold=True), "ms_warm": device_ms(fn),
-                "plain_ms": device_ms(plain, iters=5), "bound_ms": bound, "bound_by": by,
+                "plain_ms": device_ms(plain, iters=plain_iters(N)), "bound_ms": bound,
+                "bound_by": by,
                 "library_ms": device_ms(library)}
             print(f"  fused_attention_{kind}_bf16[{label}]: " + json.dumps(att[kind][label]))
     src = "ssl_audio_tpu_torch/csrc/fused_attention.cu"
@@ -1281,13 +1324,15 @@ def bf16_kernel_rows(gen: torch.Generator, dev: torch.device) -> list[dict]:
                  "library_is": "split + transpose of the raw bf16 qkv, "
                                "scaled_dot_product_attention with the additive mask",
                  "token_drop": att["fwd"]["N=7, token drop"],
-                 **{key: att["fwd"][label] for key, label in LOCAL_CROP_KEYS.items()}})
+                 **{key: att["fwd"][label]
+                    for key, label in {**LOCAL_CROP_KEYS, **CIFAR_KEYS}.items()}})
     rows.append({"name": "fused_attention_bwd_bf16", "route": "cuda", "source": src,
                  "replaces": "ssl_audio_tpu/ops/fused_attention.py:187",
                  "max_abs_err": errs["bwd"], **att["bwd"]["N=25"],
                  "library_is": "the same yardstick's backward alone",
                  "token_drop": att["bwd"]["N=7, token drop"],
-                 **{key: att["bwd"][label] for key, label in LOCAL_CROP_KEYS.items()}})
+                 **{key: att["bwd"][label]
+                    for key, label in {**LOCAL_CROP_KEYS, **CIFAR_KEYS}.items()}})
     return rows
 
 
@@ -2075,7 +2120,8 @@ def resume_check(path: str, seed: int, flags: list[str], steps: int, per_step: d
     return record, a, os.path.abspath(ckpt_last)
 
 
-def phase_pretraining(seed: int, dev: torch.device, smi: str) -> dict:
+def phase_pretraining(seed: int, dev: torch.device, smi: str,
+                      keep_dir: str | None = None) -> dict:
     from ssl_audio_tpu_torch.hear import conv as hear_conv
     from ssl_audio_tpu_torch.tools import prove_learning
     from ssl_audio_tpu_torch.tools.serving import seeded_clips
@@ -2090,6 +2136,8 @@ def phase_pretraining(seed: int, dev: torch.device, smi: str) -> dict:
             out["launches"][path] = out[path]["launches_per_step"]
             if path != "pretrain_audiontt":
                 continue
+            if keep_dir:            # phase 17 evaluates this checkpoint's encoder
+                shutil.copy(ckpt_last, os.path.join(keep_dir, "pretrain_audiontt.pt"))
             # HEAR from the checkpoint file against the trainer's encoder in memory
             served = hear_conv.load_model(ckpt_last, fused_conv=True)
             in_memory = hear_conv.load_model("", fused_conv=True)
@@ -3906,6 +3954,344 @@ def phase_legacy(seed: int, dev: torch.device, smi: str) -> dict:
     return out
 
 
+CIFAR_ROWS = 512     # phase 17: rows of each fabricated CIFAR-10 batch (2,560 train, 512
+                     # test): a 20-step epoch at batch 128 (the published batches hold 10,000)
+CIFAR_BASE = ["--dataset", "cifar10", "--model_type", "vit_base", "--fused_attention",
+              "--batch_size", str(TRAIN_BATCH), "--epochs", "1", "--num_workers", "4"]
+CIFAR_STEP = {"fused_attention_fwd": 2 * VIT_DEPTH, "fused_attention_bwd": 2 * VIT_DEPTH}
+CIFAR_STEP_BF16 = {"fused_attention_fwd_bf16": 2 * VIT_DEPTH,
+                   "fused_attention_bwd_bf16": 2 * VIT_DEPTH}
+CIFAR_SHORT_STEPS = 3      # (a) at 16x16 patches
+CIFAR_KNN_BATCHES = 6 * CIFAR_ROWS // TRAIN_BATCH     # the monitor's bank and test batches
+EVAL_FSD50K = {"train": 256, "val": 128, "test": 128}    # (b), (c): the FSD50K tree's rows
+EVAL_EPOCHS = 2
+FT_STEP = {"fused_conv1_fwd": 1, "fused_conv1_bwd": 1}   # an AudioNTT2022 finetune step
+CONV_EVAL = {"fused_conv1_fwd": 1}                       # a linear step, a prediction batch
+VIT_FT_STEP = {"fused_attention_fwd": VIT_DEPTH, "fused_attention_bwd": VIT_DEPTH}
+VIT_EVAL = {"fused_attention_fwd": VIT_DEPTH}
+VIT_FT_STEPS = 3
+TIMED_17 = 8         # (d): timed steps of each after two warm-ups
+
+
+def scaled(per_unit: dict, n: int) -> dict:
+    return {k: n * v for k, v in per_unit.items()}
+
+
+def event_ms(fn, steps: int = TIMED_17) -> list[float]:
+    """Device ms of `steps` calls after two warm-ups, each between its own
+    pair of CUDA events."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def median_record(times: list[float], batch: int, smi: str) -> dict:
+    med = statistics.median(times)
+    return {"ms_per_step_median": med, "ms_per_step_min": min(times), "steps_timed": len(times),
+            "items_per_s": batch / med * 1e3, "timer": "CUDA events around each step",
+            "card": smi}
+
+
+def knn_scores(lines: list[str]) -> tuple[float, float]:
+    """(top1, top5) of the run's "[epoch 1] cifar10 kNN ..." line."""
+    (line,) = [ln for ln in lines if ln.startswith("[epoch 1] cifar10 kNN top1=")]
+    top1, top5 = (float(part.split("=")[1].rstrip("%")) for part in line.split()[4:6])
+    if not (0.0 <= top1 <= top5 <= 100.0):
+        raise SystemExit(f"the kNN monitor's scores {line}")
+    return top1, top5
+
+
+@contextlib.contextmanager
+def classifier_steps_counted(per_step: dict, what: str):
+    """Inside: every eval/finetune.py classifier step has its launches
+    counted (read just before and just after it, the device synchronised);
+    each must be per_step, checked on leaving."""
+    from ssl_audio_tpu_torch.eval import finetune
+
+    make = finetune.make_classifier_step
+    seen = []
+
+    def counted_factory(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(*a):
+            before = launch_counts()
+            out = step(*a)
+            torch.cuda.synchronize()
+            seen.append(counts_minus(launch_counts(), before))
+            return out
+        return counted
+
+    finetune.make_classifier_step = counted_factory
+    try:
+        yield seen
+    finally:
+        finetune.make_classifier_step = make
+    want = counts_with(**per_step)
+    bad = [c for c in seen if c != want]
+    if not seen or bad:
+        raise SystemExit(f"{what}: {len(bad)} of {len(seen)} steps launched other than "
+                         f"{per_step}: {bad[:2]}")
+    print(f"  {what}: each of {len(seen)} steps launched {per_step}")
+
+
+def cifar_card_vs_cpu(seed: int, dev: torch.device, images: torch.Tensor) -> dict:
+    """One batch-16 Barlow Twins step of vit_tiny --fused_attention at 4x4
+    patches (N = 65) on CIFAR-10 images on the card against the same step on
+    the CPU: the same seeded weights, images and draws.  Limits as phase 6's
+    fused ViT step (VIT_FUSED_*: bf16 operands turn 1e-7 differences into
+    flipped roundings)."""
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.train.state import init_train_state
+    from ssl_audio_tpu_torch.train.steps import draw_step, make_train_step
+
+    runs = []
+    for where in ("cpu", dev):
+        cfg = default_config(dataset="cifar10", model_type="vit_tiny", patch_size=[4, 4],
+                             fused_attention=True, batch_size=16, seed=seed, device=str(where))
+        state = init_train_state(cfg, torch.Generator().manual_seed(seed), device=where)
+        draws = draw_step(torch.Generator().manual_seed(seed + 9), cfg, tuple(images.shape),
+                          state.modules["encoder"])
+        loss = float(make_train_step(cfg)(state, images.to(where), draws=draws.to(where))["loss"])
+        runs.append((loss, {k: p.grad.detach().cpu() for k, p in
+                            state.modules.named_parameters() if p.grad is not None}))
+    (loss_c, grads_c), (loss_d, grads_d) = runs
+    worst, worst_name, sq_diff, sq_ref = 0.0, "", 0.0, 0.0
+    for k, g in grads_c.items():
+        # the final LayerNorm's bias: its Barlow Twins gradient is 0 (the
+        # projector's BatchNorm removes a shift of every latent), float noise
+        if not g.any() or k == "encoder.norm.bias":
+            continue
+        diff = grads_d[k].double() - g.double()
+        rel = float(diff.norm() / g.double().norm())
+        sq_diff += float(diff.norm()) ** 2
+        sq_ref += float(g.double().norm()) ** 2
+        if rel > worst:
+            worst, worst_name = rel, k
+    out = {"loss_rel_err": abs(loss_d - loss_c) / abs(loss_c), "grad_rel_l2_err": worst,
+           "worst_grad": worst_name, "grad_rel_l2_err_all": (sq_diff / sq_ref) ** 0.5}
+    print(f"  (a) CIFAR step (vit_tiny fused, N = 65, batch 16), card vs CPU: {json.dumps(out)}")
+    why = "bf16 roundings flipped by 1e-7 differences, amplified by the batch-16 loss"
+    check("CIFAR step loss, card vs CPU, relative", out["loss_rel_err"], STEP_LOSS_RTOL, why)
+    check("CIFAR step gradients, card vs CPU, relative L2 per tensor", worst,
+          VIT_FUSED_GRAD_RTOL, why)
+    check("CIFAR step gradients, card vs CPU, relative L2 all at once",
+          out["grad_rel_l2_err_all"], VIT_FUSED_GLOBAL_RTOL, why)
+    return out
+
+
+def run_entry(module, argv: list[str]):
+    """module.main(argv) in-process, its stdout kept, the counters zeroed
+    just before and read just after -> (result, seconds, launches, lines)."""
+    out = io.StringIO()
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = module.main(argv)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, launch_counts(), out.getvalue().splitlines()
+
+
+def classifier_time(seed: int, dev: torch.device, smi: str, finetune_mode: bool) -> dict:
+    """An AudioNTT2022 classifier step (eval/finetune.py) on a resident batch
+    of 128 seeded log-mels and 200-class multi-hot labels, mixup and
+    SpecAugment on, the encoder at the defaults: its device ms by CUDA
+    events."""
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.eval import finetune
+    from ssl_audio_tpu_torch.train.state import init_train_state
+
+    g = torch.Generator().manual_seed(seed + 11)
+    cfg = default_config(dataset="fsd50k", seed=seed)
+    encoder = init_train_state(cfg, torch.Generator().manual_seed(seed), device=dev) \
+        .modules["encoder"]
+    encoder.requires_grad_(finetune_mode)
+    head = finetune.init_head(encoder.embed_dim, 200, g).to(dev)
+    params = list(head.parameters()) + (list(encoder.parameters()) if finetune_mode else [])
+    step = finetune.make_classifier_step(cfg, encoder, head, torch.optim.Adam(params, lr=1e-4),
+                                         finetune_mode, 0.2, True, False)
+    x = torch.randn(TRAIN_BATCH, 1, 64, TRAIN_FRAMES, generator=g).to(dev)
+    y = (torch.rand(TRAIN_BATCH, 200, generator=g) < 0.01).float().to(dev)
+    gen, host = torch.Generator(device=dev).manual_seed(seed), torch.Generator().manual_seed(seed)
+    losses = []
+
+    def run():
+        d = finetune.draw_classifier_step(gen, host, encoder, tuple(x.shape), finetune_mode,
+                                          0.2, True)
+        losses.append(step(x, y, d))
+
+    rec = median_record(event_ms(run), TRAIN_BATCH, smi)
+    if not all(torch.isfinite(v) for v in losses):
+        raise SystemExit(f"non-finite classifier loss among {losses}")
+    return rec
+
+
+def phase_cifar_eval(seed: int, dev: torch.device, smi: str, ckpt: str | None = None) -> dict:
+    """Phase 17: (a) CIFAR-10 pretraining through main on a fabricated tree
+    (ViT-B --fused_attention at 4x4 patches for an epoch with the kNN
+    monitor, at 16x16 for CIFAR_SHORT_STEPS steps, --use_fp16 at 4x4 for an
+    epoch), every step's launches counted, and a batch-16 step card vs CPU;
+    (b) the supervised evaluation entry: evaluate --mode finetune --specaug
+    --eval_mixup 0.2 and --mode linear on AudioNTT2022 from `ckpt` (phase
+    9's checkpoint; a seeded one when None) over an FSD50K tree, and ViT-B
+    --fused_attention --mode finetune on synthetic, every classifier step's
+    launches counted and the predictions' by difference; (c)
+    extract_embeddings of the FSD50K test split; (d) CUDA-event medians of
+    a CIFAR ViT-B step at N = 65 and N = 5, an AudioNTT2022 finetune step
+    and a linear step."""
+    import gc
+
+    from ssl_audio_tpu_torch import evaluate, extract_embeddings
+    from ssl_audio_tpu_torch.config import config_from_args
+    from ssl_audio_tpu_torch.data.cifar10 import Cifar10
+    from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_cifar10, fabricate_fsd50k
+    from ssl_audio_tpu_torch.train.loop import Trainer
+
+    print("phase 17: CIFAR-10 pretraining (ViT-B --fused_attention at N = 65 and N = 5) and "
+          "the supervised evaluation entry (evaluate, extract_embeddings)")
+    out = {"card": smi, "launches": {}, "seconds": {}, "cuts": {
+        "cifar10_rows_per_batch": CIFAR_ROWS, "fsd50k_rows": EVAL_FSD50K}}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cifar_") as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        fabricate_cifar10("data", CIFAR_ROWS, seed)
+        fabricate_fsd50k("data", EVAL_FSD50K["train"], (TRAIN_FRAMES, 800), seed,
+                         n_val=EVAL_FSD50K["val"], n_test=EVAL_FSD50K["test"], n_classes=200,
+                         max_labels=3)
+        out["seconds"]["trees"] = time.perf_counter() - t0
+        steps = 5 * CIFAR_ROWS // TRAIN_BATCH
+        knn = scaled({"fused_attention_fwd": VIT_DEPTH}, CIFAR_KNN_BATCHES)
+        trainers = {}
+        # (a) main on CIFAR-10: an epoch at 4x4 patches (fp32, then bf16), the kNN after it
+        for key, extra, per_step, probe in (
+                ("cifar_vitb_n65", ["--patch_size", "4", "4"], CIFAR_STEP, knn),
+                ("cifar_vitb_n65_bf16", ["--patch_size", "4", "4", "--use_fp16"],
+                 CIFAR_STEP_BF16, {f"{k}_bf16": v for k, v in knn.items()})):
+            t0 = time.perf_counter()
+            with steps_counted(per_step, f"(a) {key}", "make_train_step") as seen:
+                trainer, secs, launches, lines = run_main(
+                    CIFAR_BASE + extra + ["--seed", str(seed), "--save_base_dir", key])
+            if len(seen) != steps:
+                raise SystemExit(f"(a) {key}: {len(seen)} steps, expected {steps}")
+            top1, top5 = knn_scores(lines)
+            expect(counts_minus(launches, scaled(per_step, steps)), probe, 1,
+                   f"(a) {key}'s kNN monitor")
+            out["launches"][key] = counts_with(**per_step)
+            out["launches"][f"{key}_knn"] = counts_with(**probe)
+            out[key] = {"steps": steps, "mean_loss": trainer.epoch_losses[1], "seconds": secs,
+                        "knn_top1": top1, "knn_top5": top5,
+                        "tokens": trainer.state.modules["encoder"].grid_size()[0] ** 2 + 1}
+            print(f"  (a) {key}: {json.dumps(out[key])}")
+            trainers[key] = trainer
+            out["seconds"][key] = time.perf_counter() - t0
+        del trainers["cifar_vitb_n65_bf16"]
+        # ... and CIFAR_SHORT_STEPS steps at the default 16x16 patches
+        t0 = time.perf_counter()
+        cfg = config_from_args(CIFAR_BASE + ["--no_eval", "--seed", str(seed)])
+        ds = Cifar10("data", train=True)
+        ds.images, ds.labels = (a[:CIFAR_SHORT_STEPS * TRAIN_BATCH] for a in (ds.images,
+                                                                              ds.labels))
+        with steps_counted(CIFAR_STEP, "(a) cifar_vitb_n5", "make_train_step") as seen:
+            trainer = Trainer(cfg, dataset=ds, log=lambda line: None)
+            trainer.fit()
+        if len(seen) != CIFAR_SHORT_STEPS or trainer.state.modules["encoder"].grid_size() != (2, 2):
+            raise SystemExit(f"(a) cifar_vitb_n5: {len(seen)} steps on grid "
+                             f"{trainer.state.modules['encoder'].grid_size()}")
+        trainers["cifar_vitb_n5"] = trainer
+        out["launches"]["cifar_vitb_n5"] = counts_with(**CIFAR_STEP)
+        out["cifar_vitb_n5"] = {"steps": CIFAR_SHORT_STEPS, "mean_loss": trainer.epoch_losses[1]}
+        out["a_cpu_check"] = cifar_card_vs_cpu(seed, dev, torch.from_numpy(ds.images[:16]))
+        out["seconds"]["cifar_vitb_n5_and_cpu_check"] = time.perf_counter() - t0
+
+        # (b) the supervised evaluation entry
+        ckpt = ckpt or seeded_checkpoint(seed, dev)
+        common = ["--batch_size", str(TRAIN_BATCH), "--num_workers", "4", "--seed", str(seed)]
+        fsd = ["--dataset", "fsd50k", "--model_type", "audiontt", "--model_file_path", ckpt,
+               "--eval_epochs", str(EVAL_EPOCHS)]
+        n_train = EVAL_FSD50K["train"] // TRAIN_BATCH
+        n_val = -(-EVAL_FSD50K["val"] // TRAIN_BATCH)
+        for key, argv, per_step, per_pred, n_steps, n_preds in (
+                ("evaluate_finetune_audiontt",
+                 ["--mode", "finetune", "--specaug", "--eval_mixup", "0.2", *fsd], FT_STEP,
+                 CONV_EVAL, EVAL_EPOCHS * n_train, EVAL_EPOCHS * n_val),
+                ("evaluate_linear_audiontt", ["--mode", "linear", *fsd], CONV_EVAL, CONV_EVAL,
+                 EVAL_EPOCHS * n_train, EVAL_EPOCHS * n_val),
+                ("evaluate_finetune_vitb",
+                 ["--mode", "finetune", "--dataset", "synthetic", "--model_type", "vit_base",
+                  "--fused_attention", "--synthetic_steps_per_epoch", str(VIT_FT_STEPS),
+                  "--eval_epochs", "1", "--specaug", "--eval_mixup", "0.2"],
+                 VIT_FT_STEP, VIT_EVAL, VIT_FT_STEPS, 4)):
+            t0 = time.perf_counter()
+            with classifier_steps_counted(per_step, f"(b) {key}") as seen:
+                score, secs, launches, lines = run_entry(evaluate, argv + common)
+            if len(seen) != n_steps:
+                raise SystemExit(f"(b) {key}: {len(seen)} steps, expected {n_steps}")
+            if not 0.0 <= score <= 1.0 or not any(
+                    ln.startswith(f"{argv[1]} best val score: ") for ln in lines):
+                raise SystemExit(f"(b) {key}: score {score}, output {lines[-3:]}")
+            expect(counts_minus(launches, scaled(per_step, n_steps)), per_pred, n_preds,
+                   f"(b) {key}'s predictions")
+            out["launches"][key] = counts_with(**per_step)
+            out["launches"][f"{key}_predict"] = counts_with(**per_pred)
+            out[key] = {"steps": n_steps, "prediction_batches": n_preds, "best_val_score": score,
+                        "seconds": secs}
+            print(f"  (b) {key}: {json.dumps(out[key])}")
+            out["seconds"][key] = time.perf_counter() - t0
+
+        # (c) extract_embeddings of the FSD50K test split (711-frame crops: block 1 is
+        # odd-sized there and runs unfused, so no kernel launches)
+        t0 = time.perf_counter()
+        (X, y), secs, launches, _ = run_entry(extract_embeddings, [
+            "--dataset", "fsd50k", "--split", "test", "--model_type", "audiontt",
+            "--model_file_path", ckpt, "--out_prefix", "emb/fsd50k_test", *common])
+        if X.shape != (EVAL_FSD50K["test"], 3072) or not np.isfinite(X).all() \
+                or y.shape != (EVAL_FSD50K["test"], 200):
+            raise SystemExit(f"(c) extract_embeddings: X {X.shape}, y {y.shape}")
+        out["launches"]["extract_embeddings"] = expect(launches, {}, 1, "(c) extract_embeddings")
+        out["c_extract_embeddings"] = {"X": list(X.shape), "y": list(y.shape), "seconds": secs}
+        out["seconds"]["extract_embeddings"] = time.perf_counter() - t0
+
+    # (d) timed steps on resident batches
+    t0 = time.perf_counter()
+    images = torch.from_numpy(ds.images[:TRAIN_BATCH]).to(dev)
+    for key, trainer in trainers.items():
+        out[f"d_{key}_time"] = median_record(event_ms(lambda: trainer.train_step(
+            trainer.state, images, gen=trainer.gen)), TRAIN_BATCH, smi)
+    del trainers, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d_finetune_audiontt_time"] = classifier_time(seed, dev, smi, True)
+    out["d_linear_audiontt_time"] = classifier_time(seed, dev, smi, False)
+    out["seconds"]["timing"] = time.perf_counter() - t0
+    print("  (d) " + json.dumps({k: v["ms_per_step_median"] for k, v in out.items()
+                                 if k.startswith("d_")}) + f" ms, {smi}")
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 17 seconds by part: {json.dumps(out['seconds'])}")
+    return out
+
+
+def seeded_checkpoint(seed: int, dev: torch.device) -> str:
+    """A checkpoint of the seeded AudioNTT2022 train state at the defaults,
+    in the working directory (phase 17 alone, without phase 9's)."""
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.train.state import init_train_state
+    from ssl_audio_tpu_torch.utils import checkpoint as ckpt_lib
+
+    state = init_train_state(default_config(seed=seed), torch.Generator().manual_seed(seed),
+                             device=dev)
+    ckpt_lib.save_checkpoint("seeded_audiontt.pt", state, 1, None)
+    return os.path.abspath("seeded_audiontt.pt")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3942,8 +4328,9 @@ def main() -> int:
     t11 = time.perf_counter()
     bf16_rows, bf16 = phase_bf16(args.seed, dev, smi)
     print(f"  phase 11: {time.perf_counter() - t11:.1f} s")
+    keep = tempfile.TemporaryDirectory(prefix="chip_smoke_keep_")
     t9 = time.perf_counter()
-    pretraining = phase_pretraining(args.seed, dev, smi)
+    pretraining = phase_pretraining(args.seed, dev, smi, keep.name)
     print(f"  phase 9: {time.perf_counter() - t9:.1f} s")
     t10 = time.perf_counter()
     disk = phase_disk(args.seed, dev, smi, training["ms_per_step_median"])
@@ -3963,6 +4350,11 @@ def main() -> int:
     t16 = time.perf_counter()
     legacy = phase_legacy(args.seed, dev, smi)
     print(f"  phase 16: {time.perf_counter() - t16:.1f} s")
+    t17 = time.perf_counter()
+    cifar_eval = phase_cifar_eval(args.seed, dev, smi,
+                                  os.path.join(keep.name, "pretrain_audiontt.pt"))
+    keep.cleanup()
+    print(f"  phase 17: {time.perf_counter() - t17:.1f} s")
     next(k for k in kernels if k["name"] == "log_mel_folded")["converter_shape"] = \
         disk["convert_mel_row"]
     # launches on the main paths, per path (timestamp request, scene request,
@@ -3981,14 +4373,18 @@ def main() -> int:
     # new encoder's runs, the SE run's probe, a graphed step of each, the
     # HEAR ResNet requests; phase 15: rank 0's step of each two-rank run;
     # phase 16: one step of DINO AudioNTT2022, of DINO ViT-B with two local
-    # crops and of BYOL-A --use_fp16, and the DINO checkpoint's probe) and
+    # crops and of BYOL-A --use_fp16, and the DINO checkpoint's probe; phase
+    # 17: one CIFAR-10 step at N = 65 (fp32, bf16) and N = 5, each kNN
+    # monitor, one classifier step and one prediction batch of each
+    # evaluate run, extract_embeddings) and
     # in all
     kernels += bf16_rows
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
                **evaluation["launches"], **pretraining["launches"], **disk["launches"],
                **bf16["launches"], **graphs["launches"], **byol["launches"],
-               **zoo["launches"], **dp["launches"], **legacy["launches"]}
+               **zoo["launches"], **dp["launches"], **legacy["launches"],
+               **cifar_eval["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

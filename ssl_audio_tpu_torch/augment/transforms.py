@@ -54,7 +54,11 @@ class AugmentState:
 
 def init_augment_state(cfg, sample_shape: Tuple[int, ...] = None,
                        device=None) -> AugmentState:
-    """sample_shape defaults to (1, n_mels, crop_frames)."""
+    """sample_shape defaults to (1, n_mels, crop_frames).  --dataset
+    cifar10 keeps no state: its views (augment/cifar.py) use neither the
+    mixup bank nor the running norm."""
+    if cfg.dataset == "cifar10":
+        return AugmentState(mixup=None)
     if sample_shape is None:
         sample_shape = (1, cfg.n_mels, cfg.crop_frames)
     mix = None

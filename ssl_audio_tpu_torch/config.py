@@ -37,9 +37,7 @@ DATASETS = [
 OPTIMIZERS = ["Adam", "AdamW", "SGD", "LARS"]
 
 PORTED_MODELS = tuple(MODELS)
-PORTED_DATASETS = ("fsd50k", "audioset", "librispeech", "fsd50k+librispeech",
-                   "audioset+librispeech", "nsynth", "audioset_wav",
-                   "synthetic", "synthetic_wav", "synthetic_multicue")
+PORTED_DATASETS = tuple(DATASETS)
 
 
 @dataclass
@@ -240,6 +238,8 @@ def unsupported_settings(cfg: Config) -> List[str]:
     for flag, on, what in (
             ("--model_parallel > 1", cfg.model_parallel != 1, "tensor parallelism"),
             ("--fsdp", cfg.fsdp, "sharded parameters"),
+            ("--distributed with --dataset cifar10", cfg.distributed and cfg.dataset == "cifar10",
+             "data-parallel CIFAR-10 pretraining"),
             ("--layout_barrier", bool(cfg.layout_barrier), "an XLA layout option")):
         if on:
             bad.append(f"{flag} ({what} not ported yet)")
@@ -247,6 +247,12 @@ def unsupported_settings(cfg: Config) -> List[str]:
 
 
 def require_supported(cfg: Config) -> None:
+    """NotImplementedError naming every unported setting of cfg; ValueError
+    for a combination the JAX package cannot run either (cifar10 with an
+    encoder other than the ViT family)."""
+    if cfg.dataset == "cifar10" and "vit" not in cfg.model_type:
+        raise ValueError(f"--dataset cifar10 trains the ViT family only (vit_*, vitc_*), "
+                         f"not {cfg.model_type}")
     bad = unsupported_settings(cfg)
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(bad))

@@ -53,14 +53,16 @@ class _PinnedRing:
         self.bufs: list[Optional[torch.Tensor]] = [None] * n
         self.events = [torch.cuda.Event() for _ in range(n)]
 
-    def acquire(self, b: int, shape: tuple) -> torch.Tensor:
+    def acquire(self, b: int, shape: tuple, dtype=torch.float32) -> torch.Tensor:
         """Batch b's slot, viewed as `shape` (the first shape[0] rows of a
-        slot sized for a full batch), once the copy out of it is done."""
+        slot of `dtype` sized for a full batch), once the copy out of it is
+        done."""
         i = b % len(self.bufs)
         self.events[i].synchronize()
         buf = self.bufs[i]
-        if buf is None or buf.shape[1:] != shape[1:] or buf.shape[0] < shape[0]:
-            buf = self.bufs[i] = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+        if (buf is None or buf.shape[1:] != shape[1:] or buf.shape[0] < shape[0]
+                or buf.dtype != dtype):
+            buf = self.bufs[i] = torch.empty(shape, dtype=dtype, pin_memory=True)
         return buf[: shape[0]]
 
     def release(self, b: int) -> None:
@@ -196,7 +198,8 @@ class DataLoader:
             xs, ys = python_batch(pool, rows)
             if ring is None:
                 return xs, ys
-            out = ring.acquire(b, xs.shape)
+            # in the items' own type (CIFAR-10's uint8 images are cast on the card)
+            out = ring.acquire(b, xs.shape, torch.from_numpy(xs[:0]).dtype)
             out.numpy()[...] = xs
             return out, ys
 

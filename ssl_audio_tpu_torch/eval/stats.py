@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
-from scipy import stats as scipy_stats
 
 
 def _binary_clf_curve(target: np.ndarray, score: np.ndarray):
@@ -56,6 +55,9 @@ def roc_auc(target: np.ndarray, score: np.ndarray) -> float:
 
 
 def d_prime(auc: float) -> float:
+    # scipy.stats costs ~3 s to import: only here, where it is used
+    from scipy import stats as scipy_stats
+
     return scipy_stats.norm().ppf(auc) * np.sqrt(2.0)
 
 

@@ -25,6 +25,12 @@ the ConvStem's running statistics and the fixed position table stay fp32,
 each unit batch is cast at the encoder's input and the embeddings come back
 fp32 (models/precision.py); the attention stays the einsum path, in bf16.
 
+A reference-layout `.pth` loads as the JAX importer reads it
+(utils/weights.py load_vit_reference_weights_): the model's own tensors by
+name and shape, its fixed sin-cos table kept whatever the file holds, the
+file's other keys (a classifier head, an MAE decoder) ignored, and a
+missing tensor a KeyError.
+
 Not ported yet: Orbax checkpoints raise NotImplementedError.
 """
 from __future__ import annotations
@@ -47,10 +53,10 @@ from ssl_audio_tpu_torch.models.precision import cast_params_, compute_dtype as 
 from ssl_audio_tpu_torch.models.vit import get_mae_vit, init_vit_weights_
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram
 from ssl_audio_tpu_torch.utils import resolve_device
-from ssl_audio_tpu_torch.utils.weights import load_reference_state_dict
-
-# state-dict keys of the MAE decoder, which a serving model does not have
-_DECODER_KEYS = ("decoder_", "mask_token")
+from ssl_audio_tpu_torch.utils.weights import (
+    load_reference_state_dict,
+    load_vit_reference_weights_,
+)
 
 
 class ViTModelWrapper:
@@ -87,9 +93,7 @@ class ViTModelWrapper:
             raise NotImplementedError(
                 f"{model_file_path}: only reference-layout .pth checkpoints "
                 "load into the port (Orbax checkpoints are not ported yet)")
-        sd = {k: v for k, v in load_reference_state_dict(model_file_path).items()
-              if not k.startswith(_DECODER_KEYS)}
-        self.model.load_state_dict(sd, strict=True)
+        load_vit_reference_weights_(self.model, load_reference_state_dict(model_file_path))
 
     @torch.no_grad()
     def unit_apply(self, xu: torch.Tensor) -> torch.Tensor:

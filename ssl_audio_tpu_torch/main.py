@@ -20,8 +20,11 @@ and `hear.vit.load_model(path, model_type, ...)` (the ViT family), and is
 probed by `python -m ssl_audio_tpu_torch.linear`.  The per-epoch FSD50K
 probe (every `--epoch_eval_f` epochs and at the last one) reads
 `data/FSD50K`: without it the run says "Epoch eval disabled" and trains on,
-as the JAX main does.  `--steps_per_dispatch N` takes N steps a dispatch,
-one CUDA graph per window on the card (eager windows with `--device cpu`);
+as the JAX main does.  `--dataset cifar10` (the ViT family, over
+`data/cifar-10-batches-py`) runs the CIFAR-10 kNN monitor instead
+(eval/cifar_knn.py; "kNN eval disabled" without the data).
+`--steps_per_dispatch N` takes N steps a dispatch, one CUDA graph per
+window on the card (eager windows with `--device cpu`);
 `--profile_dir DIR` writes a torch.profiler trace of steps 10-20 of the
 first epoch into DIR (at one step a dispatch only, as in JAX).
 
@@ -71,7 +74,15 @@ def pretrain(argv=None, byol: bool = False):
         wandb_run = WandbRun(project=f"Pre-training {cfg.dataset}", config=cfg,
                              name=save_name)
         os.makedirs(ckpt_path, exist_ok=True)
-        if not cfg.no_eval and cfg.dataset not in ("synthetic",):
+        if not cfg.no_eval and cfg.dataset == "cifar10":
+            # the CIFAR-10 sanity path: the weighted-cosine kNN monitor
+            from ssl_audio_tpu_torch.eval.cifar_knn import make_cifar_knn_eval_fn
+
+            try:
+                eval_fn = make_cifar_knn_eval_fn(cfg, wandb_run=wandb_run)
+            except FileNotFoundError as e:
+                print(f"kNN eval disabled: {e}")
+        elif not cfg.no_eval and cfg.dataset not in ("synthetic",):
             from ssl_audio_tpu_torch.eval.linear import make_epoch_eval_fn
 
             try:

@@ -2,7 +2,7 @@
 fabricate an FSD50K-layout `.npy` tree (or an AudioSet-layout wav tree with
 --wav), train on it through the Trainer, and print each epoch's seconds
 waiting for batches and seconds in steps (the Trainer's data_time /
-step_time).
+step_time).  fabricate_cifar10 writes a CIFAR-10 tree.
 
     python -m ssl_audio_tpu_torch.tools.bench_pipeline --n_files 2048 --epochs 2 \\
         --batch 128 [--wav] [--device cpu]
@@ -121,6 +121,26 @@ def fabricate_audioset_wav(root: str, n_files: int, seconds: float = 10.0, sr: i
                 labels = "#".join(f"/m/{c}" for c in sorted({i % n_classes,
                                                               (i * 7 + 3) % n_classes}))
                 f.write(f"{prefix}{i},{labels},{ident}\n")
+
+
+def fabricate_cifar10(root: str, rows: int = 10000, seed: int = 0) -> None:
+    """A CIFAR-10 tree under root in the published python-pickle layout:
+    cifar-10-batches-py/data_batch_1..5 and test_batch, `rows` images each
+    ({b"data": (rows, 3072) uint8, channel-major, b"labels": [int]}, as
+    data/cifar10.py reads them); an image of class c is noise about a
+    colour of its own, so a kNN over the pixels finds the class."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    colours = rng.integers(40, 216, (10, 3, 1, 1))
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        labels = rng.integers(0, 10, rows)
+        noise = rng.integers(-40, 41, (rows, 3, 32, 32))
+        data = np.clip(colours[labels] + noise, 0, 255).astype(np.uint8).reshape(rows, 3072)
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({b"data": data, b"labels": labels.tolist()}, f)
 
 
 def main(argv=None) -> list:

@@ -2,9 +2,11 @@
 resume, the per-epoch evaluation hook and logging (port of
 ssl_audio_tpu/train/loop.py around the eager step of train/steps.py).
 
-Ported: every dataset of the JAX loop but cifar10 (get_train_dataset, read
-under `data_dir` as the JAX Trainer does), Trainer, train_one_epoch (each
-batch copied to the card from the loader's pinned slots with
+Ported: every dataset of the JAX loop (get_train_dataset, read under
+`data_dir` as the JAX Trainer does; cifar10's uint8 images go to the card
+as they are and are cast there, in the CIFAR pair transform), Trainer,
+train_one_epoch (each batch copied to the card from the loader's pinned
+slots with
 non_blocking=True), fit (checkpoints every epoch_save_f epochs and at the
 last, deterministic resume, eval_fn every epoch_eval_f epochs and at the
 last), the CSV log, the ViT teacher's masking per step
@@ -112,7 +114,9 @@ def get_train_dataset(cfg, data_dir: str = "data"):
     if ds == "synthetic_wav":
         return D.SyntheticWav(cfg, length=length, seed=seed)
     if ds == "cifar10":
-        raise NotImplementedError("dataset 'cifar10' is not ported yet")
+        from ssl_audio_tpu_torch.data.cifar10 import Cifar10
+
+        return Cifar10(data_dir, train=True)
     raise ValueError(f"Unsupported dataset {ds}")
 
 

@@ -136,7 +136,9 @@ def encoder_forward(cfg, encoder: nn.Module):
 
 def build_encoder(cfg) -> tuple[nn.Module, int]:
     """-> (encoder, feature_dim), the JAX build_encoder's routing
-    (models/wrapper.py).  AudioNTT2022: --squeeze_excitation, fused_conv /
+    (models/wrapper.py).  --dataset cifar10: the ViT family over (32, 32)
+    RGB images without a decoder (config.require_supported refuses another
+    encoder).  AudioNTT2022: --squeeze_excitation, fused_conv /
     pool_reorder None = on (the fused block computes the same function on
     the CPU and on the card).  The four ResNet types: the factories'
     defaults (deep stem, plain projections).  The ViT family (vit_* and the
@@ -145,14 +147,17 @@ def build_encoder(cfg) -> tuple[nn.Module, int]:
     = off, as in JAX).  As in JAX, --squeeze_excitation applies to
     AudioNTT2022 only and --remat to the ViT family only; the other encoders
     ignore them."""
+    cifar = cfg.dataset == "cifar10"
     if is_vit(cfg):
         if cfg.layout_barrier:
             raise NotImplementedError("--layout_barrier (an XLA layout option) is not "
                                       "ported yet")
+        # CIFAR-10: (32, 32) RGB images, no decoder (JAX models/wrapper.py:95-103)
         enc = get_mae_vit(cfg.model_type.split("_")[-1], cfg.patch_size,
                           cfg.model_type.startswith("vitc"),
-                          img_size=(cfg.n_mels, cfg.crop_frames),
-                          use_decoder=cfg.masked_recon,
+                          img_size=(32, 32) if cifar else (cfg.n_mels, cfg.crop_frames),
+                          in_chans=3 if cifar else 1,
+                          use_decoder=cfg.masked_recon and not cifar,
                           use_learned_pos_embd=cfg.use_learned_pos_embd,
                           fused_attention=bool(cfg.fused_attention), remat=bool(cfg.remat))
         return enc, enc.embed_dim

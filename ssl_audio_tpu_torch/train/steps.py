@@ -46,12 +46,17 @@ import dataclasses
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from ssl_audio_tpu_torch.augment.cifar import (
+    CifarPairDraws,
+    apply_cifar_pair_views,
+    draw_cifar_pair_views,
+)
 from ssl_audio_tpu_torch.augment.transforms import (
     PairDraws,
     apply_pair_views,
@@ -132,7 +137,7 @@ class StepDraws:
     (teacher view, student view, local crops; for BYOL the two online
     passes, then the target's: pass_sizes)."""
     starts: Optional[torch.Tensor]     # (B,) frontend crop starts; None for log-mel batches
-    views: PairDraws
+    views: Union[PairDraws, CifarPairDraws]     # the audio pair's, or CIFAR-10's
     dropout: Optional[List[torch.Tensor]] = None    # AudioNTT: keep masks (B, T/4, hidden);
                                                     # None for a ResNet (no dropout)
     noise: Optional[List[torch.Tensor]] = None      # ViT: token-mask noise (B, L)
@@ -159,9 +164,13 @@ def pass_sizes(cfg, byol: bool = False) -> list:
     order of their draws: the two global views and the local crops; for
     BYOL the online passes over the two global views first (JAX's
     _view_rngs(ks, 0), (ks, 1)), then the target's over every view
-    (_view_rngs(ks, 2 + i))."""
-    views = [(cfg.n_mels, cfg.crop_frames)] * 2 + \
-        [tuple(cfg.local_crops_size)] * cfg.local_crops_number
+    (_view_rngs(ks, 2 + i)).  CIFAR-10's pair is two 32 x 32 views and no
+    local crops (JAX Modules.make_views)."""
+    if cfg.dataset == "cifar10":
+        views = [(32, 32)] * 2
+    else:
+        views = [(cfg.n_mels, cfg.crop_frames)] * 2 + \
+            [tuple(cfg.local_crops_size)] * cfg.local_crops_number
     return views[:2] + views if byol else views
 
 
@@ -169,7 +178,8 @@ def draw_step(gen: torch.Generator, cfg, batch_shape, encoder, device=None,
               wav: bool = False, byol: bool = False) -> StepDraws:
     """Draw a step's random numbers from `gen` (a generator on `device`) for
     `encoder`, one set per encoder forward (pass_sizes).  batch_shape: (B, L)
-    raw wavs when `wav`, else (B, 1, n_mels, crop_frames)."""
+    raw wavs when `wav`, (B, 32, 32, 3) images for cifar10, else (B, 1,
+    n_mels, crop_frames)."""
     B = batch_shape[0]
     starts = None
     if wav:
@@ -190,15 +200,17 @@ def draw_step(gen: torch.Generator, cfg, batch_shape, encoder, device=None,
         hidden = encoder.fc[0].out_features
         dropout = [torch.rand(B, t // 4, hidden, generator=gen, device=device) >= DROPOUT_RATE
                    for _, t in sizes]
-    return StepDraws(starts, draw_pair_views(gen, cfg, lms_shape, device), dropout, noise,
-                     drop_path)
+    views = (draw_cifar_pair_views(gen, B, device) if cfg.dataset == "cifar10"
+             else draw_pair_views(gen, cfg, lms_shape, device))
+    return StepDraws(starts, views, dropout, noise, drop_path)
 
 
 def _views(cfg, state: TrainState, batch: torch.Tensor, gen, draws: Optional[StepDraws],
            frontend, byol: bool = False):
     """-> (draws, views): the step's draws (drawn from `gen` unless given)
     and its augmented views of `batch` (through `frontend` first when
-    given); the mixup bank advances.  The draws are the global batch's:
+    given; a batch of uint8 images through the CIFAR pair for cifar10);
+    the mixup bank advances.  The draws are the global batch's:
     in a process group `batch` is this rank's B rows, every rank draws the
     W B rows' numbers from the same generator and keeps its own rows, so a
     run of W ranks takes the draws of one process on the global batch."""
@@ -212,7 +224,10 @@ def _views(cfg, state: TrainState, batch: torch.Tensor, gen, draws: Optional[Ste
     with torch.no_grad():
         if frontend is not None:
             batch = frontend(batch, draws.starts)
-        views = apply_pair_views(batch, state.aug, cfg, draws.views)
+        if cfg.dataset == "cifar10":
+            views = apply_cifar_pair_views(batch, draws.views)
+        else:
+            views = apply_pair_views(batch, state.aug, cfg, draws.views)
     return draws, views
 
 

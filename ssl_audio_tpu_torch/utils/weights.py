@@ -14,11 +14,12 @@ state dict has).
 A reference `.pth` loads into a port module as the JAX importer reads one
 (load_reference_weights_): every tensor the module needs, with its shape
 checked, and nothing else; a missing one raises KeyError, a file's other
-tensors are ignored.
+tensors are ignored.  A ViT keeps its own fixed sin-cos tables and reads
+a learned position table resized to its grid (load_vit_reference_weights_).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import numpy as np
 import torch
@@ -116,7 +117,8 @@ def vit_state_dict_from_jax(params, batch_stats, spec) -> Dict[str, torch.Tensor
     """The JAX MaskedAutoencoderViT's params and batch_stats (numpy arrays)
     -> the port's state dict, under the names of export_vit_state_dict:
     the ConvStem's BatchNorm running statistics and the MAE decoder
-    included.  spec: the port's ViTSpec of the model.  The fixed position
+    included.  spec: the port's ViTSpec of the model (any in_chans: the
+    CIFAR-10 ViT's patch projection takes 3).  The fixed position
     tables are the JAX model's constants (the decoder's is the 1-D table
     unless spec.use_2d_dec_pos_embd), not the exporter's."""
     from ssl_audio_tpu_torch.ops.pos_embed import (
@@ -189,15 +191,19 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
 
 
-def load_reference_weights_(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+def load_reference_weights_(module: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                            keep: Iterable[str] = ()) -> None:
     """Copy a reference-layout state dict (load_reference_state_dict) into
     `module` as the JAX importer reads it (utils/torch_import.py): every
     parameter and running statistic the module has must be in `sd` with its
     shape (KeyError names a missing one, ValueError a shape); the file's
     other tensors are ignored, and a num_batches_tracked it lacks stays as it
-    is.  A ResNet-D file (its projection's conv at downsample.1, BN at
-    downsample.2) loads into a plain ResNet's downsample.{0,1}, as there."""
-    sd, want = dict(sd), module.state_dict()
+    is.  keep: names of the module's own constants, never read from the
+    file.  A ResNet-D file (its
+    projection's conv at downsample.1, BN at downsample.2) loads into a
+    plain ResNet's downsample.{0,1}, as there."""
+    sd, want, keep = dict(sd), module.state_dict(), set(keep)
+    want = {k: v for k, v in want.items() if k not in keep}
     for k in [k for k in sd if k.endswith(".downsample.1.weight") and sd[k].dim() == 4]:
         head = k[:-len("1.weight")]                       # "<block>.downsample."
         if head + "0.weight" in want and head + "0.weight" not in sd:
@@ -217,7 +223,50 @@ def load_reference_weights_(module: torch.nn.Module, sd: Dict[str, torch.Tensor]
                              f"model's {tuple(v.shape)}")
         picked[k] = sd[k]
     missing, _ = module.load_state_dict(picked, strict=False)
-    assert all(k.endswith("num_batches_tracked") for k in missing), missing
+    assert all(k.endswith("num_batches_tracked") or k in keep for k in missing), missing
+
+
+def resize_pos_embed(table: torch.Tensor, grid) -> torch.Tensor:
+    """A learned (1, 1 + h * w, D) position table of a square h x w grid ->
+    (1, 1 + gh * gw, D) for `grid` (gh, gw): the CLS row kept, the patch
+    rows resized bicubically (align_corners=False), as the JAX importer's
+    interpolate_pos_embed (utils/torch_import.py:125-131).  The same table
+    when the token count already fits."""
+    gh, gw = grid
+    n, d = table.shape[1] - 1, table.shape[-1]
+    if n == gh * gw:
+        return table
+    side = int(round(n ** 0.5))
+    if side * side != n:
+        raise ValueError(f"a position table of {n} patch rows is not a square grid: "
+                         f"its grid cannot be inferred")
+    tokens = table[:, 1:].float().reshape(1, side, side, d).permute(0, 3, 1, 2)
+    tokens = torch.nn.functional.interpolate(tokens, size=(gh, gw), mode="bicubic",
+                                             align_corners=False)
+    return torch.cat([table[:, :1].float(), tokens.permute(0, 2, 3, 1).reshape(1, gh * gw, d)],
+                     dim=1)
+
+
+def load_vit_reference_weights_(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """A reference-layout ViT state dict into `model` (models/vit.py) as the
+    JAX importer reads it (utils/torch_import.py:113-201
+    load_torch_vit_params): exactly the module's parameters and ConvStem
+    running statistics by name and shape (KeyError for a missing one); the
+    file's other tensors (head.*, an MAE decoder the model lacks,
+    mask_token) are ignored.  The model's fixed sin-cos tables are its own
+    constants, whatever the file holds; a learned pos_embed is read and
+    resized to the model's grid (resize_pos_embed)."""
+    sd = dict(sd)
+    if isinstance(model.pos_embed, torch.nn.Parameter) and "pos_embed" in sd:
+        sd["pos_embed"] = resize_pos_embed(sd["pos_embed"], model.grid_size())
+    fixed = [name for name, _ in model.named_buffers() if name.endswith("pos_embed")]
+    load_reference_weights_(model, sd, keep=fixed)
+
+
+def classifier_head_from_jax(head) -> Dict[str, torch.Tensor]:
+    """JAX's classifier head (eval/finetune.py: {"w" (D, C), "b" (C,)}) ->
+    the state dict of the port's nn.Linear head (eval/finetune.py)."""
+    return {"weight": _linear(head["w"]), "bias": _t(head["b"])}
 
 
 def _mlp_state_dict_from_jax(params, stats, prefix: str) -> Dict[str, torch.Tensor]:

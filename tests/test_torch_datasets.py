@@ -23,6 +23,7 @@ from ssl_audio_tpu_torch.data import datasets as D
 from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
 from ssl_audio_tpu_torch.train import loop
 from tests.test_audioset_wav import fabricate_audioset
+from tests.test_cifar import write_fake_cifar
 from tests.test_torch_checkpoint import one_intra_op_thread  # noqa: F401  (autouse fixture)
 
 LOAD_WAV_TOL = 1e-4     # normalised log-mels: fp32 DFT / mel sums in another order
@@ -168,12 +169,17 @@ def test_get_train_dataset_equals_jax(tree, dataset, flags, monkeypatch):
 
 def test_nsynth_and_cifar10_in_get_train_dataset(tree, monkeypatch):
     """nsynth reads its HEAR json under hear/ of the working directory, as
-    in JAX; cifar10 is not ported."""
+    in JAX; cifar10 its pickled batches under data/cifar-10-batches-py
+    (written here in the published layout), item for item as JAX's."""
     monkeypatch.chdir(tree)
     cfg, jcfg = configs(dataset="nsynth")
     assert_items_equal(loop.get_train_dataset(cfg), jloop.get_train_dataset(jcfg))
-    with pytest.raises(NotImplementedError):
-        loop.get_train_dataset(cfg.replace(dataset="cifar10"))
+    write_fake_cifar("data", n_train=20, n_test=8)
+    cfg, jcfg = configs(dataset="cifar10")
+    port_ds, jax_ds = loop.get_train_dataset(cfg), jloop.get_train_dataset(jcfg)
+    assert type(port_ds).__name__ == type(jax_ds).__name__ == "Cifar10"
+    assert port_ds.label_num == jax_ds.label_num == 10
+    assert_items_equal(port_ds, jax_ds)
 
 
 @pytest.mark.parametrize("name", ["fsd50k_train", "fsd50k_test", "nsynth_train"])

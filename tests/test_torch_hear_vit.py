@@ -5,7 +5,8 @@ default family; its ConvStem running statistics set away from 0 and 1),
 every parameter moved off its initial value.  Timestamp embeddings and
 timestamps (every 0.95-s window is one unit, so the silent unit enters each
 mean), scene embeddings, the metadata, fetch_dtype="bfloat16", a
-reference-layout .pth loaded by both packages, the options not ported yet,
+reference-layout .pth loaded by both packages (and the JAX importer's rule
+for a file's other keys and tables), the options not ported yet,
 and no silent fallback to the CPU.
 
 Tolerance: embeddings within 1e-4 of max|ref| (fp32 through the frontend,
@@ -20,6 +21,7 @@ import torch
 import ssl_audio_tpu.hear.vit as jvit
 from ssl_audio_tpu.utils.torch_export import export_vit_state_dict
 from ssl_audio_tpu_torch.hear import vit as tvit
+from ssl_audio_tpu_torch.ops.pos_embed import get_2d_sincos_pos_embed
 from ssl_audio_tpu_torch.utils.weights import vit_state_dict_from_jax
 
 
@@ -150,6 +152,60 @@ def test_reference_pth_loads_into_both(models, audio, tmp_path):
         want = jm.variables["batch_stats"]["patch_embed"]["bn0"]
         np.testing.assert_array_equal(bn.running_mean.numpy(), want["mean"])
         np.testing.assert_array_equal(bn.running_var.numpy(), want["var"])
+
+
+C3_CASES = ("head_keys", "sincos_4x26", "table_plus_one", "missing_tensor")
+
+
+@pytest.mark.parametrize("models", ["vit_tiny"], indirect=True)
+@pytest.mark.parametrize("case", C3_CASES)
+def test_reference_pth_rule_matches_jax(models, audio, tmp_path, case):
+    """The JAX importer's .pth rule (utils/torch_import.py:113-201): a file
+    with a classifier head's keys, with a sin-cos table of another grid (4 x
+    26, 105 rows) and with its table moved by 1.0 loads in both packages to
+    the same embeddings, the fixed table the model's own; a file without
+    one of the model's tensors raises KeyError in both."""
+    name, jm, tm = models
+    model_type, patch = MODELS[name]
+    sd = export_vit_state_dict(jm.model, jm.variables["params"],
+                               jm.variables.get("batch_stats"))
+    if case == "head_keys":
+        sd["head.weight"], sd["head.bias"] = torch.ones(10, 192), torch.ones(10)
+    elif case == "sincos_4x26":
+        sd["pos_embed"] = torch.from_numpy(get_2d_sincos_pos_embed(192, (4, 26))[None])
+    elif case == "table_plus_one":
+        sd["pos_embed"] = sd["pos_embed"] + 1.0
+    else:
+        del sd["norm.weight"]
+    path = str(tmp_path / f"{case}.pth")
+    torch.save({"model": {f"encoder.{k}": v for k, v in sd.items()}}, path)
+    if case == "missing_tensor":
+        with pytest.raises(KeyError, match="norm.weight"):
+            tvit.load_model(path, model_type, patch, device="cpu")
+        with pytest.raises(KeyError):
+            jvit.load_model(path, model_type, patch)
+        return
+    tm2 = tvit.load_model(path, model_type, patch, device="cpu")
+    torch.testing.assert_close(tm2.model.pos_embed, tm.model.pos_embed, rtol=0, atol=0)
+    assert_close_emb(tvit.get_scene_embeddings(audio, tm2),
+                     jvit.get_scene_embeddings(audio, jvit.load_model(path, model_type,
+                                                                      patch)).numpy())
+
+
+def test_learned_table_is_resized_as_jax():
+    """A learned position table of a 3 x 3 grid goes into a model of a 4 x 6
+    grid resized bicubically, as JAX's interpolate_pos_embed."""
+    from ssl_audio_tpu.utils.torch_import import interpolate_pos_embed
+    from ssl_audio_tpu_torch.models.vit import get_mae_vit
+    from ssl_audio_tpu_torch.utils.weights import load_vit_reference_weights_
+
+    model = get_mae_vit("tiny", (16, 16), img_size=(64, 96), use_learned_pos_embd=True)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    sd["pos_embed"] = torch.randn(1, 10, 192, generator=torch.Generator().manual_seed(0))
+    load_vit_reference_weights_(model, sd)
+    want = interpolate_pos_embed(sd["pos_embed"].numpy(), 25, ckpt_grid=(3, 3),
+                                 target_grid=(4, 6))
+    np.testing.assert_allclose(model.pos_embed.detach().numpy(), want, rtol=0, atol=1e-6)
 
 
 def test_random_weights_are_seeded():

@@ -56,7 +56,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "augment.augmentations", "ops", "tools.step_determinism", "tools.eager_ab",
                  "main_bt_byol", "tools.reproduce", "hear.extract_results",
                  "models.resnet", "models.audiontt", "utils.weights", "hear.pipeline",
-                 "parallel"):
+                 "parallel", "data.cifar10", "augment.cifar", "eval.cifar_knn",
+                 "augment.spec_augment", "augment.mask_conv", "eval.finetune", "evaluate",
+                 "extract_embeddings"):
         assert f"ssl_audio_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

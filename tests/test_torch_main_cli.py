@@ -71,7 +71,7 @@ def test_without_a_card_it_fails_and_prints_no_result(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--fsdp"], ["--model_parallel", "2"],
                                    ["--distributed", "--model_parallel", "2"],
-                                   ["--dataset", "cifar10"], ["--data_axis_size", "3"],
+                                   ["--distributed", "--fsdp"], ["--data_axis_size", "3"],
                                    ["--model_type", "vit_tiny", "--layout_barrier"]])
 def test_deferred_flags_parse_and_raise(flags, tmp_path):
     out = run(tmp_path, "--device", "cpu", *SMALL, *flags)

@@ -406,10 +406,11 @@ def test_deferred_flags_raise():
                dict(profile_dir="x"), dict(squeeze_excitation=True),
                dict(model_type="resnet18"), dict(model_type="resnet50_ReGP_NRF"),
                dict(model_type="vit_base", remat=True), dict(distributed=True),
-               dict(data_axis_size=1)):
+               dict(data_axis_size=1), dict(dataset="cifar10", model_type="vit_tiny")):
         assert unsupported_settings(default_config(**{"dataset": "synthetic_wav", **kw})) == []
     for kw in (dict(data_axis_size=3),
-               dict(model_type="vitc_base", layout_barrier=True), dict(dataset="cifar10"),
+               dict(model_type="vitc_base", layout_barrier=True),
+               dict(dataset="cifar10", model_type="vit_tiny", distributed=True),
                dict(distributed=True, fsdp=True),
                dict(model_type="vit_tiny", layout_barrier=True),
                dict(model_type="vit_base", layout_barrier=True), dict(fsdp=True),
@@ -417,6 +418,9 @@ def test_deferred_flags_raise():
         cfg = default_config(**{"dataset": "synthetic_wav", **kw})
         with pytest.raises(NotImplementedError):
             require_supported(cfg)
+    # the JAX package builds CIFAR-10's encoder from the ViT family only
+    with pytest.raises(ValueError):
+        require_supported(default_config(dataset="cifar10"))
     assert callable(make_train_step(default_config(dataset="synthetic", use_fp16=True)))
     # the BYOL variant is ported: its state holds a target equal to the online net
     byol = init_train_state(default_config(dataset="synthetic", projector_hidden_dim=64),
