@@ -75,7 +75,7 @@ Phases, each of which exits non-zero on failure:
      with fused_conv=True, bit-identical to a model given the trainer's
      encoder in memory (log-mel folded 7, fused forward 7); and a 3-epoch
      learning proof (tools/prove_learning.py: SyntheticMultiCue, batch 128,
-     50 steps per epoch, Adam 1e-3, the probe at init and after each epoch
+     25 steps per epoch, Adam 1e-3, the probe at init and after each epoch
      through Trainer.fit's eval_fn hook), its losses finite and its scores
      in [0, 1], launches counted per step and per probe;
  10. the on-disk data path, in a temporary directory with `data/` in it, as
@@ -175,10 +175,11 @@ Phases, each of which exits non-zero on failure:
      weights: phase 4's requests (log-mel 7 / 1, nothing else), a small
      request against the CPU, bf16 against fp32, ms, clips/s and the share
      of the fp32 operation bound, and the timestamp request from (b)'s
-     model_3.pt bit-identical to the trainer's encoder in memory; (g) A B
-     B A timings on a resident batch: SE against no SE, resnet18, resnet50
-     and resnet50_ReGP_NRF beside AudioNTT2022, ViT-B remat against no
-     remat (ms per step, clips/s, device busy and idle, peak memory).
+     model_3.pt bit-identical to the trainer's encoder in memory; (g)
+     timings in turns on a resident batch (the sides in order, then
+     reversed): SE, resnet18, resnet50 and resnet50_ReGP_NRF beside
+     AudioNTT2022 in one set of turns, ViT-B remat against no remat (ms
+     per step, clips/s, device busy and idle, peak memory).
  15. data-parallel pretraining (--distributed): (a) main under torchrun at
      world size 1 over NCCL at the defaults (AudioNTT2022, batch 128, LARS,
      raw wav in) for an epoch of 8 steps, eagerly and at
@@ -191,10 +192,25 @@ Phases, each of which exits non-zero on failure:
      of 128 and of ViT-B --fused_attention with key-bias masking at 0.75 at
      32, each rank's launches counted (the real kernels with the cross-rank
      sums between their launches), against one process on the global batch
-     with world_scale 2: the loss and the parameters within DP_RTOL, the ranks
-     bit for bit; (c) ms per step under torchrun at world size 1 against one
-     process, eager and graphed (tools/data_parallel.py), beside the card's
-     name and power limit;
+     with world_scale 2: the loss and the parameters within DP_RTOL, the step
+     taken within DP_STEP_RTOL of one process's, the ranks bit for bit; (c)
+     ms per step under torchrun at world size 1 against one process, eager
+     and graphed (tools/data_parallel.py), and eager for
+     DINO AudioNTT2022, BYOL-A --use_fp16 and CIFAR-10 ViT-B at N = 65,
+     beside the card's name and power limit; (d) main_pretrain --method
+     dino and --method byola --use_fp16 (AudioNTT2022, batch 128, log-mels)
+     and main --dataset cifar10 ViT-B --fused_attention at 4x4 patches (a
+     fabricated tree, the kNN monitor on rank 0) under torchrun at world size
+     1 over NCCL for 3 steps, against each alone: the checkpoints bit for
+     bit, the epoch lines equal; (e) one step on two gloo ranks sharing the
+     card against one process: DINO AudioNTT2022 at a global 128, DINO
+     ViT-B --fused_attention with two local crops at 32, CIFAR-10 ViT-B
+     --fused_attention at N = 65 at 32, BYOL-A --use_fp16 at 128; the loss,
+     the DINO centre and the parameters within DP_RTOL (the fused
+     attention's loss DP_FUSED_LOSS_RTOL, bf16 BYOL-A's loss DP_BF16_RTOL
+     and parameters DP_BF16_PARAM_RTOL), the step taken within DP_STEP_RTOL
+     of one process's, each rank's launches a step one
+     process's;
  16. the legacy families through ssl_audio_tpu_torch.main_pretrain's
      LegacyTrainer at full width, batch 128, log-mels in (--dataset
      synthetic), one epoch of LEGACY_EPOCH_STEPS steps each, the counters
@@ -350,7 +366,7 @@ PRETRAIN = {         # phase 9: each run's flags, steps per epoch and launches p
                      {"log_mel_folded": 1, "fused_attention_fwd": 2 * 12,
                       "fused_attention_bwd": 2 * 12})}
 PROOF_FLAGS = ["--dataset", "synthetic_multicue", "--model_type", "audiontt", "--epochs", "3",
-               "--batch_size", "128", "--synthetic_steps_per_epoch", "50",
+               "--batch_size", "128", "--synthetic_steps_per_epoch", "25",
                "--optimizer", "Adam", "--lr", "1e-3"]
 PROOF_STEP = {"fused_conv1_fwd": 2, "fused_conv1_bwd": 2}     # log-mels in: no frontend
 PROOF_PROBE = {"fused_conv1_fwd": 8}   # eval batches of 128: 400 + 200 + 200 clips
@@ -2661,9 +2677,9 @@ def graphs_vs_eager(name: str, flags: list[str], per_step: dict, seed: int,
 def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int,
                           smi: str, byol: bool = False) -> dict:
     """(a)-(d) timed on a batch of 128 seeded 10-s clips resident on the
-    card, in turns (A B B A): eager steps (A, TRAIN_STEPS after two warm-ups per
-    turn) and graphed windows of DISPATCH steps (B, GRAPH_WINDOWS windows per
-    turn after the warm-up window and the capture), ms per step (the median
+    card, in turns (A B B A): eager steps (A, after two warm-ups, as many a
+    turn as a graphed turn's) and graphed windows of DISPATCH steps (B,
+    GRAPH_WINDOWS windows per turn after the warm-up window and the capture), ms per step (the median
     over the windows of a window's host-clock ms / DISPATCH), the capture's
     seconds, peak memory and each side's profile (device busy, idle share,
     the port's kernels the device ran: a replay's must be DISPATCH x the
@@ -2704,7 +2720,7 @@ def graphed_vs_eager_time(name: str, flags: list[str], per_step: dict, seed: int
         if side == "eager":
             torch.cuda.reset_peak_memory_stats()
             base.setdefault("eager", torch.cuda.memory_allocated())
-            times["eager"] += step_wall_ms(eager, TRAIN_STEPS)
+            times["eager"] += step_wall_ms(eager, DISPATCH * GRAPH_WINDOWS)
             peak.setdefault("eager", torch.cuda.max_memory_allocated() - base["eager"])
             continue
         if not multi.graphs:
@@ -2796,18 +2812,25 @@ def phase_graphs(seed: int, smi: str) -> dict:
             sched[(SCHEDULE_EPOCH - 1) * SCHEDULE_STEPS:SCHEDULE_EPOCH * SCHEDULE_STEPS]]
     if keys != SCHEDULE_KEYS:
         raise SystemExit(f"(e): the schedule's len_keep per step is {keys}")
-    out = {"launches": {}, "card": smi}
+    out = {"launches": {}, "card": smi, "seconds": {}}
     for name, (flags, per_step, timed) in GRAPH_CONFIGS.items():
+        t0 = time.perf_counter()
         out[name] = graphs_vs_eager(name, flags, per_step, seed)
         gc.collect()
         torch.cuda.empty_cache()
+        out["seconds"][f"{name[0]}_epochs"] = time.perf_counter() - t0
         if timed:
+            t0 = time.perf_counter()
             out[name]["time"] = graphed_vs_eager_time(name, flags, per_step, seed, smi)
             gc.collect()
             torch.cuda.empty_cache()
+            out["seconds"][f"{name[0]}_time"] = time.perf_counter() - t0
         out["launches"][f"graph_{name}"] = counts_with(**{
             k: v // DISPATCH for k, v in out[name]["launches_per_replay"].items()})
+    t0 = time.perf_counter()
     out["profile_dir"] = profile_dir_trace(seed)
+    out["seconds"]["profile_dir"] = time.perf_counter() - t0
+    print(f"  phase 12 seconds by part: {json.dumps(out['seconds'])}")
     return out
 
 
@@ -2825,7 +2848,7 @@ BYOL_VIT_STEP = {"log_mel_folded": 1, "fused_attention_fwd": 4 * VIT_DEPTH,
                  "fused_attention_bwd": 2 * VIT_DEPTH}
 BYOL_BF16_STEP = {"log_mel_folded": 1, "fused_conv1_fwd_bf16": 4, "fused_conv1_bwd_bf16": 2}
 BYOL_EPOCH_STEPS = 3
-BYOL_TIMED_STEPS = 4   # per turn, A B B A: 8 timed steps of each side
+BYOL_TIMED_STEPS = 2   # per turn, A B B A: 4 timed steps of each side
 EMA_RTOL = 1e-6        # the BYOL target after one step, card vs CPU: the EMA of equal values
 CHAIN_TASKS = ("esc50-v2.0.0-full", "speech_commands-v0.0.2-5h")
 
@@ -3070,7 +3093,7 @@ ZOO_REMAT_BF16_STEP = {"log_mel_folded": 1, "fused_attention_fwd_bf16": 4 * VIT_
                        "fused_attention_bwd_bf16": 2 * VIT_DEPTH}
 ZOO_EPOCH_STEPS = 2
 ZOO_PROBE_SPLITS = {"train": 128, "val": 32, "test": 32}   # the per-epoch probe's tree
-ZOO_TIMED_STEPS = 4      # per turn, A B B A: 8 timed steps a side
+ZOO_TIMED_STEPS = 2      # per turn, A B B A: 4 timed steps a side
 REMAT_RTOL = 1e-6        # remat against no remat: the same kernels on the same values
 ZOO_BF16_RTOL = 2e-2     # bf16 HEAR embeddings against fp32, relative L2 (the CPU tests' ceiling)
 HEAR_RESNETS = ("resnet50", "resnet50_ReGP_NRF")
@@ -3430,11 +3453,9 @@ def phase_zoo(seed: int, dev: torch.device, smi: str) -> dict:
     lap("e")
     # (g) timed, A B B A
     out["g_time"] = {
-        "se": turns_time("SE against no SE", {
-            "audiontt": {}, "audiontt_se": dict(squeeze_excitation=True)}, seed, smi),
-        "resnets": turns_time("the ResNets beside AudioNTT2022", {
-            "audiontt": {}, "resnet18": dict(model_type="resnet18"),
-            "resnet50": dict(model_type="resnet50"),
+        "se_resnets": turns_time("SE and the ResNets beside AudioNTT2022", {
+            "audiontt": {}, "audiontt_se": dict(squeeze_excitation=True),
+            "resnet18": dict(model_type="resnet18"), "resnet50": dict(model_type="resnet50"),
             "resnet50_ReGP_NRF": dict(model_type="resnet50_ReGP_NRF")}, seed, smi),
         "remat": turns_time("ViT-B remat against no remat", {
             "vitb": dict(model_type="vit_base", fused_attention=True, optimizer="AdamW"),
@@ -3455,13 +3476,38 @@ DP_FUSED_LOSS_RTOL = 1e-3   # the loss with the fused attention: the ranks' GEMM
                      # round otherwise in fp32, and the kernels' bf16 operands turn that into
                      # ~1e-4 of the loss (vit_tiny at 16 on an H100: 2.6e-4, its fp32
                      # einsum form 2e-6); the card-vs-CPU step's limit
+DP_BF16_RTOL = 1e-2  # (e) BYOL-A --use_fp16, the loss: the ranks' bf16 roundings of the
+                     # encoder part from one process's (phase 11's loss limit)
+DP_BF16_PARAM_RTOL = 3e-3   # ... its parameters: Adam's first step moves each element by
+                     # lr sign(g), the other way where g is bf16 noise (1.36e-3 on an H100);
+                     # the step is 6.8e-3 of the parameters, so a step not taken fails
+DP_STEP_RTOL = 0.5   # every run: the step the ranks took against one process's step, relative
+                     # L2 (one process's step 1): Adam's sign flips where g is noise, <= 0.2
+                     # measured on an H100 (BYOL-A bf16; fp32 runs <= 0.11); a step not taken,
+                     # or taken on a zero gradient, reads ~1
 DP_TIMED_STEPS = 8   # (c): timed steps a side, eager, and in windows of 4
-DP_RUNS = {          # (b): overrides of train_profile's configuration, global batch, launches,
-                     # the loss's tolerance
-    "dp_audiontt": ({}, 128, WAV_STEP_LAUNCHES, DP_RTOL),
+DP_RUNS = {          # (b), (e): tools/data_parallel.py seeded_step's overrides, global batch,
+                     # launches a step, the loss's and the parameters' tolerances
+    "dp_audiontt": ({}, 128, WAV_STEP_LAUNCHES, DP_RTOL, DP_RTOL),
     "dp_vitb": (dict(model_type="vit_base", fused_attention=True, mask=True, mask_ratio=0.75,
-                     token_drop=False), 32, VIT_STEP, DP_FUSED_LOSS_RTOL),
+                     token_drop=False), 32, VIT_STEP, DP_FUSED_LOSS_RTOL, DP_RTOL),
+    "dp_dino_audiontt": (dict(method="dino"), 128,
+                         {"fused_conv1_fwd": 4, "fused_conv1_bwd": 2}, DP_RTOL, DP_RTOL),
+    "dp_dino_vitb_multicrop": (dict(method="dino", model_type="vit_base", fused_attention=True,
+                                    local_crops_number=2), 32,
+                               {"fused_attention_fwd": 6 * VIT_DEPTH,
+                                "fused_attention_bwd": 4 * VIT_DEPTH},
+                               DP_FUSED_LOSS_RTOL, DP_RTOL),
+    "dp_cifar_vitb_n65": (dict(dataset="cifar10", model_type="vit_base", fused_attention=True,
+                               patch_size=[4, 4]), 32,
+                          {"fused_attention_fwd": 2 * VIT_DEPTH,
+                           "fused_attention_bwd": 2 * VIT_DEPTH}, DP_FUSED_LOSS_RTOL, DP_RTOL),
+    "dp_byola_audiontt_bf16": (dict(method="byola", use_fp16=True), 128,
+                               {"fused_conv1_fwd_bf16": 4, "fused_conv1_bwd_bf16": 2},
+                               DP_BF16_RTOL, DP_BF16_PARAM_RTOL),
 }
+DP_FAMILY_STEPS = 3  # (d): steps of each run
+DP_CIFAR_ROWS = -(-DP_FAMILY_STEPS * TRAIN_BATCH // 5)   # (d): rows of each fabricated batch
 
 
 def start_torchrun(args: list[str], log: str):
@@ -3504,6 +3550,23 @@ def finish_torchrun(proc, log: str, what: str, timeout: int = 300) -> list[str]:
     return lines
 
 
+# (c): tools/data_parallel.py under torchrun, started with (a)'s runs: an
+# interpreter and its imports take ~36 s on the card's host (PR 17), so the
+# process makes them beside (a), (b), (d) and (e) and touches the card only
+# once the caller writes DP_GO (the card is then free); it ends if the
+# caller's directory goes (a phase that failed)
+DP_GO = "dp_go"
+DP_TIMED_SCRIPT = f"""import os, sys, time
+from ssl_audio_tpu_torch.tools import data_parallel
+here = os.getcwd()
+while not os.path.exists(os.path.join(here, {DP_GO!r})):
+    if not os.path.isdir(here):
+        raise SystemExit("phase 15 ended before (c) started")
+    time.sleep(0.05)
+raise SystemExit(data_parallel.main())
+"""
+
+
 def tree_gaps(a, b, path: str = "") -> list[str]:
     """The paths at which two checkpoint trees differ (tensors bit for bit)."""
     if isinstance(a, torch.Tensor):
@@ -3521,32 +3584,50 @@ def tree_gaps(a, b, path: str = "") -> list[str]:
 
 WS1_RUNS = {"eager": ("main", [*DP_FLAGS]), "graphed": ("main", [*DP_FLAGS, *DP_GRAPHED]),
             "byol": ("main_bt_byol", [*DP_FLAGS, *DP_BYOL])}
+DP_LEGACY = ["--model_type", "audiontt", "--dataset", "synthetic", "--batch_size",
+             str(TRAIN_BATCH), "--epochs", "1", "--synthetic_steps_per_epoch",
+             str(DP_FAMILY_STEPS), "--num_workers", "4"]
+WS1_FAMILIES = {     # (d): entry point, flags, the line of the epoch's loss, the checkpoint
+    "dino": ("main_pretrain", ["--method", "dino", *DP_LEGACY], "[dino] epoch 1/1",
+             "results/synthetic/dino_audiontt/model_1.pt"),
+    "byola": ("main_pretrain", ["--method", "byola", "--use_fp16", *DP_LEGACY],
+              "[byola] epoch 1/1", "results/synthetic/byola_audiontt/model_1.pt"),
+    "cifar": ("main", ["--dataset", "cifar10", "--model_type", "vit_base", "--fused_attention",
+                       "--patch_size", "4", "4", "--batch_size", str(TRAIN_BATCH), "--epochs",
+                       "1", "--num_workers", "4"], "Epoch [1/1]", "results/cifar10/*/model_1.pt"),
+}
+WS1_ALL = {**WS1_RUNS, **{n: (entry, flags) for n, (entry, flags, *_) in WS1_FAMILIES.items()}}
 
 
 def start_world_size_1() -> dict:
-    """(a): main --distributed under torchrun at world size 1 (NCCL), eager
-    and graphed, and main_bt_byol --distributed, all started at once in the
-    working directory -> {name: process}."""
+    """(a), (d): main --distributed under torchrun at world size 1 (NCCL),
+    eager and graphed, main_bt_byol --distributed, main_pretrain --method
+    dino / byola --distributed and main on CIFAR-10, all started at once in
+    the working directory -> {name: process}."""
     return {name: start_torchrun(["-m", f"ssl_audio_tpu_torch.{entry}", "--distributed",
                                   *flags, "--save_base_dir", f"dist_{name}", "--name",
                                   f"dist_{name}"], f"dist_{name}")
-            for name, (entry, flags) in WS1_RUNS.items()}
+            for name, (entry, flags) in WS1_ALL.items()}
 
 
 def world_size_1_alone() -> dict:
-    """(a): each entry point alone, in this process -> {name: run_main's result}."""
+    """(a), (d): each entry point alone, in this process -> {name: run_main's
+    result}."""
     from ssl_audio_tpu_torch.main_bt_byol import main as byol_main
+    from ssl_audio_tpu_torch.main_pretrain import main as legacy_main
 
+    entries = {"main": None, "main_bt_byol": byol_main, "main_pretrain": legacy_main}
     return {name: run_main([*flags, "--save_base_dir", f"one_{name}", "--name", f"one_{name}"],
-                           byol_main if entry == "main_bt_byol" else None)
-            for name, (entry, flags) in WS1_RUNS.items()}
+                           entries[entry])
+            for name, (entry, flags) in WS1_ALL.items()}
 
 
 def finish_world_size_1(procs: dict, one: dict) -> dict:
-    """(a): the torchrun runs against the runs alone: the checkpoints
+    """(a), (d): the torchrun runs against the runs alone: the checkpoints
     (parameters, running statistics, optimizer, mixup bank, step,
-    generators; the BYOL target) bit for bit, and the logged losses (the
-    first step's, eagerly) and the epoch's loss line."""
+    generators; the BYOL target; the legacy target and DINO centre) bit for
+    bit, and the epoch's loss line; (a) also the logged losses (the first
+    step's, eagerly); (d) CIFAR-10's kNN monitor line from rank 0."""
     def ran(kind, name):
         (ck,) = glob.glob(f"{kind}_{name}/results/synthetic_wav/*/model_1.pt")
         (log,) = glob.glob(f"logs/training/synthetic_wav/*_{kind}_{name}*/log.csv")
@@ -3555,6 +3636,26 @@ def finish_world_size_1(procs: dict, one: dict) -> dict:
         return torch.load(ck, map_location="cpu", weights_only=True), losses
 
     out = {}
+    for name, (entry, _, line, ckpt) in WS1_FAMILIES.items():
+        lines = finish_torchrun(procs[name], f"dist_{name}", f"{entry} --distributed {name}")
+        (dist_ck,), (one_ck,) = (glob.glob(f"{kind}_{name}/{ckpt}") for kind in ("dist", "one"))
+        gaps = tree_gaps(*(torch.load(p, map_location="cpu", weights_only=True)
+                           for p in (dist_ck, one_ck)))
+        epoch = [next(x for x in ls if x.startswith(line)).split(" data_time")[0]
+                 for ls in (lines, one[name][3])]
+        print(f"  (d) {name}: {entry} --distributed (NCCL, world size 1, {DP_FAMILY_STEPS} "
+              f"steps) against {entry} alone: {len(gaps)} checkpoint entries differ; "
+              f"{epoch[0]} / {epoch[1]}")
+        if gaps or epoch[0] != epoch[1]:
+            raise SystemExit(f"phase 15 (d) {name}: the world-size-1 run departs from one "
+                             f"process: {gaps[:8]}")
+        out[name] = {"checkpoint_entries_differing": 0, "epoch_line": epoch[0],
+                     "steps": DP_FAMILY_STEPS}
+        if name == "cifar":
+            knn = [x for x in lines if "cifar10 kNN" in x]
+            if len(knn) != 1:
+                raise SystemExit(f"phase 15 (d) cifar: rank 0's kNN monitor lines {knn}")
+            out[name]["knn_line"] = knn[0]
     for name, (entry, _) in WS1_RUNS.items():
         lines = finish_torchrun(procs[name], f"dist_{name}", f"{entry} --distributed {name}")
         (dist_ck, dist_loss), (one_ck, one_loss) = ran("dist", name), ran("one", name)
@@ -3576,64 +3677,85 @@ def phase_dp(seed: int, dev: torch.device, smi: str) -> dict:
     """Phase 15: data-parallel pretraining (--distributed).  (a) main under
     torchrun at world size 1 (NCCL), eager and with --steps_per_dispatch 4
     (its all-reduces captured in the graph), and main_bt_byol
-    --stop_gradient --predictor, against each alone, bit for bit; (b) one step of AudioNTT2022 (global batch 128) and of ViT-B
-    --fused_attention (32) on two gloo ranks sharing the card against one
-    process on the global batch (DP_RTOL; the fused attention's loss
-    DP_FUSED_LOSS_RTOL), the ranks bit for bit, each rank's launches
-    counted; (c) ms per step under torchrun at world size 1 against one
-    process, eager and graphed."""
+    --stop_gradient --predictor, against each alone, bit for bit; (b) one
+    step of AudioNTT2022 (global batch 128) and of ViT-B --fused_attention
+    (32) on two gloo ranks sharing the card against one process on the
+    global batch (DP_RTOL; the fused attention's loss DP_FUSED_LOSS_RTOL),
+    the ranks bit for bit, each rank's launches counted; (c) ms per step
+    under torchrun at world size 1 against one process, eager and graphed,
+    and eager for tools/data_parallel.py FAMILY_RUNS; (d) as (a) for WS1_FAMILIES (DINO, BYOL-A
+    bf16, CIFAR-10 with the kNN monitor), DP_FAMILY_STEPS steps each; (e) as
+    (b) for the DINO, BYOL-A and CIFAR-10 runs of DP_RUNS, the DINO centre
+    held too."""
     import gc
 
     from ssl_audio_tpu_torch.tools import data_parallel
+    from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_cifar10
 
     print("phase 15: data parallel (--distributed)")
     out = {"launches": {}, "seconds": {}}
     t0 = time.perf_counter()
-    runs = {name: (overrides, batch) for name, (overrides, batch, _, _) in DP_RUNS.items()}
+    runs = {name: (overrides, batch) for name, (overrides, batch, *_) in DP_RUNS.items()}
     one = {}
 
     def meanwhile():
-        """(a)'s runs alone, then (b)'s one-process references."""
+        """(a)'s and (d)'s runs alone, then (b)'s and (e)'s one-process
+        references."""
         one.update(world_size_1_alone())
+        out["seconds"]["a_d_alone"] = time.perf_counter() - t0
         refs = {}
         for name, (overrides, batch) in runs.items():
             refs[name] = data_parallel.one_process_step(seed, overrides, batch)
             gc.collect()
             torch.cuda.empty_cache()
+        out["seconds"]["b_e_one_process"] = time.perf_counter() - t0
         return refs
 
     with tempfile.TemporaryDirectory() as work, contextlib.chdir(work):
-        # (a) and (b) at once, neither of them timed: (a)'s torchrun processes
-        # and (b)'s two gloo ranks on the card beside this process, which
-        # makes (a)'s runs alone and (b)'s references meanwhile
+        # (a), (b), (d) and (e) at once, none of them timed: the torchrun
+        # processes and the two gloo ranks on the card beside this process,
+        # which makes the runs alone and the references meanwhile
+        fabricate_cifar10("data", DP_CIFAR_ROWS, seed)
         procs = start_world_size_1()
+        with open("dp_timed.py", "w") as f:
+            f.write(DP_TIMED_SCRIPT)
+        timed_proc = start_torchrun(["dp_timed.py", "--distributed", "--seed", str(seed),
+                                     "--steps", str(DP_TIMED_STEPS), "--out", "dp.json"],
+                                    "dp_timed")
         ranks, refs = data_parallel.two_ranks_on_one_card(seed, runs, meanwhile=meanwhile)
-        out["a_world_size_1"] = finish_world_size_1(procs, one)
+        out["seconds"]["b_e_ranks_joined"] = time.perf_counter() - t0
+        out["a_d_world_size_1"] = finish_world_size_1(procs, one)
         del one
         gc.collect()
         torch.cuda.empty_cache()
         out["seconds"]["a_b"] = time.perf_counter() - t0
         # (c) the step under torchrun at world size 1 against one process, alone on the card
         t1 = time.perf_counter()
-        proc = start_torchrun(["-m", "ssl_audio_tpu_torch.tools.data_parallel", "--distributed",
-                               "--seed", str(seed), "--steps", str(DP_TIMED_STEPS),
-                               "--out", "dp.json"], "dp_timed")
-        finish_torchrun(proc, "dp_timed", "the timed steps under torchrun")
+        open(DP_GO, "w").close()
+        finish_torchrun(timed_proc, "dp_timed", "the timed steps under torchrun")
         with open("dp.json") as f:
             dist = json.load(f)
-    alone = data_parallel.timed(seed, DP_TIMED_STEPS, 4)
+    out["seconds"]["c_torchrun"] = time.perf_counter() - t1
+    alone = {**data_parallel.timed(seed, DP_TIMED_STEPS, 4),
+             "families": data_parallel.timed_families(seed, DP_TIMED_STEPS)}
     out["c_time"] = {"card": smi, "world_size_1_nccl": dist, "one_process": alone}
     for k in ("eager", "graphed"):
         print(f"  (c) {k}: {dist[k + '_ms_per_step_median']:.3f} ms a step under torchrun "
               f"(NCCL, world size 1) against {alone[k + '_ms_per_step_median']:.3f} ms in one "
               f"process (batch {alone['global_batch']}; {smi})")
+    for k in data_parallel.FAMILY_RUNS:
+        print(f"  (c) {k}, eager: {dist['families'][k]['eager_ms_per_step_median']:.3f} ms a "
+              f"step under torchrun (NCCL, world size 1) against "
+              f"{alone['families'][k]['eager_ms_per_step_median']:.3f} ms in one process "
+              f"(batch {data_parallel.TIMED_BATCH}; {smi})")
     out["seconds"]["c"] = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
-    # (b) two gloo ranks on the one card against one process
-    out["b_two_ranks"] = {}
-    for name, (_, batch, want, loss_rtol) in DP_RUNS.items():
+    # (b), (e) two gloo ranks on the one card against one process
+    out["b_e_two_ranks"] = {}
+    for name, (_, batch, want, loss_rtol, param_rtol) in DP_RUNS.items():
         (r0, r1), ref = ranks[name], refs[name]
+        part = "b" if name in ("dp_audiontt", "dp_vitb") else "e"
         same = r0["loss"] == r1["loss"] and r0["params_sha256"] == r1["params_sha256"]
         loss_err = abs(r0["loss"] - ref["loss"]) / abs(ref["loss"])
         ref_step = (ref["params"] - ref["params_before"]).double()
@@ -3641,20 +3763,29 @@ def phase_dp(seed: int, dev: torch.device, smi: str) -> dict:
                           / ref["params"].double().norm())
         step_err = float((r0["params"].double() - ref["params_before"].double() - ref_step)
                          .norm() / ref_step.norm())
-        out["b_two_ranks"][name] = {
-            "global_batch": batch, "rows_per_rank": batch // 2, "loss": r0["loss"],
-            "loss_one_process": ref["loss"], "loss_rel_err": loss_err,
-            "params_rel_l2": param_err, "step_taken_rel_l2": step_err,
-            "ranks_bit_for_bit": same, "launches_rank0": r0["launches"],
-            "launches_rank1": r1["launches"], "launches_one_process": ref["launches"]}
-        print(f"  (b) {name}: two gloo ranks x {batch // 2} rows on the card against one "
+        rec = {"global_batch": batch, "rows_per_rank": batch // 2, "loss": r0["loss"],
+               "loss_one_process": ref["loss"], "loss_rel_err": loss_err,
+               "params_rel_l2": param_err, "step_taken_rel_l2": step_err,
+               "ranks_bit_for_bit": same, "launches_rank0": r0["launches"],
+               "launches_rank1": r1["launches"], "launches_one_process": ref["launches"]}
+        center_err = 0.0
+        if ref["center"] is not None:
+            same = same and torch.equal(r0["center"], r1["center"])
+            center_err = float((r0["center"].double() - ref["center"].double()).norm()
+                               / ref["center"].double().norm())
+            rec["center_rel_l2"] = center_err
+        out["b_e_two_ranks"][name] = rec
+        print(f"  ({part}) {name}: two gloo ranks x {batch // 2} rows on the card against one "
               f"process on {batch}: loss {r0['loss']:.6f} / {ref['loss']:.6f} (rel "
               f"{loss_err:.2e}), parameters rel L2 {param_err:.2e} (the step taken "
-              f"{step_err:.2e}), ranks bit for bit {same}")
+              f"{step_err:.2e})" + (f", centre rel L2 {center_err:.2e}"
+                                    if ref["center"] is not None else "")
+              + f", ranks bit for bit {same}")
         for who, r in (("rank 0", r0), ("rank 1", r1), ("one process", ref)):
-            expect(r["launches"], want, 1, f"phase 15 (b) {name} {who}")
-        if not same or loss_err > loss_rtol or param_err > DP_RTOL:
-            raise SystemExit(f"phase 15 (b) {name}: two ranks depart from one process")
+            expect(r["launches"], want, 1, f"phase 15 ({part}) {name} {who}")
+        if (not same or loss_err > loss_rtol or param_err > param_rtol or center_err > DP_RTOL
+                or step_err > DP_STEP_RTOL):
+            raise SystemExit(f"phase 15 ({part}) {name}: two ranks depart from one process")
         out["launches"][name] = r0["launches"]
     del ranks, refs
     gc.collect()

@@ -5,7 +5,10 @@ A flag of a part that is not ported yet still parses; `unsupported_settings`
 names every such setting a Config turns on, and the entry points raise
 NotImplementedError on them before any work starts, so none is silently
 ignored.  `--device` is the port's own flag: "cuda" by default, and with no
-card an entry point raises unless the caller asks for "cpu".
+card an entry point raises unless the caller asks for "cpu".  `--config
+FILE.yaml` (parse_config, JAX config_from_args) reads settings from a yaml
+file under the command line's flags; it needs PyYAML, which the card's
+machine lacks.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import sys
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -234,15 +238,15 @@ def unsupported_settings(cfg: Config) -> List[str]:
         bad.append(f"--data_axis_size {cfg.data_axis_size} (a data axis of other than the "
                    f"world size, {world}: the port runs one process per GPU, so launch N "
                    f"with torchrun --nproc_per_node N ... --distributed; a mesh of devices "
-                   f"inside one process is not ported yet)")
+                   f"inside one process is not ported yet, ROADMAP.md queue A, item 3)")
     for flag, on, what in (
-            ("--model_parallel > 1", cfg.model_parallel != 1, "tensor parallelism"),
-            ("--fsdp", cfg.fsdp, "sharded parameters"),
-            ("--distributed with --dataset cifar10", cfg.distributed and cfg.dataset == "cifar10",
-             "data-parallel CIFAR-10 pretraining"),
-            ("--layout_barrier", bool(cfg.layout_barrier), "an XLA layout option")):
+            ("--model_parallel > 1", cfg.model_parallel != 1,
+             "tensor parallelism not ported yet, ROADMAP.md queue A, item 3"),
+            ("--fsdp", cfg.fsdp, "sharded parameters not ported yet, ROADMAP.md queue A, item 3"),
+            ("--layout_barrier", bool(cfg.layout_barrier),
+             "an XLA layout option, not ported yet: nothing in PyTorch to port it to")):
         if on:
-            bad.append(f"{flag} ({what} not ported yet)")
+            bad.append(f"{flag} ({what})")
     return bad
 
 
@@ -273,8 +277,8 @@ def _add_bool_pair(parser, name, default, negative=None):
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    """The JAX package's flag surface (less its XLA compilation-cache flags
-    and `--config`), plus --device."""
+    """The JAX package's flag surface (less its XLA compilation-cache flags;
+    parse_config adds `--config`), plus --device."""
     p = argparse.ArgumentParser(description="ssl_audio_tpu_torch", add_help=True)
     p.add_argument("--model_type", default="audiontt", type=str, choices=MODELS)
     p.add_argument("--dataset", default="fsd50k", type=str, choices=DATASETS)
@@ -376,9 +380,68 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def config_from_args(argv=None) -> Config:
-    """CLI -> Config with the model-conditional defaults filled in."""
-    args = build_argparser().parse_args(argv)
+# --config: yaml keys of the reference's legacy recipes (old/configs/*.yaml)
+# -> Config fields, as JAX config_from_args maps them (config.py:449-455).
+# batch_size_per_gpu goes to batch_size, the GLOBAL batch in both packages:
+# a quirk copied from JAX
+YAML_ALIASES = (("lambd", "lmbda"), ("base_lr", "lr"), ("batch_size_per_gpu", "batch_size"),
+                ("save_epoch_it", "epoch_save_f"), ("weight_decay", "wd"),
+                ("final_weight_decay", "final_wd"), ("ema_decay", "moving_average_decay"),
+                ("out_dim", "dino_out_dim"))
+
+
+def _yaml_settings(path: str, parser: argparse.ArgumentParser, argv: List[str],
+                   known: set) -> dict:
+    """The Config fields a yaml file sets that the command line does not:
+    nested sections flattened at any depth, YAML_ALIASES applied (an alias
+    that is itself a field, base_lr, keeps its own value too), None values
+    skipped; a flag given in argv wins, found through the parser's option
+    table, so `--no_pool_reorder` beats a yaml `pool_reorder: true`."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ModuleNotFoundError(
+            f"--config {path}: reading a yaml config needs PyYAML (the `yaml` package), "
+            "which is not installed here; give the settings as flags instead",
+            name="yaml") from e
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    flat = {}
+
+    def flatten(node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                flatten(v)
+            else:
+                flat[k] = v
+
+    flatten(raw)
+    for src, dst in YAML_ALIASES:
+        if src in flat and dst not in flat:
+            flat[dst] = flat[src] if src in known else flat.pop(src)
+    opt_to_dest = {s: a.dest for s, a in parser._option_string_actions.items()}
+    explicit = {opt_to_dest.get(a.split("=")[0], a.split("=")[0].lstrip("-"))
+                for a in argv if a.startswith("--")}
+    return {k: v for k, v in flat.items() if k in known and k not in explicit and v is not None}
+
+
+def parse_config(parser: argparse.ArgumentParser, argv=None) -> tuple[argparse.Namespace, dict]:
+    """Parse argv (sys.argv[1:] by default) with `parser` and a `--config`
+    flag -> (the namespace, the Config fields: the flags' values, under
+    which the yaml file of --config is laid)."""
+    parser.add_argument("--config", type=str, default=None,
+                        help="yaml config file; flags on the command line override its values")
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    args = parser.parse_args(argv)
     known = {f.name for f in dataclasses.fields(Config)}
-    return setup_model_defaults(
-        Config(**{k: v for k, v in vars(args).items() if k in known}))
+    fields = {k: v for k, v in vars(args).items() if k in known}
+    if args.config:
+        fields.update(_yaml_settings(args.config, parser, argv, known))
+    return args, fields
+
+
+def config_from_args(argv=None) -> Config:
+    """CLI (and --config's yaml) -> Config with the model-conditional
+    defaults filled in."""
+    _, fields = parse_config(build_argparser(), argv)
+    return setup_model_defaults(Config(**fields))

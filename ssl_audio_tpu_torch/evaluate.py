@@ -18,13 +18,12 @@ Same config flags as main, plus --mode, --model_file_path, --eval_epochs,
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ssl_audio_tpu_torch.config import (
     Config,
     build_argparser,
+    parse_config,
     require_supported,
     setup_model_defaults,
 )
@@ -59,9 +58,8 @@ def main(argv=None) -> float:
     parser.add_argument("--eval_lr", type=float, default=1e-3)
     parser.add_argument("--specaug", action="store_true", default=False)
     parser.add_argument("--eval_mixup", type=float, default=0.0)
-    args = parser.parse_args(argv)
-    known = {f.name for f in dataclasses.fields(Config)}
-    cfg = setup_model_defaults(Config(**{k: v for k, v in vars(args).items() if k in known}))
+    args, fields = parse_config(parser, argv)
+    cfg = setup_model_defaults(Config(**fields))
     require_supported(cfg)          # before any work
 
     from ssl_audio_tpu_torch.data.pipeline import DataLoader

@@ -15,7 +15,6 @@ make_embedding_forward (ViTs unit by unit); it runs on the card unless
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 
 import numpy as np
@@ -24,6 +23,7 @@ import torch
 from ssl_audio_tpu_torch.config import (
     Config,
     build_argparser,
+    parse_config,
     require_supported,
     setup_model_defaults,
 )
@@ -36,9 +36,8 @@ def main(argv=None):
                         choices=["train", "train_val", "val", "test"])
     parser.add_argument("--out_prefix", type=str, required=True)
     parser.add_argument("--eval_crop_frames", type=int, default=711)
-    args = parser.parse_args(argv)
-    known = {f.name for f in dataclasses.fields(Config)}
-    cfg = setup_model_defaults(Config(**{k: v for k, v in vars(args).items() if k in known}))
+    args, fields = parse_config(parser, argv)
+    cfg = setup_model_defaults(Config(**fields))
     require_supported(cfg)          # before any work
 
     from ssl_audio_tpu_torch.data import datasets as D

@@ -16,13 +16,12 @@ card unless `--device cpu` is given.  Orbax checkpoints are not ported yet.
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from ssl_audio_tpu_torch.config import (
     Config,
     build_argparser,
+    parse_config,
     require_supported,
     setup_model_defaults,
 )
@@ -54,9 +53,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--model_file_path", type=str, default="")
     parser.add_argument("--model_name", type=str, default="")
     parser.add_argument("--model_epoch", type=int, default=100)
-    args = parser.parse_args(argv)
-    known = {f.name for f in dataclasses.fields(Config)}
-    cfg = setup_model_defaults(Config(**{k: v for k, v in vars(args).items() if k in known}))
+    args, fields = parse_config(parser, argv)
+    cfg = setup_model_defaults(Config(**fields))
     require_supported(cfg)          # before anything is written
 
     logger = make_csv_logger(f"logs/linear_eval/{cfg.dataset}/{args.model_name}/")

@@ -32,10 +32,12 @@ Data parallel: one process per GPU under torchrun,
 
     torchrun --nproc_per_node N -m ssl_audio_tpu_torch.main --distributed ...
 
-(`--device cpu` joins over gloo).  `--batch_size` is the global batch, the
-run equals one process on that batch (ssl_audio_tpu_torch/parallel), and
-rank 0 alone writes the checkpoints and logs, prints and probes.
-`--data_axis_size` is 0 or the number of processes.
+(`--device cpu` joins over gloo), CIFAR-10 included.  `--batch_size` is
+the global batch, the run equals one process on that batch
+(ssl_audio_tpu_torch/parallel), and rank 0 alone writes the checkpoints and
+logs, prints and probes.  `--data_axis_size` is 0 or the number of
+processes.  `--config FILE.yaml` reads settings from a yaml file first
+(config.py parse_config; flags on the command line win).
 """
 from __future__ import annotations
 

@@ -23,21 +23,33 @@ non-finite loss at any step raises.
 
 Their input is log-mel batches, as in JAX, which feeds the loader's
 batches straight into the views: a dataset of raw waveforms
-(synthetic_wav, audioset_wav) raises ValueError before any work.
---distributed with dino or byola raises NotImplementedError.  Runs on the
-card; without one it raises unless `--device cpu` is given.
+(synthetic_wav, audioset_wav) raises ValueError before any work.  Runs on
+the card; without one it raises unless `--device cpu` is given.
+`--config FILE.yaml` reads settings from a yaml file first (the legacy
+recipes' keys: config.py parse_config); flags on the command line win.
+
+Data parallel, as main: one process per GPU under torchrun,
+
+    torchrun --nproc_per_node N -m ssl_audio_tpu_torch.main_pretrain \\
+        --method dino --distributed ...
+
+`--batch_size` is the global batch (each rank loads its B / N rows), the
+steps take the global batch's statistics, loss and DINO centre
+(train/legacy_steps.py), and rank 0 alone prints, writes the checkpoint and
+runs eval_fn.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 
 import numpy as np
 import torch
 
+from ssl_audio_tpu_torch import parallel
 from ssl_audio_tpu_torch.config import (
     Config,
     build_argparser,
+    parse_config,
     require_supported,
     setup_model_defaults,
 )
@@ -48,12 +60,11 @@ WAV_DATASETS = ("synthetic_wav", "audioset_wav")
 
 def require_legacy_runnable(cfg, method: str) -> None:
     """Raise before any work where a dino / byola run cannot start: a part
-    not ported yet, --distributed, multi-crop DINO on AudioNTT2022
+    not ported yet, multi-crop DINO on AudioNTT2022
     (train/legacy_steps.py require_legacy_supported), or a dataset of raw
     waveforms."""
     from ssl_audio_tpu_torch.train.legacy_steps import require_legacy_supported
 
-    require_supported(cfg)
     require_legacy_supported(cfg, method)
     if cfg.dataset in WAV_DATASETS:
         raise ValueError(
@@ -66,7 +77,11 @@ class LegacyTrainer:
     """The legacy families' epoch loop (JAX main_pretrain.run_legacy): the
     loader over `dataset` (the configured one by default), the state, the
     step and its schedules.  epoch_losses maps each epoch run to the mean
-    of its steps' losses."""
+    of its steps' losses.  In a process group cfg.batch_size is the global
+    batch: each rank's loader yields its B / W rows of it (JAX
+    train/loop.py), and rank 0 alone prints and runs eval_fn; with
+    cfg.distributed outside a process group it raises
+    (parallel.require_joined)."""
 
     def __init__(self, cfg, method: str, dataset=None):
         from ssl_audio_tpu_torch.data.pipeline import DataLoader
@@ -77,11 +92,19 @@ class LegacyTrainer:
         from ssl_audio_tpu_torch.utils.schedules import cosine_scheduler
 
         require_legacy_runnable(cfg, method)
+        parallel.require_joined(cfg)
         self.cfg, self.method = cfg, method
         self.device = resolve_device(cfg.device)
+        self.lead = parallel.rank() == 0
+        world = parallel.world_size()
+        if cfg.batch_size % world:
+            raise ValueError(f"--batch_size {cfg.batch_size} must divide across the "
+                             f"{world} processes")
         dataset = dataset if dataset is not None else get_train_dataset(cfg)
-        self.loader = DataLoader(dataset, cfg.batch_size, num_workers=cfg.num_workers,
-                                 seed=cfg.seed, device=self.device)
+        self.loader = DataLoader(dataset, cfg.batch_size // world, num_workers=cfg.num_workers,
+                                 seed=cfg.seed, device=self.device,
+                                 log=print if self.lead else (lambda *a, **k: None),
+                                 process_index=parallel.rank(), process_count=world)
         self.niter_per_ep = len(self.loader)
         self.state = legacy_steps.init_legacy_state(
             cfg, torch.Generator().manual_seed(cfg.seed), method,
@@ -126,39 +149,57 @@ class LegacyTrainer:
         cfg = self.cfg
         for epoch in range(1, cfg.epochs + 1):
             loss = self.train_one_epoch(epoch)
-            print(f"[{self.method}] epoch {epoch}/{cfg.epochs} loss={loss:.4f}")
+            if self.lead:
+                print(f"[{self.method}] epoch {epoch}/{cfg.epochs} loss={loss:.4f}")
             last = epoch == cfg.epochs
             if eval_fn and not cfg.no_eval and (epoch % cfg.epoch_eval_f == 0 or last):
-                eval_fn(self.state, epoch)
+                if self.lead:
+                    with parallel.local_only():
+                        eval_fn(self.state, epoch)
+                parallel.barrier()
         return self.state
+
 
 def run_legacy(cfg, method: str, dataset=None):
     """dino / byola: the epochs, their lines and the one checkpoint ->
-    the LegacyTrainer."""
-    trainer = LegacyTrainer(cfg, method, dataset)
-    print(f"[{method}] {cfg.model_type} on {cfg.dataset}: {cfg.epochs} epochs x "
-          f"{trainer.niter_per_ep} steps, batch {cfg.batch_size}, {cfg.optimizer}, "
-          f"device {trainer.device}, encoder compute "
-          f"{'bfloat16' if cfg.use_fp16 else 'float32'}")
-    trainer.fit()
-    path = os.path.join(cfg.save_base_dir, f"results/{cfg.dataset}/{method}_{cfg.model_type}",
-                        f"model_{cfg.epochs}.pt")
-    # epoch: where a resumed run would start
-    save_checkpoint(path, trainer.state, cfg.epochs + 1)
-    print(f"Saved {path}")
+    the LegacyTrainer.  With cfg.distributed it joins torchrun's process
+    group first and leaves it at the end."""
+    from ssl_audio_tpu_torch.parallel import init_distributed
+
+    require_legacy_runnable(cfg, method)        # before the process group
+    init_distributed(cfg)
+    try:
+        trainer = LegacyTrainer(cfg, method, dataset)
+        say = print if trainer.lead else (lambda *a, **k: None)
+        world = parallel.world_size()
+        ranks = f" ({world} ranks x {cfg.batch_size // world})" if parallel.is_distributed() \
+            else ""
+        say(f"[{method}] {cfg.model_type} on {cfg.dataset}: {cfg.epochs} epochs x "
+            f"{trainer.niter_per_ep} steps, batch {cfg.batch_size}{ranks}, {cfg.optimizer}, "
+            f"device {trainer.device}, encoder compute "
+            f"{'bfloat16' if cfg.use_fp16 else 'float32'}")
+        trainer.fit()
+        path = os.path.join(cfg.save_base_dir,
+                            f"results/{cfg.dataset}/{method}_{cfg.model_type}",
+                            f"model_{cfg.epochs}.pt")
+        # epoch: where a resumed run would start; rank 0 writes, the others wait
+        save_checkpoint(path, trainer.state, cfg.epochs + 1)
+        say(f"Saved {path}")
+    finally:
+        if cfg.distributed:
+            parallel.destroy()
     return trainer
 
 
 def config_for(argv=None) -> tuple[Config, str]:
-    """CLI -> (Config with the method's recipe and the model defaults, method)."""
+    """CLI (and --config's yaml) -> (Config with the method's recipe and
+    the model defaults, method)."""
     parser = build_argparser()
     parser.add_argument("--method", type=str, default="barlow",
                         choices=["barlow", "dino", "byola"])
-    args = parser.parse_args(argv)
-    known = {f.name for f in dataclasses.fields(Config)}
-    cfg = setup_model_defaults(
-        Config(**{k: v for k, v in vars(args).items() if k in known}),
-        method=None if args.method == "barlow" else args.method)
+    args, fields = parse_config(parser, argv)
+    cfg = setup_model_defaults(Config(**fields),
+                               method=None if args.method == "barlow" else args.method)
     return cfg, args.method
 
 

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ssl_audio_tpu_torch import parallel
+
 NORM_CLIP = 1e-12
 
 
@@ -19,6 +21,7 @@ def byol_loss_fn(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def byol_symmetric_loss(online_pred_1: torch.Tensor, target_proj_2: torch.Tensor,
                         online_pred_2: torch.Tensor, target_proj_1: torch.Tensor) -> torch.Tensor:
-    """Both view assignments, summed per sample, averaged over the batch."""
-    return (byol_loss_fn(online_pred_1, target_proj_2)
-            + byol_loss_fn(online_pred_2, target_proj_1)).mean()
+    """Both view assignments, summed per sample, averaged over the batch
+    (the global batch in a process group)."""
+    return parallel.batch_mean(byol_loss_fn(online_pred_1, target_proj_2)
+                               + byol_loss_fn(online_pred_2, target_proj_1))

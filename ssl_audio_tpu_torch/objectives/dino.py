@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ssl_audio_tpu_torch import parallel
 from ssl_audio_tpu_torch.models.batchnorm import BatchNorm1d
 
 INIT_STD = 0.02      # the head's normal initialiser (JAX DINOHead, dino.py:27)
@@ -97,13 +98,16 @@ def dino_loss(student_views: List[torch.Tensor], teacher_views: List[torch.Tenso
     log_softmax(s / student_temp), same-index pairs skipped, the mean over
     the terms; the centre moves to center * m + (1 - m) * the mean over the
     concatenated teacher views.  The teacher side and the new centre carry
-    no gradient."""
+    no gradient.  In a process group both means run over the global batch
+    (the reference's all-reduced centre, dino.py:380-383; JAX's global
+    batch under GSPMD), so every rank holds the same loss and centre."""
     t_probs = [torch.softmax((t - center) / teacher_temp, dim=-1).detach()
                for t in teacher_views]
     log_p = [torch.log_softmax(s / student_temp, dim=-1) for s in student_views]
-    terms = [torch.mean(torch.sum(-q * lp, dim=-1))
-             for iq, q in enumerate(t_probs) for v, lp in enumerate(log_p) if v != iq]
-    loss = sum(terms) / max(len(terms), 1)
-    batch_center = torch.cat(teacher_views).mean(dim=0, keepdim=True)
+    # per sample, one column a term: their means over the batch in one reduction
+    per_sample = [torch.sum(-q * lp, dim=-1)
+                  for iq, q in enumerate(t_probs) for v, lp in enumerate(log_p) if v != iq]
+    loss = parallel.batch_mean(torch.stack(per_sample, dim=1)).sum() / max(len(per_sample), 1)
+    batch_center = parallel.batch_mean(torch.cat(teacher_views).detach())[None]
     new_center = center * center_momentum + batch_center * (1 - center_momentum)
     return loss, new_center.detach()

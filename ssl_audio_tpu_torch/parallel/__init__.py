@@ -28,9 +28,15 @@ every helper issues its collective.
 The collectives are all_reduce and broadcast only (an all-gather is an
 all-reduce of a zero-padded buffer): gloo refuses some others on CUDA
 tensors, and a CUDA graph captures these with NCCL.
+
+`local_only()` lets one rank compute alone inside a process group (the
+per-epoch probe, the CIFAR-10 kNN monitor): every helper here acts as
+outside one, so that code can issue no collective the other ranks would
+wait for.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Iterable, Optional
 
@@ -38,10 +44,25 @@ import torch
 import torch.distributed as dist
 
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+_alone = False          # inside local_only()
 
 
 def is_distributed() -> bool:
-    return dist.is_available() and dist.is_initialized()
+    return not _alone and dist.is_available() and dist.is_initialized()
+
+
+@contextlib.contextmanager
+def local_only():
+    """Inside, this process computes as if it were alone (world size 1,
+    rank 0, no collective): what one rank runs by itself takes its own
+    batch's statistics and cannot hang the others on an unmatched
+    collective."""
+    global _alone
+    before, _alone = _alone, True
+    try:
+        yield
+    finally:
+        _alone = before
 
 
 def world_size() -> int:
@@ -95,6 +116,17 @@ def init_distributed(cfg, backend: Optional[str] = None) -> None:
     dist.init_process_group(backend, init_method="env://",
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
+
+
+def require_joined(cfg) -> None:
+    """Raise where cfg asks for --distributed but this process has joined
+    no process group: it would train alone on the whole batch.  The entry
+    points join torchrun's group (init_distributed) before they build a
+    trainer."""
+    if getattr(cfg, "distributed", False) and not is_distributed():
+        raise RuntimeError("--distributed: this process has joined no process group; run an "
+                           "entry point under torchrun (it calls init_distributed), or drop "
+                           "--distributed")
 
 
 def destroy() -> None:
@@ -155,6 +187,14 @@ def batch_count(n_local: int) -> int:
     """The number of values a global-batch reduction runs over, from this
     rank's (every rank holds as many rows)."""
     return n_local * world_size()
+
+
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of t over its first axis across the global batch: this
+    rank's sum, summed over ranks (all_reduce_sum, differentiable), over the
+    global count.  One process takes the same sum over the count, so a run
+    at world size 1 is one process bit for bit."""
+    return all_reduce_sum(t.sum(dim=0)) / batch_count(t.shape[0])
 
 
 def broadcast_(tensors: Iterable[torch.Tensor]) -> None:

@@ -8,16 +8,21 @@ times the default pretraining step (AudioNTT2022 at full width, LARS, a
 seeded global batch of 128 10-s clips resident on the card, each of the W
 ranks holding its B / W rows) with the host clock, each step ending in a
 synchronise: eagerly, and in graphed windows of --steps_per_dispatch steps
-(NCCL's all-reduces captured in the graph).  Without --distributed the
-same steps run in one process on the whole batch.  Rank 0 prints one JSON
-line (and writes it to --out).
+(NCCL's all-reduces captured in the graph), then eager steps of the other
+families at a global batch of 128 (FAMILY_RUNS): DINO AudioNTT2022 and
+BYOL-A AudioNTT2022 --use_fp16 on seeded log-mels (train/legacy_steps.py),
+CIFAR-10 ViT-B --fused_attention at 4 x 4 patches (N = 65) on seeded uint8
+images.  Without --distributed the same steps run in one process on the
+whole batch.  Rank 0 prints one JSON line (and writes it to --out).
 
 `two_ranks_on_one_card(...)` runs a step of each given configuration on two
 gloo ranks that share one card (NCCL refuses two ranks on one device; gloo
 takes CUDA tensors): the real kernels run on each rank's rows with the
-cross-rank sums between their launches; each rank's loss, launch counts
-and parameters come back to be held against `one_process_step(...)` on the
-global batch, which the caller may run meanwhile.
+cross-rank sums between their launches; each rank's loss, launch counts,
+parameters (and DINO centre) come back to be held against
+`one_process_step(...)` on the global batch, which the caller may run
+meanwhile.  A configuration's overrides name its family: a "method" (dino,
+byola) or dataset "cifar10" (seeded_step).
 """
 from __future__ import annotations
 
@@ -54,6 +59,72 @@ def rank_rows(t: torch.Tensor) -> torch.Tensor:
 def global_clips(seed: int, n: int, device) -> torch.Tensor:
     return seeded_clips(torch.Generator().manual_seed(seed), n,
                         CLIP_SECONDS * SAMPLE_RATE).to(device)
+
+
+# the other families' timed steps, overrides of seeded_step
+FAMILY_RUNS = {"dino": {"method": "dino"},
+               "byola": {"method": "byola", "use_fp16": True},
+               "cifar": {"dataset": "cifar10", "model_type": "vit_base",
+                         "fused_attention": True, "patch_size": [4, 4]}}
+TIMED_BATCH = 128
+
+
+def seeded_step(seed: int, overrides: dict, global_batch: int, world_scale: float, dev):
+    """-> (state, run, batch): a state with weights drawn from `seed`, this
+    process's rows of a seeded global batch of `global_batch` and
+    run(batch) -> metrics, one step.  overrides with "method" (dino,
+    byola): the legacy step (main_pretrain's recipe, no warm-up, so the
+    first step moves the weights) on seeded log-mels, DINO at teacher
+    temperature 0.04 and momentum 0.996; with dataset "cifar10": the Barlow
+    Twins step on seeded uint8 images; else the default pretraining step
+    (train_profile's) on seeded 10-s clips, at the loss's world_scale."""
+    overrides = dict(overrides)
+    method = overrides.pop("method", None)
+    data = torch.Generator().manual_seed(seed + 3)
+    if method is not None:
+        from ssl_audio_tpu_torch.config import default_config
+        from ssl_audio_tpu_torch.train import legacy_steps
+
+        cfg = default_config(method=method, **{"dataset": "synthetic", "warmup_epochs": 0,
+                                               "batch_size": global_batch, "seed": seed,
+                                               **overrides})
+        state = legacy_steps.init_legacy_state(cfg, torch.Generator().manual_seed(seed), method,
+                                               niter_per_ep=4, device=dev)
+        batch = torch.randn(global_batch, 1, cfg.n_mels, cfg.crop_frames, generator=data)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        step = (legacy_steps.make_dino_train_step if method == "dino"
+                else legacy_steps.make_byola_train_step)(cfg)
+        args = (0.04, 0.996) if method == "dino" else ()
+        return state, lambda b: step(state, b, *args, gen=gen), rank_rows(batch.to(dev))
+    cfg, state, step, gen = seeded_training(seed, dev, world_scale=world_scale,
+                                            batch_size=global_batch, **overrides)
+    if cfg.dataset == "cifar10":
+        batch = torch.randint(0, 256, (global_batch, 32, 32, 3), generator=data,
+                              dtype=torch.uint8).to(dev)
+    else:
+        batch = global_clips(seed, global_batch, dev)
+    masking = {"mask_ratio": cfg.mask_ratio} if cfg.mask else {}
+    return state, lambda b: step(state, b, gen=gen, **masking), rank_rows(batch)
+
+
+def timed_families(seed: int, steps: int) -> dict:
+    """ms per eager step of each family of FAMILY_RUNS, at a global batch
+    of TIMED_BATCH, in this process's group (or alone)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for family, overrides in FAMILY_RUNS.items():
+        state, run, batch = seeded_step(seed, overrides, TIMED_BATCH,
+                                        float(parallel.world_size()), dev)
+        for _ in range(2):                      # warm-up: cuDNN plans, NCCL's communicator
+            run(batch)
+        times = step_wall_ms(lambda: run(batch), steps)
+        out[family] = {"overrides": overrides, "global_batch": TIMED_BATCH,
+                       "rows_per_rank": batch.shape[0],
+                       "eager_ms_per_step_median": statistics.median(times), "eager_ms": times}
+        del state, run, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def timed(seed: int, steps: int, steps_per_dispatch: int) -> dict:
@@ -98,25 +169,24 @@ def _sync(dev: torch.device) -> None:
 
 def step_once(seed: int, overrides: dict, global_batch: int, world_scale: float,
               device=None) -> dict:
-    """One step of the seeded pretraining configuration (train_profile's,
-    with `overrides`) on this process's rows of a seeded global batch of
-    `global_batch` 10-s clips, the launch counters zeroed just before it and
+    """One step of seeded_step's configuration on this process's rows of
+    its seeded global batch, the launch counters zeroed just before it and
     read just after -> {"loss", "launches", "params" (flat, on the host),
-    "params_before" (the same, before the step)}.  device: the card unless
-    "cpu" is asked for (the plain versions: rehearsals)."""
+    "params_before" (the same, before the step), "center" (DINO's after the
+    step, else None)}.  device: the card unless "cpu" is asked for (the
+    plain versions: rehearsals)."""
     dev = resolve_device(device)
-    cfg, state, step, gen = seeded_training(seed, dev, world_scale=world_scale,
-                                            batch_size=global_batch, **overrides)
-    wavs = rank_rows(global_clips(seed, global_batch, dev))
-    masking = {"mask_ratio": cfg.mask_ratio} if cfg.mask else {}
+    state, run, batch = seeded_step(seed, overrides, global_batch, world_scale, dev)
     before = _flat_params(state)
     _sync(dev)
     zero_launch_counts()
-    metrics = step(state, wavs, gen=gen, **masking)
+    metrics = run(batch)
     _sync(dev)
     launches = launch_counts()
+    center = getattr(state, "center", None)
     return {"loss": float(metrics["loss"]), "launches": launches,
-            "params": _flat_params(state), "params_before": before}
+            "params": _flat_params(state), "params_before": before,
+            "center": None if center is None else center.detach().cpu()}
 
 
 def one_process_step(seed: int, overrides: dict, global_batch: int, world: int = 2,
@@ -192,7 +262,8 @@ def main() -> int:
     lead = parallel.rank() == 0
     try:
         result = {"card": smi_line(), "distributed": args.distributed,
-                  **timed(args.seed, args.steps, args.steps_per_dispatch)}
+                  **timed(args.seed, args.steps, args.steps_per_dispatch),
+                  "families": timed_families(args.seed, args.steps)}
     finally:
         parallel.destroy()
     if lead:

@@ -37,6 +37,16 @@ encoder forwards run in bf16 over bf16 copies of the fp32 masters
 
 The input is normalised log-mel batches (B, 1, n_mels, crop_frames), as
 the JAX loop feeds the loader's batches straight into the views.
+
+Data parallel (parallel/, --distributed under torchrun), as the Barlow
+Twins step (train/steps.py): in a process group `batch` is this rank's B / W
+rows of the global batch; the step draws the global batch's random numbers
+and keeps its rows, every BatchNorm (the teacher's and the target's
+included, in the fused block too) takes the global batch's statistics, the
+loss and the DINO centre are means over the global batch, and the gradients
+are averaged over ranks before the optimizer step.  The EMA follows the
+step on every rank, so the targets stay one replica.  The JAX steps run
+the same on the global batch under GSPMD.
 """
 from __future__ import annotations
 
@@ -48,7 +58,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ssl_audio_tpu_torch import parallel
 from ssl_audio_tpu_torch.augment.transforms import draw_pair_views, init_augment_state
+from ssl_audio_tpu_torch.config import require_supported
 from ssl_audio_tpu_torch.models.audiontt import DROPOUT_RATE, AudioNTT2022, init_weights_
 from ssl_audio_tpu_torch.models.batchnorm import BatchNorm1d
 from ssl_audio_tpu_torch.models.resnet import ResNet, init_resnet_weights_
@@ -100,13 +112,12 @@ class LegacyState(TrainState):
 
 
 def require_legacy_supported(cfg, method: str) -> None:
-    """Raise before any work on what the legacy families cannot run here."""
+    """Raise before any work on what the legacy families cannot run here:
+    a setting not ported yet (config.py unsupported_settings) or multi-crop
+    DINO on AudioNTT2022."""
     if method not in METHODS:
         raise ValueError(f"no legacy family {method!r} (one of {', '.join(METHODS)})")
-    if cfg.distributed:
-        raise NotImplementedError(
-            f"--distributed with --method {method}: data-parallel runs of the legacy "
-            "families are not ported yet (ROADMAP.md queue A, item 7)")
+    require_supported(cfg)
     if method == "dino" and cfg.model_type == "audiontt" and cfg.local_crops_number:
         raise ValueError(
             f"--method dino --model_type audiontt --local_crops_number "
@@ -147,16 +158,19 @@ def init_legacy_state(cfg, generator: torch.Generator, method: str, niter_per_ep
     modules.to(device)
     optimizer, scheduler = make_legacy_optimizer(cfg, method, online, niter_per_ep)
     center = (torch.zeros(1, cfg.dino_out_dim, device=device) if method == "dino" else None)
+    aug = init_augment_state(cfg, device=device)
+    # in a process group every rank starts from rank 0's replica
+    parallel.broadcast_([*modules.parameters(), *modules.buffers(), *aug.tensors()])
     return LegacyState(cfg=cfg, step=0, modules=modules, optimizer=optimizer,
-                       scheduler=scheduler, aug=init_augment_state(cfg, device=device),
-                       center=center)
+                       scheduler=scheduler, aug=aug, center=center)
 
 
 def draw_legacy_step(gen: torch.Generator, cfg, batch_shape, encoder, device=None) -> StepDraws:
     """A legacy step's random numbers from `gen`: the views' parameters,
     then one set for every encoder forward of the step (AudioNTT2022's
     dropout keep mask for the global views' frames; a ViT's DropPath keep
-    masks per block where its rate is above 0; nothing for a ResNet)."""
+    masks per block where its rate is above 0; nothing for a ResNet).
+    batch_shape: the global batch's in a process group (_prepare)."""
     B = batch_shape[0]
     views = draw_pair_views(gen, cfg, tuple(batch_shape), device)
     dropout = drop_path = None
@@ -180,18 +194,22 @@ def _encode(run_encoder, draws: StepDraws, v: torch.Tensor, vit: bool) -> torch.
 
 def _prepare(cfg, state: LegacyState, batch, gen, draws):
     """-> (draws, views, vit): the step's draws (drawn from `gen` unless
-    given) and its augmented views; the mixup bank advances."""
+    given; the global batch's, of which train/steps.py _views keeps this
+    rank's rows) and its augmented views; the mixup bank advances."""
     state.modules.train()
     encoder = state.modules["encoder"]
     if draws is None:
-        draws = draw_legacy_step(gen, cfg, tuple(batch.shape), encoder, batch.device)
+        draws = draw_legacy_step(gen, cfg, (parallel.batch_count(batch.shape[0]),
+                                            *batch.shape[1:]), encoder, batch.device)
     draws, views = _views(cfg, state, batch, gen, draws, None)
     return draws, views, isinstance(encoder, MaskedAutoencoderViT)
 
 
 def _update(state: LegacyState, loss: torch.Tensor, step_size: float) -> dict:
-    """The optimizer (and schedule) step on the gradients of `loss`, then
-    the target's EMA towards the updated online parameters."""
+    """The optimizer (and schedule) step on the gradients of `loss`
+    (averaged over ranks in a process group), then the target's EMA towards
+    the updated online parameters."""
+    parallel.all_reduce_grads_(state.optimizer)
     state.optimizer.step()
     if state.scheduler is not None:
         state.scheduler.step()

@@ -21,8 +21,11 @@ and --profile_dir (a torch.profiler trace of steps 10-20 of epoch 1, at
 Data parallel (parallel/, --distributed under torchrun): cfg.batch_size is
 the global batch, each rank's loader yields its B / W rows of it, the steps
 take the global batch's statistics and one gradient, and rank 0 alone
-writes the checkpoints, the CSV log and wandb and runs the per-epoch probe;
-every rank resumes from the same file.
+writes the checkpoints, the CSV log and wandb and runs the per-epoch probe
+(the FSD50K probe, or CIFAR-10's kNN monitor) as if it were alone
+(parallel.local_only); every rank resumes from the same file.  CIFAR-10's
+pickled batches shard per rank like any dataset, through the loader's
+process_index / process_count.
 """
 from __future__ import annotations
 
@@ -151,7 +154,8 @@ def token_drop_len_keep(n_tokens: int, mask_ratio: float) -> Optional[int]:
 
 class Trainer:
     """cfg.device None = the card: without one the Trainer raises unless
-    cfg.device is "cpu".  byol: the BYOL-style variant (main_bt_byol: the
+    cfg.device is "cpu"; with cfg.distributed it raises outside a process
+    group (parallel.require_joined).  byol: the BYOL-style variant (main_bt_byol: the
     target network in the state, make_byol_train_step, the online net's
     mask ratios).  `log` takes every log line (stdout by default);
     with `log_dir` the step and score lines also go to log_dir/log.csv, and
@@ -163,6 +167,7 @@ class Trainer:
     def __init__(self, cfg, byol: bool = False, dataset=None, log=print,
                  log_dir: Optional[str] = None, wandb_run=None, data_dir: str = "data"):
         require_supported(cfg)
+        parallel.require_joined(cfg)
         self.cfg = cfg
         self.byol = byol
         self.log = log
@@ -425,9 +430,11 @@ class Trainer:
                                          ckpt_lib.encode_rng(self.gen, self.host_rng))
                 self.log(f"Saved checkpoint {path}")
             if not cfg.no_eval and (epoch % cfg.epoch_eval_f == 0 or last):
-                # rank 0 alone probes (JAX loop.py:451-466); the others wait
+                # rank 0 alone probes (JAX loop.py:451-466), issuing no
+                # collective the others would wait for; they wait at the barrier
                 if eval_fn and self.lead:
-                    scores = eval_fn(self.state, epoch)
+                    with parallel.local_only():
+                        scores = eval_fn(self.state, epoch)
                     if scores:
                         self._record("epoch,{},step,{},linear_score,{}".format(
                             epoch, self.niter_per_ep * epoch, scores))

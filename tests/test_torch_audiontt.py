@@ -17,11 +17,11 @@ from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022
 from ssl_audio_tpu_torch.utils.weights import audiontt_state_dict_from_jax
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (tests/test_torch_checkpoint.py says why:
-    under the suite's six workers a pool of threads per worker made this
-    file's tests tens of times slower)."""
+    """One torch thread for the module's tests and fixtures
+    (tests/test_torch_checkpoint.py says why: under the suite's six workers a
+    pool of threads per worker made this file's tests tens of times slower)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -46,7 +46,7 @@ EMB_CEIL = 2e-2
 BF16 = torch.bfloat16
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -64,7 +64,7 @@ VIT = dict(dataset="synthetic", model_type="vit_tiny", batch_size=B, crop_frames
 TOKENS = 8            # (64 / 16) x (32 / 16) patches
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -229,7 +229,9 @@ def test_main_pretrain_refuses_wav_data_and_distributed_legacy_runs(tmp_path, mo
     base[base.index("--dataset") + 1:base.index("--dataset") + 1] = ["synthetic_wav"]
     with pytest.raises(ValueError, match="log-mel"):
         main_pretrain.main(["--method", "dino", *base])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # --distributed runs under torchrun (tests/test_torch_dist_train.py); without
+    # its environment it is refused before the process group or any file
+    with pytest.raises(RuntimeError, match="torchrun"):
         main_pretrain.main(["--method", "dino", *SMALL, "--distributed"])
     assert not os.listdir(tmp_path)
 

@@ -32,11 +32,12 @@ SMALL = ["--device", "cpu", "--batch_size", "4", "--crop_frames", "32",
          "--synthetic_steps_per_epoch", "2", "--mixup_n_memory", "12", "--epoch_save_f", "2"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """Each test's torch work on one intra-op thread: the suite runs six
-    workers on the host's cores, where a pool of threads per worker waits on
-    its stragglers at every small op (tens of times slower than one thread)."""
+    """The module's torch work on one intra-op thread, its module fixtures'
+    included (set up before any test's own fixtures): the suite runs six workers
+    on the host's cores, where a pool of threads per worker waits on its
+    stragglers at every small op (tens of times slower than one thread)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -241,8 +241,9 @@ def test_knn_monitor_matches_jax(small_vits, tree, monkeypatch):
 
 def test_routing_and_refusals(small_vits, tree):
     """get_train_dataset reads Cifar10 under data_dir as JAX's does; an
-    encoder other than the ViT family raises ValueError before any work, and
-    --distributed with cifar10 is not ported."""
+    encoder other than the ViT family raises ValueError before any work;
+    --distributed with cifar10 runs (tests/test_torch_dist_train.py), with
+    FSDP it is refused."""
     cfg, jcfg = default_config(**KW, device="cpu"), jax_config(**KW)
     ds, jds = loop.get_train_dataset(cfg, str(tree / "data")), \
         jloop.get_train_dataset(jcfg, str(tree / "data"))
@@ -251,8 +252,9 @@ def test_routing_and_refusals(small_vits, tree):
     for model_type in ("audiontt", "resnet18"):
         with pytest.raises(ValueError, match="ViT family"):
             require_supported(cfg.replace(model_type=model_type))
-    with pytest.raises(NotImplementedError, match="cifar10"):
-        require_supported(cfg.replace(distributed=True))
+    require_supported(cfg.replace(distributed=True))
+    with pytest.raises(NotImplementedError, match="--fsdp"):
+        require_supported(cfg.replace(distributed=True, fsdp=True))
     assert tsteps.pass_sizes(cfg) == [(32, 32)] * 2
     assert tsteps.pass_sizes(cfg.replace(local_crops_number=2), byol=True) == [(32, 32)] * 4
 

@@ -49,9 +49,10 @@ MAIN = ["--device", "cpu", "--dataset", "synthetic_wav", "--batch_size", "8", "-
         "--epoch_save_f", "1", "--no_eval"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (tests/test_torch_checkpoint.py says why)."""
+    """One torch thread for the module's tests and fixtures
+    (tests/test_torch_checkpoint.py says why)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -360,3 +361,51 @@ def test_data_axis_size_is_zero_or_the_world_size(monkeypatch, world, axis, ok):
     else:
         with pytest.raises(NotImplementedError, match="torchrun"):
             require_supported(cfg)
+
+
+def test_local_only_issues_no_collective(monkeypatch):
+    """Inside parallel.local_only() a process of a group computes as if it
+    were alone: rank 0 runs the per-epoch probe and CIFAR-10's kNN monitor
+    inside it, and a collective there, unmatched by the other ranks, would
+    hang them.  Outside it the helpers issue their collectives (a stand-in
+    group of two ranks here, its collectives recorded)."""
+    calls = []
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda: 1)
+    monkeypatch.setattr(torch.distributed, "all_reduce", lambda t: calls.append(t))
+    monkeypatch.setattr(torch.distributed, "barrier", lambda: calls.append("barrier"))
+    x = torch.arange(6.0).reshape(3, 2)
+    parallel.batch_mean(x)
+    assert len(calls) == 1 and parallel.batch_count(3) == 6
+    with parallel.local_only():
+        assert not parallel.is_distributed()
+        assert parallel.world_size() == 1 and parallel.rank() == 0
+        torch.testing.assert_close(parallel.batch_mean(x), x.mean(0))
+        parallel.barrier()
+        parallel.all_reduce_(x)
+    assert len(calls) == 1 and parallel.is_distributed() and parallel.rank() == 1
+
+
+@pytest.mark.parametrize("trainer", ["barlow", "dino", "byola"])
+def test_trainers_refuse_distributed_outside_a_process_group(trainer, tmp_path):
+    """A trainer built with --distributed by a process that joined no group
+    (prove_learning, a script) would train alone on the whole batch: the
+    Trainer and the LegacyTrainer raise first, and so does prove_learning,
+    which builds them; the entry points join torchrun's group before."""
+    from ssl_audio_tpu_torch.main_pretrain import LegacyTrainer
+    from ssl_audio_tpu_torch.tools import prove_learning
+    from ssl_audio_tpu_torch.train.loop import Trainer
+
+    method = None if trainer == "barlow" else trainer
+    cfg = default_config(method=method, device="cpu", dataset="synthetic", batch_size=8,
+                         synthetic_steps_per_epoch=2, crop_frames=32, distributed=True)
+    flags = ["--device", "cpu", "--dataset", "synthetic", "--batch_size", "8",
+             "--synthetic_steps_per_epoch", "2", "--crop_frames", "32", "--distributed",
+             *(["--method", method] if method else [])]
+    assert not parallel.is_distributed()
+    with pytest.raises(RuntimeError, match="joined no process group"):
+        Trainer(cfg) if trainer == "barlow" else LegacyTrainer(cfg, trainer)
+    with pytest.raises(RuntimeError, match="joined no process group"):
+        prove_learning.main([*flags, "--epochs", "1", "--out", str(tmp_path / "p.json")])
+    assert not (tmp_path / "p.json").exists()

@@ -23,9 +23,10 @@ SMALL = ["--device", "cpu", "--dataset", "fsd50k", "--batch_size", "4", "--crop_
          "--mixup_n_memory", "12"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One intra-op thread: the suite runs six workers on the host's cores."""
+    """One intra-op thread for the module's tests and fixtures: the suite runs
+    six workers on the host's cores."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

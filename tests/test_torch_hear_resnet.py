@@ -37,9 +37,10 @@ EMB_RTOL = 1e-4
 CHUNK = 32
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (tests/test_torch_checkpoint.py says why)."""
+    """One torch thread for the module's tests and fixtures
+    (tests/test_torch_checkpoint.py says why)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

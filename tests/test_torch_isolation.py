@@ -1,6 +1,8 @@
 """The port (ssl_audio_tpu_torch) and chip_smoke.py stand alone: they import
 torch and never jax or anything of the JAX package ssl_audio_tpu, nor
-scikit-learn or PyYAML (the card's machine has neither), name no path
+scikit-learn or PyYAML (the card's machine has neither; the one exception
+is `--config`'s reader in config.py, which imports PyYAML when called and
+names the package when it is missing), name no path
 under the JAX side's native/ or ssl_audio_tpu/ (the port builds its own
 copies of the C++ readers), and chip_smoke.py refuses to run without a CUDA
 device or without the repo."""
@@ -72,16 +74,43 @@ def _imported_roots(path: Path):
             yield node.module
 
 
+def _guarded_yaml_imports(path: Path) -> int:
+    """The number of `import yaml` statements of `path`, each of which must
+    sit in a function, inside a try whose handler catches ImportError."""
+    n = 0
+
+    def visit(node, in_function, guarded):
+        nonlocal n
+        if isinstance(node, ast.Import) and any(a.name.split(".")[0] == "yaml"
+                                                for a in node.names):
+            assert in_function and guarded, (path, node.lineno)
+            n += 1
+        for child in ast.iter_child_nodes(node):
+            catches = isinstance(node, ast.Try) and child in node.body and any(
+                isinstance(h.type, ast.Name) and h.type.id in ("ImportError",
+                                                               "ModuleNotFoundError")
+                for h in node.handlers)
+            visit(child, in_function or isinstance(node, ast.FunctionDef),
+                  guarded or catches)
+
+    visit(ast.parse(path.read_text()), False, False)
+    return n
+
+
 def test_sources_name_no_jax_import():
     """Every import statement of the port and of chip_smoke.py, lazy ones
     included: the `ssl_audio_tpu_torch` prefix must not pass for
-    `ssl_audio_tpu`."""
+    `ssl_audio_tpu`.  PyYAML only in config.py's `--config` reader, imported
+    when it is called, an ImportError caught there."""
     files = sorted((REPO / "ssl_audio_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    config = REPO / "ssl_audio_tpu_torch" / "config.py"
     for f in files:
         for name in _imported_roots(f):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                "ssl_audio_tpu", "yaml", "sklearn"), (f, name)
+                                "ssl_audio_tpu", "sklearn"), (f, name)
+            assert root != "yaml" or f == config, (f, name)
+    assert _guarded_yaml_imports(config) == 1
 
 
 JAX_SIDE_DIRS = ("native", "ssl_audio_tpu")

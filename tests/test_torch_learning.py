@@ -34,11 +34,12 @@ EMB_TOL = 1e-4      # embeddings, fp32 through four layers in two frameworks
 SCORE_TOL = 1e-6    # the probe's test mAP from the same start
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """Each test's torch work on one intra-op thread: the suite runs six
-    workers on the host's cores, where a pool of threads per worker waits on
-    its stragglers at every small op (tens of times slower than one thread)."""
+    """The module's torch work on one intra-op thread, its module fixtures'
+    included (set up before any test's own fixtures): the suite runs six workers
+    on the host's cores, where a pool of threads per worker waits on its
+    stragglers at every small op (tens of times slower than one thread)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -235,7 +236,7 @@ def test_prove_learning_tool_writes_the_jax_record(tmp_path, capsys):
     assert saved["resolved_config"]["dataset"] == "synthetic_multicue"
     assert "probe@init=" in capsys.readouterr().out
     # a legacy family's run that cannot start here raises before training
-    with pytest.raises(NotImplementedError, match="item 7"):
-        prove_learning.main(["--device", "cpu", "--method", "dino", "--distributed",
+    with pytest.raises(NotImplementedError, match="--fsdp"):
+        prove_learning.main(["--device", "cpu", "--method", "dino", "--fsdp",
                              "--dataset", "synthetic_multicue", "--batch_size", "8",
                              "--synthetic_steps_per_epoch", "2", "--out", str(out)])

@@ -45,10 +45,10 @@ TABLE_RTOL = 1e-6    # the fp32 table against the float64 factor and JAX's fp32 
 MIXUP_TOL = 1e-6     # fp32 exp / log of the same values in another library
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (the suite runs six workers on the host's
-    cores; tests/test_torch_checkpoint.py says why)."""
+    """One torch thread for the module's tests and fixtures (the suite runs six
+    workers on the host's cores; tests/test_torch_checkpoint.py says why)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

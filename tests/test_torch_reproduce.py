@@ -24,9 +24,10 @@ from tests.test_reproduce import fabricate_tree
 TASKS = [t for group in extract_results.TASKS.values() for t in group]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (tests/test_torch_checkpoint.py says why)."""
+    """One torch thread for the module's tests and fixtures
+    (tests/test_torch_checkpoint.py says why)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -94,11 +95,11 @@ def test_aggregation_is_the_jax_aggregation(tmp_path):
 
 @pytest.mark.parametrize("method", ["dino", "byola"])
 def test_legacy_methods_raise(tmp_path, method):
-    """A legacy family's run that cannot start (here --distributed) raises
-    before any stage writes."""
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """A legacy family's run that cannot start (here --fsdp) raises before
+    any stage writes."""
+    with pytest.raises(NotImplementedError, match="--fsdp"):
         reproduce.main(["--root", str(tmp_path), "--method", method, "--device", "cpu",
-                        "--extra_pretrain_args", "--distributed"])
+                        "--extra_pretrain_args", "--fsdp"])
     assert not os.listdir(tmp_path)
 
 

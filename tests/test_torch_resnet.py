@@ -39,9 +39,10 @@ SAME_TOL = 1e-9      # float64 against float64: the same function in other summa
 TRAIN_FP32_TOL = 1e-3   # the port's fp32 train-mode output against the float64 witness
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (tests/test_torch_checkpoint.py says why)."""
+    """One torch thread for the module's tests and fixtures
+    (tests/test_torch_checkpoint.py says why)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -51,9 +51,10 @@ B, L = 4, 8000
 SE_ZERO_GRAD = ("features.0.bias", "features.5.bias")
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (tests/test_torch_checkpoint.py says why)."""
+    """One torch thread for the module's tests and fixtures
+    (tests/test_torch_checkpoint.py says why)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

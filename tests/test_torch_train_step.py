@@ -49,11 +49,11 @@ from ssl_audio_tpu_torch.utils.weights import lars_state_from_jax, train_state_d
 from tests.test_torch_augment import jax_pair_draws
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (tests/test_torch_checkpoint.py says why:
-    under the suite's six workers a pool of threads per worker made this
-    file's tests tens of times slower)."""
+    """One torch thread for the module's tests and fixtures
+    (tests/test_torch_checkpoint.py says why: under the suite's six workers a
+    pool of threads per worker made this file's tests tens of times slower)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -406,11 +406,12 @@ def test_deferred_flags_raise():
                dict(profile_dir="x"), dict(squeeze_excitation=True),
                dict(model_type="resnet18"), dict(model_type="resnet50_ReGP_NRF"),
                dict(model_type="vit_base", remat=True), dict(distributed=True),
-               dict(data_axis_size=1), dict(dataset="cifar10", model_type="vit_tiny")):
+               dict(data_axis_size=1), dict(dataset="cifar10", model_type="vit_tiny"),
+               dict(dataset="cifar10", model_type="vit_tiny", distributed=True)):
         assert unsupported_settings(default_config(**{"dataset": "synthetic_wav", **kw})) == []
     for kw in (dict(data_axis_size=3),
                dict(model_type="vitc_base", layout_barrier=True),
-               dict(dataset="cifar10", model_type="vit_tiny", distributed=True),
+               dict(dataset="cifar10", model_type="vit_tiny", distributed=True, fsdp=True),
                dict(distributed=True, fsdp=True),
                dict(model_type="vit_tiny", layout_barrier=True),
                dict(model_type="vit_base", layout_barrier=True), dict(fsdp=True),

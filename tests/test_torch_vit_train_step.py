@@ -51,11 +51,11 @@ from tests.test_torch_train_step import STATS, port_draws
 from tests.test_torch_vit import JaxDraws
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_intra_op_thread():
-    """One torch thread per test (tests/test_torch_checkpoint.py says why:
-    under the suite's six workers a pool of threads per worker made this
-    file's tests tens of times slower)."""
+    """One torch thread for the module's tests and fixtures
+    (tests/test_torch_checkpoint.py says why: under the suite's six workers a
+    pool of threads per worker made this file's tests tens of times slower)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

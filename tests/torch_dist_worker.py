@@ -5,10 +5,14 @@ so a rank starts without JAX; the tests compute the JAX side in their own
 process and compare.
 
 A job is {"checks": [(name, kwargs), ...], "vit_sizes": {...} or None,
-"ports": [free ports]}.  Every check takes its inputs as the GLOBAL batch
-(numpy), keeps this rank's contiguous rows and returns numpy arrays and
-floats.  Checks named "main:*" call an entry point under --distributed in
-the job's directory; each initialises and ends its own process group.
+"ports": [free ports], "more": bool}.  Every check takes its inputs as the
+GLOBAL batch (numpy), keeps this rank's contiguous rows and returns numpy
+arrays and floats.  Checks named "main:*" call an entry point under
+--distributed in the job's directory; each initialises and ends its own
+process group.  With "more", the ranks go on to the checks that
+`post_more(out_dir, checks, last)` hands them, batch by batch, as the
+caller makes their inputs (while the ranks started and ran the first
+ones), until the last batch.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import contextlib
 import glob
 import os
 import socket
+import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -43,10 +48,40 @@ def spawn(job: dict, out_dir: str, world: int = WORLD, meanwhile=None) -> list:
         if meanwhile is not None:
             meanwhile()
     finally:
+        if job.get("more") and not glob.glob(_more_path(out_dir, "*", True)):
+            post_more(out_dir, [])          # the ranks must not wait for ever
         while not ctx.join():
             pass
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
+
+
+def _more_path(out_dir: str, n, last: bool) -> str:
+    return os.path.join(out_dir, f"more.{n}{'.last' if last else ''}.pt")
+
+
+def post_more(out_dir: str, checks: list, last: bool = True) -> None:
+    """Hands the ranks of a job with "more" a batch of further checks; they
+    wait for another batch until the one posted with `last`."""
+    n = len(glob.glob(_more_path(out_dir, "*", False)))
+    path = _more_path(out_dir, n, last)
+    torch.save(checks, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _checks(job: dict, out_dir: str):
+    """The job's checks, then (with "more") those post_more hands over."""
+    yield from job["checks"]
+    n = 0
+    while job.get("more"):
+        paths = [_more_path(out_dir, n, last) for last in (False, True)]
+        while not any(map(os.path.exists, paths)):
+            time.sleep(0.05)
+        last = os.path.exists(paths[1])
+        yield from torch.load(paths[last], weights_only=False)
+        if last:
+            return
+        n += 1
 
 
 def rows(a, rank: int, world: int):
@@ -82,7 +117,7 @@ def _rank_main(rank: int, world: int, path: str, out_dir: str) -> None:
     _env(rank, world, next(ports))
     parallel.init_distributed(SimpleNamespace(distributed=True, device="cpu"))
     try:
-        for name, kwargs in job["checks"]:
+        for name, kwargs in _checks(job, out_dir):
             if not name.startswith("main:"):
                 results[name] = CHECKS[name.split("#")[0]](rank, world, **kwargs)
     finally:
@@ -175,15 +210,43 @@ def check_attention(rank, world, qkv, key_bias, dout, heads):
     return {"out": _np(out), "dqkv": _np(q.grad), "dbias": _np(kb.grad)}
 
 
+@contextlib.contextmanager
+def replayed_views(rank, world, given, gaps, relative=False):
+    """Inside, the steps make their own views (the mixup bank advances) and
+    then run on given["views"] (global numpy arrays, this rank's rows)
+    when it is not None, recording the largest gap between the two in
+    `gaps` (relative to the given views' largest value when `relative`):
+    the audio pair's and CIFAR-10's."""
+    from ssl_audio_tpu_torch.train import steps as tsteps
+
+    apply_pair, apply_cifar = tsteps.apply_pair_views, tsteps.apply_cifar_pair_views
+
+    def replay(ours):
+        if given.get("views") is None:
+            return ours
+        theirs = [_t(rows(v, rank, world)) for v in given["views"]]
+        gaps.append(max(float((a - b).abs().max() / (b.abs().max() if relative else 1.0))
+                        for a, b in zip(ours, theirs)))
+        return theirs
+
+    tsteps.apply_pair_views = lambda *a: replay(apply_pair(*a))
+    tsteps.apply_cifar_pair_views = lambda *a: replay(apply_cifar(*a))
+    try:
+        yield
+    finally:
+        tsteps.apply_pair_views, tsteps.apply_cifar_pair_views = apply_pair, apply_cifar
+
+
 def check_steps(rank, world, kw, state_dict, steps, byol=False, stats=(-4.95, 5.855),
                 world_scale=None):
     """Training steps on this rank's rows from `state_dict` (a TrainState's
-    state_dict(), the same on every rank): each step {"wav": global (B, L),
-    "draws": global StepDraws or None, "gen_seed": int (when draws is None),
-    "views": global views to run on instead of the port's own (the port's
-    are made first, the bank advances), "mask_ratio", "len_keep"}.  ->
-    per step the metrics, the gap of the port's views to the given ones and
-    the state_dict() after it.  world_scale: the loss's, W by default."""
+    state_dict(), the same on every rank): each step {"batch": global (B, L)
+    wavs, or (B, 32, 32, 3) uint8 images for cifar10, "draws": global
+    StepDraws or None, "gen_seed": int (when draws is None), "views": global
+    views to run on instead of the port's own (the port's are made first,
+    the bank advances), "mask_ratio", "len_keep"}.  -> per step the
+    metrics, the gap of the port's views to the given ones and the
+    state_dict() after it.  world_scale: the loss's, W by default."""
     from ssl_audio_tpu_torch.config import default_config
     from ssl_audio_tpu_torch.train import steps as tsteps
     from ssl_audio_tpu_torch.train.state import init_train_state
@@ -193,33 +256,48 @@ def check_steps(rank, world, kw, state_dict, steps, byol=False, stats=(-4.95, 5.
                              device="cpu")
     state.load_state_dict(state_dict)
     factory = tsteps.make_byol_train_step if byol else tsteps.make_train_step
+    frontend = None if cfg.dataset == "cifar10" else tsteps.make_device_frontend(cfg, stats)
     step = factory(cfg, world_scale=float(world if world_scale is None else world_scale),
-                   frontend=tsteps.make_device_frontend(cfg, stats))
-    apply_pair_views, given, gaps = tsteps.apply_pair_views, {}, []
-
-    def replay(batch, aug, cfg_, draws):
-        ours = apply_pair_views(batch, aug, cfg_, draws)
-        if given.get("views") is None:
-            return ours
-        theirs = [_t(rows(v, rank, world)) for v in given["views"]]
-        gaps.append(max(float((a - b).abs().max()) for a, b in zip(ours, theirs)))
-        return theirs
-
-    tsteps.apply_pair_views = replay
-    out = []
-    try:
-        gen = None
+                   frontend=frontend)
+    given, gaps, out, gen = {}, [], [], None
+    with replayed_views(rank, world, given, gaps):
         for s in steps:
             given["views"] = s.get("views")
             if s.get("draws") is None and gen is None:
                 gen = torch.Generator().manual_seed(s["gen_seed"])
-            metrics = step(state, _t(rows(s["wav"], rank, world)), gen=gen,
+            metrics = step(state, _t(rows(s["batch"], rank, world)), gen=gen,
                            draws=s.get("draws"), mask_ratio=s.get("mask_ratio", 0.0),
                            len_keep=s.get("len_keep"))
             out.append({"metrics": {k: float(v) for k, v in metrics.items()},
                         "state": _cpu(state.state_dict())})
-    finally:
-        tsteps.apply_pair_views = apply_pair_views
+    return {"steps": out, "view_gaps": gaps}
+
+
+def check_legacy_steps(rank, world, kw, method, state_dict, steps, niter=2):
+    """DINO or BYOL-A steps (train/legacy_steps.py) on this rank's rows of
+    log-mel batches from a LegacyState's `state_dict`: each step {"batch":
+    global (B, 1, n_mels, T), "draws" or "gen_seed", "views" as check_steps,
+    "scalars": DINO's (teacher_temp, teacher_momentum)} -> per step the loss
+    and the state_dict() after it, and the views' relative gaps."""
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.train import legacy_steps
+
+    cfg = default_config(method=method, **kw, device="cpu")
+    state = legacy_steps.init_legacy_state(cfg, torch.Generator().manual_seed(0), method,
+                                           niter_per_ep=niter, device="cpu")
+    state.load_state_dict(state_dict)
+    step = (legacy_steps.make_dino_train_step if method == "dino"
+            else legacy_steps.make_byola_train_step)(cfg)
+    given, gaps, out, gen = {}, [], [], None
+    with replayed_views(rank, world, given, gaps, relative=True):
+        for s in steps:
+            given["views"] = s.get("views")
+            if s.get("draws") is None and gen is None:
+                gen = torch.Generator().manual_seed(s["gen_seed"])
+            metrics = step(state, _t(rows(s["batch"], rank, world)), *s.get("scalars", ()),
+                           gen=gen, draws=s.get("draws"))
+            out.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                        "state": _cpu(state.state_dict())})
     return {"steps": out, "view_gaps": gaps}
 
 
@@ -251,4 +329,4 @@ def run_main(argv, cwd, byol=False, resume_glob=None):
 
 CHECKS = {"batchnorm": check_batchnorm, "fused_block": check_fused_block,
           "bt_loss": check_bt_loss, "mixup": check_mixup, "attention": check_attention,
-          "steps": check_steps}
+          "steps": check_steps, "legacy_steps": check_legacy_steps}
