@@ -245,6 +245,23 @@ Phases, each of which exits non-zero on failure:
      (c) extract_embeddings of the FSD50K test split (711-frame crops: block 1
      unfused, nothing launched); (d) CUDA-event medians of a CIFAR ViT-B step
      at N = 65 and N = 5, an AudioNTT2022 finetune step and a linear step.
+ 18. The hyperparameter sweep and the FLOP counter: (a) python -m
+     ssl_audio_tpu_torch.run_hyperparameter_sweep --dataset fsd50k on a
+     fabricated FSD50K tree (SWEEP_SPLITS), AudioNTT2022 at the defaults,
+     batch 128, --tune lr wd, SWEEP_TRIALS trials of SWEEP_EPOCHS epochs of 3
+     steps (train + val rows) with the linear probe after each epoch (the built-in search: the
+     card's machine has no optuna); the trials' parameters must equal
+     sample_space(np.random.default_rng(0), ["lr", "wd"]), every score must
+     lie in (0, 1], every step must launch fused forward 2 / backward 2
+     (log-mel 0: log-mels in) and every probe the eval instantiation once a
+     batch; the pruning decisions are printed and each step is timed by
+     CUDA events; (b) utils/flops.py model_flops of AudioNTT2022 and ViT-B at
+     batch 128 must equal 128 closed-form counts of one forward (the
+     multiply-adds of each layer, written out by hand).
+     The Orbax reader (utils/orbax.py, tools/convert_checkpoint.py) has no
+     card phase: the card's machine has no tensorstore and no checkpoint
+     the JAX package wrote, and what the converter writes is the port's
+     `.pt`, which phases 9 and 16 load.
 Phase 3 also holds the attention kernels at DINO's local crops (N = 2, the
 ViT-B 16x16 crop; N = 3, the vitc 16x8 crop) and at CIFAR-10's ViT-B (N = 5
 and N = 65, with a zero and a random key bias), and phase 11 their bf16
@@ -1870,27 +1887,12 @@ def wall_ms(fn, reps: int = 3) -> list[float]:
 
 
 def unit_flops(model: torch.nn.Module, unit: torch.Tensor) -> float:
-    """FLOPs of one forward of `model` on a batch-1 unit: 2 x the
-    multiply-adds of every Conv2d and Linear (from a forward's output
-    shapes) and of the attention's two products (2 N^2 C per block)."""
-    macs = []
+    """FLOPs of one forward of a ViT on a batch-1 unit: 2 x utils/flops.py
+    forward_macs (every Conv2d and Linear from a forward's output shapes,
+    the attention's two products, 2 N^2 C per block)."""
+    from ssl_audio_tpu_torch.utils.flops import forward_macs
 
-    def conv(mod, inp, out):
-        macs.append(out.numel() * mod.in_channels // mod.groups * mod.weight[0, 0].numel())
-
-    def linear(mod, inp, out):
-        macs.append(out.numel() * mod.in_features)
-
-    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else linear)
-             for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
-    try:
-        with torch.no_grad():
-            tokens = model(unit, return_all=True)
-    finally:
-        for h in hooks:
-            h.remove()
-    n, c = tokens.shape[1], tokens.shape[2]
-    return 2.0 * (sum(macs) + len(model.blocks) * 2 * n * n * c)
+    return 2.0 * forward_macs(model, unit, return_all=True)
 
 
 def phase_serving_vit(gen: torch.Generator, dev: torch.device, smi: str) -> dict:
@@ -3116,25 +3118,12 @@ def deterministic_cudnn():
 
 
 def conv_unit_flops(model: torch.nn.Module, unit: torch.Tensor) -> float:
-    """FLOPs of one forward of a conv encoder on a batch-1 unit: 2 x the
-    multiply-adds of every Conv2d and Linear, from the forward's shapes."""
-    macs = []
+    """FLOPs of one forward of a conv encoder on a batch-1 unit: 2 x
+    utils/flops.py forward_macs (every Conv2d and Linear, from the
+    forward's shapes)."""
+    from ssl_audio_tpu_torch.utils.flops import forward_macs
 
-    def conv(mod, inp, out):
-        macs.append(out.numel() * mod.in_channels // mod.groups * mod.weight[0, 0].numel())
-
-    def linear(mod, inp, out):
-        macs.append(out.numel() * mod.in_features)
-
-    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else linear)
-             for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
-    try:
-        with torch.no_grad():
-            model(unit)
-    finally:
-        for h in hooks:
-            h.remove()
-    return 2.0 * sum(macs)
+    return 2.0 * forward_macs(model, unit)
 
 
 def zoo_epoch(flags: list[str], per_step: dict, what: str, seed: int, entry=None,
@@ -4410,6 +4399,162 @@ def phase_cifar_eval(seed: int, dev: torch.device, smi: str, ckpt: str | None = 
     return out
 
 
+SWEEP_TRIALS = 3
+SWEEP_EPOCHS = 2
+# pretraining reads train + val (3 steps an epoch); the probe each split (4 batches)
+SWEEP_SPLITS = {"train": 2 * TRAIN_BATCH, "val": TRAIN_BATCH, "test": TRAIN_BATCH}
+SWEEP_TUNE = ["lr", "wd"]
+
+
+def audiontt_macs(T: int) -> int:
+    """AudioNTT2022 on (1, 1, 64, T), by hand: conv 3x3 1->64 at 64 x T,
+    conv 3x3 64->64 at 32 x T/2, fc 1024 -> 2048 -> 2048 over T/4 frames."""
+    return 64 * 64 * T * 9 + 64 * 32 * (T // 2) * 9 * 64 + (T // 4) * (1024 * 2048 + 2048 * 2048)
+
+
+def vit_macs(C: int, depth: int, grid, patch) -> int:
+    """A ViT without conv stem on one clip, by hand: the patch projection,
+    per block qkv (3 C^2), proj (C^2) and the MLP (8 C^2) per token, and the
+    two attention products (2 N^2 C) over N = 1 + patches tokens."""
+    n = grid[0] * grid[1]
+    N = n + 1
+    return n * C * patch[0] * patch[1] + depth * (12 * C * C * N + 2 * N * N * C)
+
+
+def phase_sweep(seed: int, smi: str) -> dict:
+    """Phase 18 (see the module docstring): the sweep's trials on the
+    card, every step and probe counted, and the FLOP counter against the hand
+    counts."""
+    from ssl_audio_tpu_torch import run_hyperparameter_sweep as sweep
+    from ssl_audio_tpu_torch.config import default_config
+    from ssl_audio_tpu_torch.tools.bench_pipeline import fabricate_fsd50k
+    from ssl_audio_tpu_torch.train import loop
+    from ssl_audio_tpu_torch.utils.flops import model_flops
+
+    per_epoch = (SWEEP_SPLITS["train"] + SWEEP_SPLITS["val"]) // TRAIN_BATCH
+    print(f"phase 18: the hyperparameter sweep (fsd50k, AudioNTT2022, batch {TRAIN_BATCH}, "
+          f"--tune {' '.join(SWEEP_TUNE)}, {SWEEP_TRIALS} trials x {SWEEP_EPOCHS} epochs x "
+          f"{per_epoch} steps) and the FLOP counter")
+    out = {"card": smi, "launches": {}, "seconds": {}, "cuts": {"fsd50k_rows": SWEEP_SPLITS}}
+    t_phase = time.perf_counter()
+    steps, probes, decisions = [], [], []
+    make_step, probe_score, pruner = loop.make_train_step, sweep.probe_score, sweep.median_pruner
+
+    def counted_factory(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted(*a, **kw):
+            torch.cuda.synchronize()
+            before = launch_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = step(*a, **kw)
+            end.record()
+            end.synchronize()
+            steps.append((counts_minus(launch_counts(), before), start.elapsed_time(end)))
+            return result
+        return counted
+
+    def counted_probe(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = launch_counts()
+        score = probe_score(*args, **kwargs)
+        torch.cuda.synchronize()
+        probes.append((counts_minus(launch_counts(), before), score))
+        return score
+
+    def recorded_pruner(trials, *a, **kw):
+        cb = pruner(trials, *a, **kw)
+
+        def decide(trial, epoch):
+            keep = cb(trial, epoch)
+            decisions.append({"trial": trial.number, "epoch": epoch, "kept": keep})
+            return keep
+        return decide
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        fabricate_fsd50k("data", SWEEP_SPLITS["train"], TRAIN_FRAMES, seed,
+                         n_val=SWEEP_SPLITS["val"], n_test=SWEEP_SPLITS["test"], n_classes=200,
+                         max_labels=3)
+        out["seconds"]["tree"] = time.perf_counter() - t0
+        loop.make_train_step, sweep.probe_score = counted_factory, counted_probe
+        sweep.median_pruner = recorded_pruner
+        try:
+            best, secs, launches, lines = run_entry(sweep, [
+                "--dataset", "fsd50k", "--n_trials", str(SWEEP_TRIALS), "--train_epochs",
+                str(SWEEP_EPOCHS), "--tune", *SWEEP_TUNE, "--batch_size", str(TRAIN_BATCH),
+                "--num_workers", "4", "--seed", str(seed)])
+        finally:
+            loop.make_train_step, sweep.probe_score = make_step, probe_score
+            sweep.median_pruner = pruner
+        with open("logs/hparams/fsd50k/audiontt/intermediate_values.csv") as f:
+            rows = f.read().splitlines()
+        saved = json.load(open("sweep_results.json"))
+    out["seconds"]["sweep"] = secs
+    rng = np.random.default_rng(0)
+    want = [sweep.sample_space(rng, SWEEP_TUNE) for _ in range(SWEEP_TRIALS)]
+    got = [line for line in lines if line.startswith("[trial")]
+    print(f"  (a) trial parameters, sample_space(default_rng(0)): {json.dumps(want)}")
+    for line in got:
+        print(f"  (a) {line}")
+    if len(got) != SWEEP_TRIALS or any(f"params={w}" not in line for w, line in zip(want, got)):
+        raise SystemExit(f"(a) the trials' parameters are not JAX's draws: {got}")
+    pruned = sum(1 for line in got if " PRUNED " in line)
+    n_probes = len(probes)
+    if len(steps) != n_probes * per_epoch or n_probes < SWEEP_TRIALS \
+            or n_probes > SWEEP_TRIALS * SWEEP_EPOCHS:
+        raise SystemExit(f"(a) {len(steps)} steps and {n_probes} probes "
+                         f"({pruned} trials pruned)")
+    want_step = counts_with(**STEP_LAUNCHES)
+    bad = [c for c, _ in steps if c != want_step]
+    if bad:
+        raise SystemExit(f"(a) {len(bad)} of {len(steps)} steps launched other than "
+                         f"{STEP_LAUNCHES}: {bad[:2]}")
+    batches = sum(-(-n // TRAIN_BATCH) for n in SWEEP_SPLITS.values())
+    per_probe = {"fused_conv1_fwd": batches}
+    for counts, _ in probes:
+        expect(counts, per_probe, 1, "(a) a probe")
+    expect(counts_minus(launches, scaled(STEP_LAUNCHES, len(steps))), per_probe, n_probes,
+           "(a) the sweep besides its steps")
+    scores = [s for _, s in probes]
+    if not all(0.0 < s <= 1.0 for s in scores) or saved != best or \
+            not any(line.startswith("BEST: ") for line in lines):
+        raise SystemExit(f"(a) scores {scores}, best {best}, saved {saved}")
+    ms = [t for _, t in steps]
+    out["launches"]["sweep_step"] = steps[0][0]           # each step's, all held equal above
+    out["launches"]["sweep_probe"] = probes[0][0]
+    out["a_sweep"] = {"trials": want, "scores": scores, "pruning": decisions, "best": best,
+                      "csv_rows": rows, "steps": len(steps), "probes": n_probes,
+                      "launches_per_step": STEP_LAUNCHES, "launches_per_probe": per_probe,
+                      "step_ms": ms, "step_ms_median": statistics.median(ms),
+                      "step_ms_median_after_first_of_each_trial": statistics.median(
+                          [t for i, t in enumerate(ms) if i % (SWEEP_EPOCHS * per_epoch)]),
+                      "timer": "CUDA events around each step", "seconds": secs}
+    print(f"  (a) scores {scores}; pruning {json.dumps(decisions)}; best {json.dumps(best)}")
+    print(f"  (a) each of {len(steps)} steps launched {STEP_LAUNCHES}, each of {n_probes} "
+          f"probes {per_probe}; step ms (CUDA events) median "
+          f"{out['a_sweep']['step_ms_median']:.3f}, all {[round(t, 3) for t in ms]}, {smi}")
+
+    # (b) the FLOP counter against the closed forms of one forward
+    t0 = time.perf_counter()
+    flops_b = {
+        "audiontt": (model_flops(default_config(), TRAIN_BATCH)["flops_per_batch"],
+                     TRAIN_BATCH * 2 * audiontt_macs(TRAIN_FRAMES)),
+        "vit_base": (model_flops(default_config(model_type="vit_base"),
+                                 TRAIN_BATCH)["flops_per_batch"],
+                     TRAIN_BATCH * 2 * vit_macs(768, 12, (4, TRAIN_FRAMES // 16), (16, 16)))}
+    for name, (counted, hand) in flops_b.items():
+        if counted != hand:
+            raise SystemExit(f"(b) {name}: model_flops {counted} != hand count {hand}")
+    out["b_flops"] = {k: {"model_flops": v[0], "hand_count": v[1]} for k, v in flops_b.items()}
+    print(f"  (b) FLOPs at batch {TRAIN_BATCH}: {json.dumps(out['b_flops'])}")
+    out["seconds"]["flops"] = time.perf_counter() - t0
+    out["seconds"]["phase"] = time.perf_counter() - t_phase
+    print(f"  phase 18 seconds by part: {json.dumps(out['seconds'])}")
+    return out
+
+
 def seeded_checkpoint(seed: int, dev: torch.device) -> str:
     """A checkpoint of the seeded AudioNTT2022 train state at the defaults,
     in the working directory (phase 17 alone, without phase 9's)."""
@@ -4486,6 +4631,9 @@ def main() -> int:
                                   os.path.join(keep.name, "pretrain_audiontt.pt"))
     keep.cleanup()
     print(f"  phase 17: {time.perf_counter() - t17:.1f} s")
+    t18 = time.perf_counter()
+    sweep = phase_sweep(args.seed, smi)
+    print(f"  phase 18: {time.perf_counter() - t18:.1f} s")
     next(k for k in kernels if k["name"] == "log_mel_folded")["converter_shape"] = \
         disk["convert_mel_row"]
     # launches on the main paths, per path (timestamp request, scene request,
@@ -4507,15 +4655,15 @@ def main() -> int:
     # crops and of BYOL-A --use_fp16, and the DINO checkpoint's probe; phase
     # 17: one CIFAR-10 step at N = 65 (fp32, bf16) and N = 5, each kNN
     # monitor, one classifier step and one prediction batch of each
-    # evaluate run, extract_embeddings) and
-    # in all
+    # evaluate run, extract_embeddings; phase 18: one step of a sweep trial
+    # and one probe) and in all
     kernels += bf16_rows
     by_path = {**serving["launches"], "train": training["launches"],
                "train_vit": training_vit["launches"], **serving_vit["launches"],
                **evaluation["launches"], **pretraining["launches"], **disk["launches"],
                **bf16["launches"], **graphs["launches"], **byol["launches"],
                **zoo["launches"], **dp["launches"], **legacy["launches"],
-               **cifar_eval["launches"]}
+               **cifar_eval["launches"], **sweep["launches"]}
     for entry in kernels:
         entry["launches_by_path"] = {p: c[entry["name"]] for p, c in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())

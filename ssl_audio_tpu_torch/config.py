@@ -238,11 +238,11 @@ def unsupported_settings(cfg: Config) -> List[str]:
         bad.append(f"--data_axis_size {cfg.data_axis_size} (a data axis of other than the "
                    f"world size, {world}: the port runs one process per GPU, so launch N "
                    f"with torchrun --nproc_per_node N ... --distributed; a mesh of devices "
-                   f"inside one process is not ported yet, ROADMAP.md queue A, item 3)")
+                   f"inside one process is not ported yet, ROADMAP.md queue A, item 1)")
     for flag, on, what in (
             ("--model_parallel > 1", cfg.model_parallel != 1,
-             "tensor parallelism not ported yet, ROADMAP.md queue A, item 3"),
-            ("--fsdp", cfg.fsdp, "sharded parameters not ported yet, ROADMAP.md queue A, item 3"),
+             "tensor parallelism not ported yet, ROADMAP.md queue A, item 1"),
+            ("--fsdp", cfg.fsdp, "sharded parameters not ported yet, ROADMAP.md queue A, item 1"),
             ("--layout_barrier", bool(cfg.layout_barrier),
              "an XLA layout option, not ported yet: nothing in PyTorch to port it to")):
         if on:

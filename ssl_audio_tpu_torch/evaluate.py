@@ -11,7 +11,8 @@ Datasets, read under `data/`: fsd50k (train against val), audioset (the
 balanced train segments against the eval segments), synthetic (seeded
 random log-mels, no data).  The encoder is grafted from the checkpoint by
 utils.checkpoint.load_encoder_checkpoint, so a legacy DINO / BYOL-A
-checkpoint loads too; an empty path evaluates the seeded initial weights.
+checkpoint loads too, and so does a directory the JAX package wrote (Orbax);
+an empty path evaluates the seeded initial weights.
 Same config flags as main, plus --mode, --model_file_path, --eval_epochs,
 --eval_lr, --specaug and --eval_mixup; it runs on the card unless
 `--device cpu` is given.  Prints "<mode> best val score: <score>".

@@ -8,8 +8,8 @@ the JAX package): a dataset split -> `<out_prefix>_X.npy` (embeddings) and
 
 Datasets, read under `data/`: fsd50k (--split train|train_val|val|test, crops
 of --eval_crop_frames frames, 711 by default), audioset, synthetic.  The
-encoder is grafted from the checkpoint (utils.checkpoint.
-load_encoder_checkpoint) and run through eval/linear.py
+encoder is grafted from the checkpoint (the port's .pt, a .pth or a JAX
+Orbax directory: utils.checkpoint.load_encoder_checkpoint) and run through eval/linear.py
 make_embedding_forward (ViTs unit by unit); it runs on the card unless
 `--device cpu` is given.
 """

@@ -25,8 +25,13 @@ A reference `.pth` (or a training checkpoint of the port) loads as the
 JAX importer reads one (utils/weights.py load_reference_weights_): the
 tensors the encoder needs, shapes checked, the file's others ignored, a
 missing one a KeyError; for the ResNets a ResNet-D file's projection too.
-Not ported yet: Orbax checkpoints raise NotImplementedError.  As in JAX,
-there is no SE option here: AudioNTT2022 serves without SE blocks.
+A directory written by the JAX package (Orbax: a whole train state, a
+params-only save or the importer's tree) loads as the JAX wrapper reads
+it (hear/conv.py:115-128): its encoder's parameters and running
+statistics, through utils/orbax.py and utils/weights.py
+load_encoder_from_jax_; it needs tensorstore, and where that is absent the
+ImportError gives the converter's command.  As in JAX, there is no SE
+option here: AudioNTT2022 serves without SE blocks.
 """
 from __future__ import annotations
 
@@ -48,7 +53,13 @@ from ssl_audio_tpu_torch.models.audiontt import AudioNTT2022, init_weights_
 from ssl_audio_tpu_torch.models.precision import cast_params_, compute_dtype as _dtype_of
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram
 from ssl_audio_tpu_torch.utils import resolve_device
-from ssl_audio_tpu_torch.utils.weights import load_reference_state_dict, load_reference_weights_
+from ssl_audio_tpu_torch.utils.orbax import is_orbax_dir, read_orbax_tree
+from ssl_audio_tpu_torch.utils.weights import (
+    encoder_trees_from_jax,
+    load_encoder_from_jax_,
+    load_reference_state_dict,
+    load_reference_weights_,
+)
 
 
 class ConvModelWrapper:
@@ -91,10 +102,10 @@ class ConvModelWrapper:
             init = init_weights_ if self.model_type == "audiontt" else resnet.init_resnet_weights_
             init(self.model, torch.Generator().manual_seed(0))
             return
-        if not model_file_path.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{model_file_path}: only reference-layout .pth checkpoints "
-                "load into the port (Orbax checkpoints are not ported yet)")
+        if is_orbax_dir(model_file_path):
+            load_encoder_from_jax_(self.model, *encoder_trees_from_jax(
+                read_orbax_tree(model_file_path), model_file_path))
+            return
         load_reference_weights_(self.model, load_reference_state_dict(model_file_path))
 
     @torch.no_grad()

@@ -31,7 +31,12 @@ name and shape, its fixed sin-cos table kept whatever the file holds, the
 file's other keys (a classifier head, an MAE decoder) ignored, and a
 missing tensor a KeyError.
 
-Not ported yet: Orbax checkpoints raise NotImplementedError.
+A directory written by the JAX package (Orbax: a whole train state, a
+params-only save or the importer's tree) loads as the JAX wrapper reads it
+(hear/vit.py:95-110): the encoder's parameters (and a ConvStem's running
+statistics) under the same rule as a `.pth`, through utils/orbax.py and
+utils/weights.py load_encoder_from_jax_; it needs tensorstore, and where
+that is absent the ImportError gives the converter's command.
 """
 from __future__ import annotations
 
@@ -53,7 +58,10 @@ from ssl_audio_tpu_torch.models.precision import cast_params_, compute_dtype as 
 from ssl_audio_tpu_torch.models.vit import get_mae_vit, init_vit_weights_
 from ssl_audio_tpu_torch.ops.mel import MelSpec, log_mel_spectrogram
 from ssl_audio_tpu_torch.utils import resolve_device
+from ssl_audio_tpu_torch.utils.orbax import is_orbax_dir, read_orbax_tree
 from ssl_audio_tpu_torch.utils.weights import (
+    encoder_trees_from_jax,
+    load_encoder_from_jax_,
     load_reference_state_dict,
     load_vit_reference_weights_,
 )
@@ -89,10 +97,10 @@ class ViTModelWrapper:
             # the JAX wrapper's model.init(key 0), drawn from a torch generator
             init_vit_weights_(self.model, torch.Generator().manual_seed(0))
             return
-        if not model_file_path.endswith((".pth", ".pt")):
-            raise NotImplementedError(
-                f"{model_file_path}: only reference-layout .pth checkpoints "
-                "load into the port (Orbax checkpoints are not ported yet)")
+        if is_orbax_dir(model_file_path):
+            load_encoder_from_jax_(self.model, *encoder_trees_from_jax(
+                read_orbax_tree(model_file_path), model_file_path))
+            return
         load_vit_reference_weights_(self.model, load_reference_state_dict(model_file_path))
 
     @torch.no_grad()

@@ -5,14 +5,15 @@ package).
         --model_file_path results/fsd50k/<run>/model_100.pt --model_name myrun
 
 Loads the encoder of a checkpoint written by `ssl_audio_tpu_torch.main`
-(`model_{epoch}.pt`, or a params-only / reference-layout `.pth`, through
+(`model_{epoch}.pt`, a params-only / reference-layout `.pth`, or a
+directory the JAX package wrote with Orbax, through
 utils.checkpoint.load_encoder_checkpoint; an empty path probes the seeded
 initial weights, as the reference does), extracts embeddings of FSD50K
 under `data/` with 711-frame crops, fits the MLP probe, and writes the score
 and the 5-per-class low-shot score to
 `logs/linear_eval/{dataset}/{model_name}/log.csv`.  Same config flags as
 main, plus --model_file_path, --model_name and --model_epoch; it runs on the
-card unless `--device cpu` is given.  Orbax checkpoints are not ported yet.
+card unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -40,10 +41,6 @@ def load_model(cfg, model_file_path: str):
     the weights drawn from cfg.seed when model_file_path is empty)."""
     state = init_train_state(cfg, torch.Generator().manual_seed(cfg.seed), device=cfg.device)
     if model_file_path:
-        if not model_file_path.endswith((".pt", ".pth")):
-            raise NotImplementedError(
-                f"{model_file_path}: only the port's .pt checkpoints and .pth state dicts "
-                "load here (Orbax checkpoints are not ported yet)")
         ckpt_lib.load_encoder_checkpoint(model_file_path, state)
     return state.modules["encoder"]
 

@@ -59,6 +59,10 @@ def pretrain(argv=None, byol: bool = False):
     cfg = config_from_args(argv)
     require_supported(cfg)          # before anything is written
     if cfg.resume_path and not os.path.isfile(cfg.resume_path):
+        if os.path.isdir(cfg.resume_path):
+            raise ValueError(f"--resume_path {cfg.resume_path} is a directory (a JAX Orbax "
+                             "checkpoint?): convert it first with python -m "
+                             "ssl_audio_tpu_torch.tools.convert_checkpoint --to pt")
         raise FileNotFoundError(f"--resume_path {cfg.resume_path}: no such checkpoint file")
     init_distributed(cfg)
     lead = parallel.rank() == 0     # in a process group rank 0 alone writes and prints

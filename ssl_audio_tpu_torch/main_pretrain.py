@@ -17,7 +17,9 @@ setup_model_defaults(method=...)): the teacher temperature per epoch
 teacher momentum per iteration on a cosine from --momentum_teacher to 1,
 and one checkpoint, results/{dataset}/{method}_{model_type}/model_{epochs}.pt
 (the port's format; linear, the HEAR wrappers and the eval stack read its
-encoder through utils/checkpoint.py load_encoder_checkpoint).  Each epoch
+encoder through utils/checkpoint.py load_encoder_checkpoint).
+`--resume_path FILE.pt` continues from a checkpoint of the same flags, one
+converted from a JAX run's (tools/convert_checkpoint.py --to pt) included.  Each epoch
 prints `[{method}] epoch e/E loss=...` (the epoch's last step) and a
 non-finite loss at any step raises.
 
@@ -143,11 +145,24 @@ class LegacyTrainer:
         self.epoch_losses[epoch] = float(vals.mean())
         return float(vals[-1])
 
-    def fit(self, eval_fn=None):
-        """Epochs 1..cfg.epochs, each with its line; unless cfg.no_eval,
+    def fit(self, eval_fn=None, resume_path: str = ""):
+        """Epochs 1..cfg.epochs, each with its line, or from the epoch a
+        checkpoint at `resume_path` names (the state restored, and the
+        step's generator where the file holds one: a file that
+        tools/convert_checkpoint.py made from a JAX checkpoint does, this
+        trainer's own final file does not); unless cfg.no_eval,
         eval_fn(state, epoch) every epoch_eval_f epochs and at the last."""
+        from ssl_audio_tpu_torch.utils.checkpoint import decode_rng, load_checkpoint
+
         cfg = self.cfg
-        for epoch in range(1, cfg.epochs + 1):
+        start = 1
+        if resume_path:
+            _, start, rng = load_checkpoint(resume_path, self.state)
+            if rng is not None:
+                self.gen = decode_rng(rng, self.device)[0]
+            if self.lead:
+                print(f"Resumed from {resume_path} at epoch {start}")
+        for epoch in range(start, cfg.epochs + 1):
             loss = self.train_one_epoch(epoch)
             if self.lead:
                 print(f"[{self.method}] epoch {epoch}/{cfg.epochs} loss={loss:.4f}")
@@ -178,7 +193,7 @@ def run_legacy(cfg, method: str, dataset=None):
             f"{trainer.niter_per_ep} steps, batch {cfg.batch_size}{ranks}, {cfg.optimizer}, "
             f"device {trainer.device}, encoder compute "
             f"{'bfloat16' if cfg.use_fp16 else 'float32'}")
-        trainer.fit()
+        trainer.fit(resume_path=cfg.resume_path)
         path = os.path.join(cfg.save_base_dir,
                             f"results/{cfg.dataset}/{method}_{cfg.model_type}",
                             f"model_{cfg.epochs}.pt")

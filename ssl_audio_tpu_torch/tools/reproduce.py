@@ -287,7 +287,9 @@ def main(argv=None) -> dict:
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--epoch_save_f", type=int, default=20)
     p.add_argument("--name", default="repro")
-    p.add_argument("--ckpt", default="", help="skip pretrain, use this checkpoint")
+    p.add_argument("--ckpt", default="",
+                   help="skip pretrain, use this checkpoint (the port's .pt, a reference .pth "
+                        "or a JAX Orbax directory)")
     p.add_argument("--no_eval", action="store_true", default=False,
                    help="disable the per-epoch FSD50K probe during pretrain")
     p.add_argument("--fast_mel", action="store_true", default=False)

@@ -3,7 +3,7 @@ get_eval_loaders and probe_score of the root run_hyperparameter_sweep.py;
 reference sweep.py:165-275): embeddings of the eval splits through the
 encoder, then a pure linear readout (the MLP probe with no hidden layer, 100
 epochs, early stopping) or the weighted-cosine kNN, scored on the test
-split.  The sweep's search loop is not ported yet.
+split.  The search loop around it is ssl_audio_tpu_torch/run_hyperparameter_sweep.py.
 
 The JAX tools set CLASSES[...] on the imported module at run time; here the
 class count is an argument of probe_score.

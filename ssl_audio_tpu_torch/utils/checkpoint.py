@@ -33,9 +33,14 @@ _STATE_KEYS = ("model", "optimizer", "scheduler", "augment", "step")
 
 def encode_rng(gen: torch.Generator, host_rng: np.random.Generator) -> dict:
     """(device generator, numpy PCG64 generator) -> {"device_generator": its
-    state as a uint8 tensor, "host_pcg64": six ints}: the 128-bit PCG64 state
-    and increment split into 64-bit words (low first), has_uint32 and
-    uinteger, the words the JAX encode_rng writes."""
+    state as a uint8 tensor, "host_pcg64": host_words(host_rng)}."""
+    return {"device_generator": gen.get_state(), "host_pcg64": host_words(host_rng)}
+
+
+def host_words(host_rng: np.random.Generator) -> list:
+    """A numpy PCG64 generator -> six ints: the 128-bit state and increment
+    split into 64-bit words (low first), has_uint32 and uinteger, the words
+    the JAX encode_rng writes (and its `<checkpoint>.rng.npz` holds)."""
     st = host_rng.bit_generator.state
     if st["bit_generator"] != "PCG64":
         raise ValueError(f"only PCG64 host generators are stored, not {st['bit_generator']}")
@@ -44,16 +49,21 @@ def encode_rng(gen: torch.Generator, host_rng: np.random.Generator) -> dict:
     def split128(v: int) -> list:
         return [v & mask, (v >> 64) & mask]
 
-    words = (split128(st["state"]["state"]) + split128(st["state"]["inc"])
-             + [int(st["has_uint32"]), int(st["uinteger"])])
-    return {"device_generator": gen.get_state(), "host_pcg64": words}
+    return (split128(st["state"]["state"]) + split128(st["state"]["inc"])
+            + [int(st["has_uint32"]), int(st["uinteger"])])
 
 
 def decode_rng(tree: dict, device=None) -> tuple[torch.Generator, np.random.Generator]:
     """encode_rng's dict -> (a generator on `device` in the saved state, the
-    host generator).  `device` must be of the type the state was saved from."""
+    host generator).  `device` must be of the type the state was saved from.
+    A dict with "device_seed" in place of "device_generator" (a file
+    converted from a JAX checkpoint, tools/convert_checkpoint.py) seeds a
+    generator on any device with it."""
     gen = torch.Generator(device=device)
-    gen.set_state(tree["device_generator"])
+    if "device_generator" in tree:
+        gen.set_state(tree["device_generator"])
+    else:
+        gen.manual_seed(int(tree["device_seed"]))
     w = [int(x) for x in tree["host_pcg64"]]
     host = np.random.default_rng(0)
     host.bit_generator.state = {
@@ -157,6 +167,22 @@ def _same_training_layout(state, ck: dict) -> bool:
             and (state.scheduler is None) == (ck["scheduler"] is None))
 
 
+def _load_orbax_encoder(path: str, state):
+    """load_encoder_checkpoint of a JAX Orbax directory: the encoder grafted
+    from any layout weights.encoder_trees_from_jax accepts.  A whole train
+    state goes to the port through tools/convert_checkpoint.py --to pt."""
+    from ssl_audio_tpu_torch.utils import weights
+    from ssl_audio_tpu_torch.utils.orbax import read_orbax_tree
+
+    params, stats = weights.encoder_trees_from_jax(read_orbax_tree(path), path)
+    try:
+        weights.load_encoder_from_jax_(state.modules["encoder"], params, stats)
+    except (KeyError, ValueError, TypeError) as e:
+        raise ValueError(f"the checkpoint's encoder does not match the configured model "
+                         f"({path}): {e}") from e
+    return state
+
+
 def load_encoder_checkpoint(path: str, state):
     """Restore `state` (a TrainState) from a checkpoint for its encoder.
 
@@ -166,8 +192,15 @@ def load_encoder_checkpoint(path: str, state):
     run with another head or optimizer, or a legacy DINO / BYOL-A state,
     whose online encoder.* is taken and its target.* left): its names,
     shapes and dtypes must equal the encoder's, else ValueError names the
-    differences.
+    differences.  From a directory written by the JAX package (Orbax) only
+    the encoder is grafted (utils/orbax.py; the layouts of weights.py
+    encoder_trees_from_jax); it needs tensorstore, and where that is absent
+    the ImportError gives the converter's command.
     FileNotFoundError for a missing file."""
+    from ssl_audio_tpu_torch.utils.orbax import is_orbax_dir
+
+    if is_orbax_dir(path):
+        return _load_orbax_encoder(path, state)
     ck = _read(path)
     if _same_training_layout(state, ck):
         state.load_state_dict(ck)

@@ -31,6 +31,8 @@ _PREFIXES = ("backbone.encoder.encoder.", "backbone.encoder.",
 
 
 def _t(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):              # a bfloat16 leaf of utils/orbax.py
+        return x.detach().float().clone()
     return torch.from_numpy(np.array(x, np.float32, copy=True))
 
 
@@ -247,7 +249,8 @@ def resize_pos_embed(table: torch.Tensor, grid) -> torch.Tensor:
                      dim=1)
 
 
-def load_vit_reference_weights_(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+def load_vit_reference_weights_(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                                keep: Iterable[str] = ()) -> None:
     """A reference-layout ViT state dict into `model` (models/vit.py) as the
     JAX importer reads it (utils/torch_import.py:113-201
     load_torch_vit_params): exactly the module's parameters and ConvStem
@@ -255,12 +258,13 @@ def load_vit_reference_weights_(model: torch.nn.Module, sd: Dict[str, torch.Tens
     file's other tensors (head.*, an MAE decoder the model lacks,
     mask_token) are ignored.  The model's fixed sin-cos tables are its own
     constants, whatever the file holds; a learned pos_embed is read and
-    resized to the model's grid (resize_pos_embed)."""
+    resized to the model's grid (resize_pos_embed).  keep: more of the
+    module's names to leave as they are."""
     sd = dict(sd)
     if isinstance(model.pos_embed, torch.nn.Parameter) and "pos_embed" in sd:
         sd["pos_embed"] = resize_pos_embed(sd["pos_embed"], model.grid_size())
     fixed = [name for name, _ in model.named_buffers() if name.endswith("pos_embed")]
-    load_reference_weights_(model, sd, keep=fixed)
+    load_reference_weights_(model, sd, keep=[*fixed, *keep])
 
 
 def classifier_head_from_jax(head) -> Dict[str, torch.Tensor]:
@@ -399,3 +403,266 @@ def mlp_clf_params_from_jax(params) -> Dict[str, torch.Tensor]:
         sd[f"{2 * i}.weight"] = _t(np.asarray(layer["w"]).T)
         sd[f"{2 * i}.bias"] = _t(layer["b"])
     return sd
+
+
+# ------------------------------------------------- Orbax trees (utils/orbax.py)
+
+_STATS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def _is_encoder_tree(t) -> bool:
+    """An encoder's own parameter tree: AudioNTT2022's ({"encoder": {Conv_0,
+    ...}}), a ResNet's (stem) or a ViT's (cls_token, patch_embed)."""
+    return isinstance(t, dict) and (
+        (isinstance(t.get("encoder"), dict) and "Conv_0" in t["encoder"])
+        or "stem" in t or "stem1" in t or "cls_token" in t or "patch_embed" in t)
+
+
+def encoder_trees_from_jax(tree, where: str = "the checkpoint"):
+    """A tree that a JAX loader reads (utils/orbax.py read_orbax_tree) ->
+    (the encoder's parameter tree, its batch-statistics tree or None), as
+    JAX's load_encoder_checkpoint and HEAR loaders take them: from a whole
+    TrainState (state/params/encoder, the legacy DINO / BYOL-A states' online
+    encoder included), a save_params_only tree ({"params": ...}), the
+    importer's tree (tools/import_torch_ckpt.py: params/encoder, AudioNTT's
+    params/encoder/encoder) or an encoder's own {"params", "batch_stats"}.
+    None where the tree holds no statistics (a params-only save): the
+    module's own stay.  ValueError names what was found otherwise."""
+    src = tree.get("state", tree) if isinstance(tree, dict) else None
+    if not isinstance(src, dict) or not isinstance(src.get("params"), dict):
+        raise ValueError(f"{where}: no params tree (top-level keys "
+                         f"{sorted(tree) if isinstance(tree, dict) else type(tree).__name__})")
+    params, stats = src["params"], src.get("batch_stats") or {}
+    while not _is_encoder_tree(params):
+        if not isinstance(params.get("encoder"), dict):
+            raise ValueError(f"{where}: no encoder under params (keys {sorted(params)})")
+        params = params["encoder"]
+        stats = (stats.get("encoder") or {}) if isinstance(stats, dict) else {}
+    return params, (stats or None)
+
+
+def load_encoder_from_jax_(module: torch.nn.Module, params, stats=None) -> None:
+    """The JAX encoder trees (encoder_trees_from_jax) into a port encoder,
+    as a reference `.pth` loads (load_reference_weights_,
+    load_vit_reference_weights_): every parameter by name and shape.  stats
+    None keeps the module's running statistics (JAX's loaders keep their
+    template's where the checkpoint has none)."""
+    from ssl_audio_tpu_torch.models.vit import MaskedAutoencoderViT
+
+    vit = isinstance(module, MaskedAutoencoderViT)
+    sd = encoder_state_dict_from_jax(
+        params, stats if stats is not None else _zero_stats_like(params),
+        module.spec if vit else None)
+    keep = [k for k in module.state_dict() if k.endswith(_STATS)] if stats is None else []
+    if vit:
+        load_vit_reference_weights_(module, sd, keep=keep)
+    else:
+        load_reference_weights_(module, sd, keep=keep)
+
+
+def _fill_none(tree, like):
+    """`tree` with every None leaf (optax keeps no moment for a frozen
+    parameter) replaced by zeros shaped like `like`'s leaf."""
+    if tree is None:
+        return {k: _fill_none(None, v) for k, v in like.items()} if isinstance(like, dict) \
+            else np.zeros(np.shape(like), np.float32)
+    if isinstance(tree, dict):
+        return {k: _fill_none(v, like[k]) for k, v in tree.items()}
+    return tree
+
+
+def moments_from_jax(opt_state) -> dict:
+    """The optimizer state of a JAX train state (as read) -> {"kind":
+    "lars" | "adamw" | "adam" | "sgd", "count": the updates taken, "mu",
+    "nu": moment trees or None}, for every optimizer train/optim.py builds:
+    LARS ({count, mu}), optax.adamw / adam / sgd under inject_hyperparams
+    (count, hyperparams, inner_state with ScaleByAdamState {count, mu,
+    nu}), the legacy DINO AdamW (the same) and BYOL-A's plain adam (a chain:
+    [{count, mu, nu}, None]), each inside multi_transform's "train" branch
+    where a parameter is frozen."""
+    if isinstance(opt_state, dict) and "inner_states" in opt_state:
+        opt_state = opt_state["inner_states"]["train"]["inner_state"]
+    hyper = opt_state.get("hyperparams") if isinstance(opt_state, dict) else None
+
+    def find(node):
+        if isinstance(node, dict):
+            if "mu" in node:
+                return node
+            node = node.get("inner_state")
+        if isinstance(node, (list, dict)):
+            for v in (node if isinstance(node, list) else [node]):
+                hit = find(v)
+                if hit is not None:
+                    return hit
+        return None
+
+    m = find(opt_state)
+    if m is not None and "nu" not in m:
+        return {"kind": "lars", "count": int(m["count"]), "mu": m["mu"], "nu": None}
+    if hyper is not None:
+        count = int(opt_state["count"])
+    elif m is not None:
+        count = int(m["count"])
+    else:
+        raise ValueError(f"no optimizer moments or step count in the checkpoint's "
+                         f"optimizer state ({type(opt_state).__name__})")
+    if m is None:
+        return {"kind": "sgd", "count": count, "mu": None, "nu": None}
+    kind = "adamw" if hyper is not None and "weight_decay" in hyper else "adam"
+    return {"kind": kind, "count": count, "mu": m["mu"], "nu": m["nu"]}
+
+
+def _stack_state_dict(tree, stats, method, vit_spec, prefix="") -> Dict[str, torch.Tensor]:
+    """One stack's trees -> one flat state dict under the modules' names."""
+    if method is None:
+        sds = train_state_dicts_from_jax(tree, stats, vit_spec)
+    else:
+        sds = legacy_state_dicts_from_jax(tree, stats, method, vit_spec)
+    return {f"{prefix}{m}.{k}": v for m, sd in sds.items() for k, v in sd.items()}
+
+
+def _moment_state_dict(mu, params, method, vit_spec) -> Dict[str, torch.Tensor]:
+    """A moment tree shaped like the parameters (or [online, target] where
+    one optimizer spans both BYOL stacks) -> moments under the parameters'
+    names."""
+    if isinstance(mu, list):
+        online, target = params
+        return {**_moment_state_dict(mu[0], online, method, vit_spec),
+                **{f"target.{k}": v
+                   for k, v in _moment_state_dict(mu[1], target, method, vit_spec).items()}}
+    mu = _fill_none(mu, params)
+    sd = _stack_state_dict(mu, _zero_stats_like(mu), method, vit_spec)
+    return {k: v for k, v in sd.items() if not k.endswith(_STATS)}
+
+
+def _optimizer_kind(optimizer) -> str:
+    from ssl_audio_tpu_torch.train.optim import LARS
+
+    if isinstance(optimizer, LARS):
+        return "lars"
+    if isinstance(optimizer, torch.optim.AdamW):
+        return "adamw"
+    return "adam" if isinstance(optimizer, torch.optim.Adam) else "sgd"
+
+
+def train_state_dict_from_jax(tree, state, method: str | None = None) -> dict:
+    """A whole JAX train state as read (utils/orbax.py; {"state", "epoch"})
+    -> (the port's TrainState.state_dict() for `state`, the epoch the JAX
+    run would resume at).  state: the port's train state of the same
+    configuration (train/state.py init_train_state, or
+    train/legacy_steps.py init_legacy_state for method "dino" / "byola"),
+    which gives the modules' names, the optimizer's groups and the
+    augmentation parts.  Carries the parameters and running statistics of
+    every stack (the BYOL and legacy targets too), the optimizer's moments
+    (LARS momentum; Adam / AdamW mu, nu and count) and step count, the LR
+    schedule's position, the mixup ring, the running norm, the step and
+    the DINO centre.  ValueError where the tree is not a train state or
+    belongs to another optimizer."""
+    if not isinstance(tree, dict) or not isinstance(tree.get("state"), dict):
+        raise ValueError(f"not a whole JAX train state (top-level keys "
+                         f"{sorted(tree) if isinstance(tree, dict) else type(tree).__name__}); "
+                         "a params-only or imported tree carries the encoder alone")
+    src = tree["state"]
+    enc = state.modules["encoder"]
+    vit_spec = getattr(enc, "spec", None) if hasattr(enc, "grid_size") else None
+    model = _stack_state_dict(src["params"], src["batch_stats"], method, vit_spec)
+    if src.get("target_params") is not None:
+        model.update(_stack_state_dict(src["target_params"], src["target_batch_stats"], method,
+                                       vit_spec, prefix="target."))
+    m = moments_from_jax(src["opt_state"])
+    want = _optimizer_kind(state.optimizer)
+    if m["kind"] != want:
+        raise ValueError(f"the checkpoint's optimizer is {m['kind']}, this configuration's "
+                         f"{want} (pass the run's own --optimizer)")
+    osd = state.optimizer.state_dict()
+    if m["mu"] is not None:
+        params = src["params"]
+        if isinstance(m["mu"], list):
+            params = (src["params"], src["target_params"])
+        mus = _moment_state_dict(m["mu"], params, method, vit_spec)
+        nus = None if m["nu"] is None else _moment_state_dict(m["nu"], params, method, vit_spec)
+        names = {id(p): n for n, p in state.modules.named_parameters()}
+        per_param = {}
+        for group, saved in zip(state.optimizer.param_groups, osd["param_groups"]):
+            for p, i in zip(group["params"], saved["params"]):
+                name = names[id(p)]
+                if name not in mus:
+                    raise ValueError(f"the checkpoint holds no optimizer moment for {name}")
+                if tuple(mus[name].shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: the checkpoint's moment has the shape "
+                                     f"{tuple(mus[name].shape)}, the parameter {tuple(p.shape)}")
+                if nus is None:
+                    per_param[i] = {"mu": mus[name]}
+                else:
+                    per_param[i] = {"step": torch.tensor(float(m["count"])),
+                                    "exp_avg": mus[name], "exp_avg_sq": nus[name]}
+        osd["state"] = per_param
+    if want == "lars":
+        osd["count"] = m["count"]
+    sched = None
+    if state.scheduler is not None:
+        sched = state.scheduler.state_dict()
+        sched["last_epoch" if "last_epoch" in sched else "count"] = m["count"]
+    return {"model": model, "optimizer": osd, "scheduler": sched,
+            "augment": _augment_from_jax(src.get("aug"), state),
+            "step": int(src["step"]),
+            **({"center": _t(src["extra"]["center"])} if method == "dino" else {})
+            }, int(tree["epoch"])
+
+
+def _augment_from_jax(aug, state) -> dict:
+    """The JAX AugmentState (mixup ring, running norm) -> the port's
+    AugmentState.state_dict().  A CIFAR-10 state's ring is left out (the
+    port keeps none: CIFAR views never read it)."""
+    aug = aug or {}
+    out = {}
+    for name, part in (("mixup", state.aug.mixup), ("running_norm", state.aug.running_norm)):
+        src = aug.get(name)
+        if part is None:
+            if src is not None and state.cfg.dataset != "cifar10":
+                raise ValueError(f"the checkpoint has a {name} state, this configuration none")
+            out[name] = None
+        elif src is None:
+            raise ValueError(f"the checkpoint has no {name} state, this configuration one")
+        elif name == "mixup":
+            out[name] = {"bank": _t(src["bank"]), "count": int(src["count"]),
+                         "pos": int(src["pos"])}
+        else:
+            if int(src["n"]) != int(src["s2_n"]):
+                raise ValueError(f"running norm: n {int(src['n'])} != s2_n {int(src['s2_n'])}")
+            out[name] = {"mu": _t(src["mu"]), "s2": _t(src["s2"]), "n": int(src["n"])}
+    return out
+
+
+def reference_state_dict_from_jax(params, stats, model_type: str, vit_spec=None,
+                                  squeeze_excitation: bool = False) -> Dict[str, torch.Tensor]:
+    """A JAX encoder's trees (encoder_trees_from_jax) -> the reference-layout
+    state dict that the JAX package's tools/export_torch_ckpt.py writes for
+    them (utils/torch_export.py), key for key and value for value: a ViT's
+    (vit_spec: its ViTSpec) with the fixed sin-cos tables recomputed as 2-D
+    tables with a CLS row (the decoder's too, at its width) and a ConvStem
+    without statistics at mean 0 / var 1; AudioNTT2022's with SE blocks
+    where the tree has them or squeeze_excitation asks; a ResNet's."""
+    from ssl_audio_tpu_torch.ops.pos_embed import get_2d_sincos_pos_embed
+
+    stats = stats or {}
+    if vit_spec is not None:
+        pe = params["patch_embed"]
+        bn = dict(stats.get("patch_embed", {}))
+        for i in range(len([k for k in pe if k.startswith("conv")])):
+            scale = np.asarray(pe[f"bn{i}"]["scale"], np.float32)
+            have = bn.get(f"bn{i}", {})
+            bn[f"bn{i}"] = {"mean": have.get("mean", np.zeros_like(scale)),
+                            "var": have.get("var", np.ones_like(scale))}
+        sd = vit_state_dict_from_jax(params, {"patch_embed": bn}, vit_spec)
+        grid = (vit_spec.img_size[0] // vit_spec.patch_size[0],
+                vit_spec.img_size[1] // vit_spec.patch_size[1])
+        if "decoder_embed" in params:
+            dim = int(np.asarray(params["decoder_embed"]["kernel"]).shape[1])
+            sd["decoder_pos_embed"] = _t(get_2d_sincos_pos_embed(dim, grid)[None])
+        return sd
+    variables = {"params": params, "batch_stats": stats}
+    if model_type == "audiontt":
+        se = squeeze_excitation or "SEBlock_0" in params.get("encoder", {})
+        return audiontt_state_dict_from_jax(variables, squeeze_excitation=se)
+    return resnet_state_dict_from_jax(variables)

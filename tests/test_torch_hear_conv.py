@@ -177,8 +177,39 @@ def test_no_silent_cpu_and_unported_options():
         tconv.load_model(compute_dtype="float16", device="cpu")
     with pytest.raises(NotImplementedError):     # not a HEAR conv model type, in JAX either
         tconv.load_model(model_type="resnet34", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):       # a missing checkpoint, never random weights
         tconv.load_model("checkpoints/orbax_dir", device="cpu")
+
+
+@pytest.mark.parametrize("layout", ["train_state", "variables"])
+def test_orbax_checkpoint_loads_into_both(models, audio, tmp_path, layout):
+    """A directory the JAX package writes (its save_checkpoint of a train
+    state, or an encoder's own variables) gives the port the weights JAX's
+    _load_weights reads from it: the same embeddings."""
+    import orbax.checkpoint as ocp
+
+    from ssl_audio_tpu.utils import checkpoint as jckpt
+
+    jm = models[0]
+    v = jax.tree.map(np.asarray, jm.variables)
+    path = str(tmp_path / layout)
+    if layout == "train_state":
+        jckpt.save_checkpoint(path, {"params": {"encoder": v["params"], "head": {}},
+                                     "batch_stats": {"encoder": v["batch_stats"]}}, 3)
+    else:
+        ckptr = ocp.StandardCheckpointer()
+        ckptr.save(path, v)
+        ckptr.wait_until_finished()
+    tm = tconv.load_model(path, "audiontt", device="cpu")
+    saved = jm.variables
+    jm.variables = jm._load_weights(path)         # the JAX wrapper's reading, same jit
+    try:
+        ref = jconv.get_scene_embeddings(audio, jm).numpy()
+    finally:
+        jm.variables = saved
+    assert_close_emb(tconv.get_scene_embeddings(audio, tm), ref)
+    for k, t in audiontt_state_dict_from_jax(v).items():
+        assert torch.equal(tm.model.state_dict()[k], t), k
 
 
 def test_load_model_takes_the_jax_arguments_in_their_order():

@@ -192,6 +192,61 @@ def test_reference_pth_rule_matches_jax(models, audio, tmp_path, case):
                                                                       patch)).numpy())
 
 
+@pytest.mark.parametrize("models,layout", [("vit_tiny", "train_state"),
+                                           ("vitc_tiny", "train_state"),
+                                           ("vit_tiny", "params_only")], indirect=["models"])
+def test_orbax_checkpoint_loads_into_both(models, audio, tmp_path, layout):
+    """A directory the JAX package writes (its save_checkpoint of a train
+    state, or save_params_only, which JAX's wrapper serves where the model
+    has no statistics) gives the port the weights JAX's _load_weights reads
+    from it: the same embeddings."""
+    from ssl_audio_tpu.utils import checkpoint as jckpt
+
+    name, jm, _ = models
+    model_type, patch = MODELS[name]
+    v = jax.tree.map(np.asarray, jm.variables)
+    path = str(tmp_path / layout)
+    if layout == "train_state":
+        jckpt.save_checkpoint(path, {"params": {"encoder": v["params"]},
+                                     "batch_stats": {"encoder": v.get("batch_stats", {})}}, 3)
+    else:
+        jckpt.save_params_only(path, {"encoder": v["params"]})
+    tm = tvit.load_model(path, model_type, patch, device="cpu")
+    saved = jm.variables
+    jm.variables = jm._load_weights(path)         # the JAX wrapper's reading, same jit
+    try:
+        ref = jvit.get_scene_embeddings(audio, jm)
+    finally:
+        jm.variables = saved
+    assert_close_emb(tvit.get_scene_embeddings(audio, tm), ref.numpy())
+
+
+@pytest.mark.parametrize("models", ["vit_tiny"], indirect=True)
+def test_a_port_checkpoint_goes_back_to_jax(models, audio, tmp_path):
+    """The way back: a port .pt -> tools/convert_checkpoint.py --to pth ->
+    the JAX package's own tools/import_torch_ckpt.py -> an Orbax directory
+    that the JAX wrapper reads, its embeddings within EMB_RTOL of the
+    port's from the .pt."""
+    from ssl_audio_tpu_torch.tools import convert_checkpoint as convert
+    from tools import import_torch_ckpt
+
+    _, jm, tm = models
+    pt = str(tmp_path / "model_3.pt")
+    torch.save({"model": {f"encoder.{k}": t for k, t in tm.model.state_dict().items()}}, pt)
+    convert.main(["--ckpt", pt, "--to", "pth", "--out", str(tmp_path / "m.pth"),
+                  "--model_type", "vit_tiny"])
+    import_torch_ckpt.main(["--model_type", "vit_tiny", "--pth", str(tmp_path / "m.pth"),
+                            "--out", str(tmp_path / "orbax")])
+    saved = jm.variables
+    jm.variables = jm._load_weights(str(tmp_path / "orbax"))
+    try:
+        ref = jvit.get_scene_embeddings(audio, jm)
+    finally:
+        jm.variables = saved
+    out = tvit.get_scene_embeddings(audio, tvit.load_model(pt, "vit_tiny", "16x16", device="cpu"))
+    assert_close_emb(out, ref.numpy())
+
+
 def test_learned_table_is_resized_as_jax():
     """A learned position table of a 3 x 3 grid goes into a model of a 4 x 6
     grid resized bicubically, as JAX's interpolate_pos_embed."""
@@ -221,7 +276,7 @@ def test_no_silent_cpu_and_unported_options():
             tvit.load_model()
     with pytest.raises(ValueError):         # bfloat16 is ported; other types are not
         tvit.load_model(compute_dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):       # a missing checkpoint, never random weights
         tvit.load_model("checkpoints/orbax_dir", "vit_tiny", "16x16", device="cpu")
     with pytest.raises(ValueError):
         tvit.load_model("", "vit_tiny", "16x16", fetch_dtype="float16", device="cpu")

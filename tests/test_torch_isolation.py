@@ -2,7 +2,9 @@
 torch and never jax or anything of the JAX package ssl_audio_tpu, nor
 scikit-learn or PyYAML (the card's machine has neither; the one exception
 is `--config`'s reader in config.py, which imports PyYAML when called and
-names the package when it is missing), name no path
+names the package when it is missing), nor, when a module is imported,
+flax, orbax, tensorstore, optuna, wandb or matplotlib (the functions that
+need them import them), name no path
 under the JAX side's native/ or ssl_audio_tpu/ (the port builds its own
 copies of the C++ readers), and chip_smoke.py refuses to run without a CUDA
 device or without the repo."""
@@ -28,7 +30,8 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k.startswith("jaxlib")
              or k == "ssl_audio_tpu" or k.startswith("ssl_audio_tpu.")
-             or k.split(".")[0] in ("sklearn", "yaml"))
+             or k.split(".")[0] in ("sklearn", "yaml", "flax", "orbax", "tensorstore",
+                                    "optuna", "wandb", "matplotlib"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -60,7 +63,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                  "models.resnet", "models.audiontt", "utils.weights", "hear.pipeline",
                  "parallel", "data.cifar10", "augment.cifar", "eval.cifar_knn",
                  "augment.spec_augment", "augment.mask_conv", "eval.finetune", "evaluate",
-                 "extract_embeddings"):
+                 "extract_embeddings", "utils.orbax", "utils.metric_logger", "utils.plotting",
+                 "utils.flops", "tools.convert_checkpoint", "run_hyperparameter_sweep"):
         assert f"ssl_audio_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

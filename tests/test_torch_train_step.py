@@ -1,7 +1,7 @@
 """The training slice as a whole: two consecutive Barlow Twins steps of the
 port (ssl_audio_tpu_torch/train/steps.py) against the JAX package's
-make_train_step (raw, un-jitted), from the same parameters, the same raw
-wav batches and the same random draws, on the CPU.
+make_train_step (raw, jitted as its Trainer runs it), from the same
+parameters, the same raw wav batches and the same random draws, on the CPU.
 
 Randomness: JAX draws.  The test replays the key splits of the JAX step
 (_split_rngs, make_pair_views, the frontend's randint) to recover the crop
@@ -161,7 +161,7 @@ def test_two_train_steps_match_jax(monkeypatch, options):
                         lambda self, inputs, deterministic=None, rng=None: inputs)
     jcfg, cfg = jax_config(**KW, **options), default_config(**KW, **options, device="cpu")
     mods, jstate = jax_initial_state(jcfg)
-    jstep = jax_make_train_step(mods, frontend=jax_frontend(jcfg, STATS), raw=True)
+    jstep = jax.jit(jax_make_train_step(mods, frontend=jax_frontend(jcfg, STATS), raw=True))
 
     state = init_train_state(cfg, torch.Generator().manual_seed(0), niter_per_ep=2,
                              device="cpu")
@@ -208,7 +208,7 @@ def test_one_fsd50k_epoch_matches_jax(tmp_path, monkeypatch):
     loader = DataLoader(get_train_dataset(cfg), 4, num_workers=2, seed=0,
                         log=lambda line: None)
     mods, jstate = jax_init_train_state(jcfg, jax.random.key(0), niter_per_ep=len(loader))
-    jstep = jax_make_train_step(mods, raw=True)
+    jstep = jax.jit(jax_make_train_step(mods, raw=True))
     state = init_train_state(cfg, torch.Generator().manual_seed(0), niter_per_ep=len(loader),
                              device="cpu")
     sds = jax_state_dicts(jstate)
